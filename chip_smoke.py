@@ -1,0 +1,459 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
+
+    python3 chip_smoke.py
+
+Phases (each raises on failure; none is caught):
+
+1. build   — compile every kernel in src/repro_torch/kernels/csrc with nvcc,
+             one process per source, all at once;
+2. kernels — each hand-written kernel against its plain PyTorch version on
+             the card: the reference's test sweep shapes (tests/test_kernels.py,
+             ring-buffer wraparound included) and the full-width qwen3-4b
+             shapes, at float32 and bfloat16, each held against its plain
+             version run in float32 on the same inputs (tolerances at TOL),
+             TF32 off;
+3. model   — the port's CUDA path against its CPU path on a small model
+             (f32, 1e-3: cuBLAS and CPU sum in different orders); then the
+             main path at full qwen3-4b width in bf16 with seeded random
+             weights: Model.prefill on 4 x 1024 tokens and Engine.generate
+             answering 4 requests (context 1024, prompt 64, 32 new tokens),
+             with the kernels' launch counters reset just before and read
+             just after; then prefill against token-by-token decode on one
+             128-token prompt (the two attention kernels end to end);
+4. times   — Model.prefill wall time; device time by kernel for a prefill
+             and for decode steps (torch.profiler) with the device's busy
+             share; each kernel, its plain version and the PyTorch library
+             call (scaled_dot_product_attention) at the full-width shapes,
+             device time only (calls captured in a CUDA graph, replayed
+             between CUDA events); the bound from the shapes and the H100's
+             peaks.
+
+Prints the card's name and power limit, one ``{"kernels": [...]}`` line, and
+as the last line ``{"ok": true, "device": {...}}``.  Exits non-zero, with no
+result, when there is no CUDA device or no ``src/repro_torch`` beside it.
+"""
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM3 rate and tensor-core /
+# CUDA-core rates by input type
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# Both kernels compute in f32 and round the output to q's dtype once, so each
+# is held against its plain version computed in f32 on the same inputs.
+# f32: the reference sweep's 2e-5 (tests/test_kernels.py:23; the two sum in
+# different orders).  bf16: the one rounding, at most half a bf16 ulp, which
+# is 2**-8 of the value (rtol 4e-3), on top of the same f32 differences.
+TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5), torch.bfloat16: dict(atol=2e-5, rtol=4e-3)}
+
+# the reference's kernel sweeps (tests/test_kernels.py:27-92)
+FLASH_SWEEP = [(1, 128, 4, 4, 32), (2, 256, 4, 2, 32), (1, 128, 8, 1, 64)]
+DECODE_SWEEP = [(2, 4, 2, 32, 256), (1, 8, 1, 64, 128), (2, 4, 4, 32, 128)]
+
+# full-width qwen3-4b serving shapes
+B, S_PREFILL, CONTEXT, PROMPT, NEW_TOKENS, AGREE_LEN = 4, 1024, 1024, 64, 32, 128
+H, KV, D = 32, 8, 128
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def max_err(got: torch.Tensor, want: torch.Tensor, dtype: torch.dtype) -> float:
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    tol = TOL[dtype]
+    bad = err > tol["atol"] + tol["rtol"] * w.abs()
+    if not torch.isfinite(g).all() or bad.any():
+        raise AssertionError(f"kernel disagrees with its plain version: max |err| "
+                             f"{err.max().item():.3e} ({int(bad.sum())} elements out of tolerance)")
+    return err.max().item()
+
+
+def graph_ms(fn, iters: int, replays: int = 5) -> float:
+    """Mean device milliseconds per call: ``iters`` calls captured in one
+    CUDA graph, replayed between CUDA events, so the host's launch cost is
+    not in the time."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * iters)
+
+
+def randn(gen, shape, dtype, dev):
+    return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(dtype)
+
+
+def f32(*xs):
+    return [x.float() for x in xs]
+
+
+def phase_build():
+    from repro_torch.kernels import _build as build
+
+    t0 = time.perf_counter()
+    libs = build.build_all()
+    log(f"[build] {len(libs)} kernels in {time.perf_counter() - t0:.3f}s: "
+        + ", ".join(p.name for p in libs.values()))
+
+
+def phase_kernels(dev):
+    """Each kernel against its plain version; returns the largest
+    full-width bf16 error of each (the main path's dtype)."""
+    from repro_torch import kernels as K
+    from repro_torch.kernels import ref as R
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(42)
+    full = {}
+    n = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for (b, s, h, k, d) in FLASH_SWEEP + [(B, S_PREFILL, H, KV, D)]:
+            for causal in (True, False):
+                for window in (None, 96):
+                    if s == S_PREFILL and (not causal or window):
+                        continue          # full width: the model's causal case only
+                    q = randn(gen, (b, s, h, d), dtype, dev)
+                    kk = randn(gen, (b, s, k, d), dtype, dev)
+                    v = randn(gen, (b, s, k, d), dtype, dev)
+                    got = K.flash_attention(q, kk, v, causal=causal, window=window)
+                    want = R.flash_attention_ref(*f32(q, kk, v), causal, window)
+                    err = max_err(got, want, dtype)
+                    n += 1
+                    if s == S_PREFILL:
+                        log(f"[kernels] flash_attention full width {tuple(q.shape)} "
+                            f"{str(dtype)[6:]} causal: max |err| {err:.3e}")
+                        full[("flash_attention", dtype)] = err
+        cases = [(shape, w, f) for shape in DECODE_SWEEP for w in (None, 48) for f in (16, 100)]
+        # full width: a full cache, and Engine.generate's fill (prompt + new
+        # tokens), where most cache splits hold only empty slots
+        cases += [((B, H, KV, D, CONTEXT), w, f)
+                  for w, f in ((None, CONTEXT), (256, CONTEXT), (None, PROMPT + NEW_TOKENS))]
+        for (b, h, k, d, c), window, fill in cases:
+            q = randn(gen, (b, h, d), dtype, dev)
+            kc = randn(gen, (b, c, k, d), dtype, dev)
+            vc = randn(gen, (b, c, k, d), dtype, dev)
+            pos = torch.where(torch.arange(c) < fill, torch.arange(c), -1).to(torch.int32).to(dev)
+            npos = torch.tensor(fill - 1, dtype=torch.int32, device=dev)
+            got = K.decode_attention(q, kc, vc, pos, npos, window=window)
+            err = max_err(got, R.decode_attention_ref(*f32(q, kc, vc), pos, npos, window), dtype)
+            n += 1
+            if c == CONTEXT:
+                log(f"[kernels] decode_attention full width q {tuple(q.shape)} cache "
+                    f"{tuple(kc.shape)} {str(dtype)[6:]} window {window} fill {fill}: "
+                    f"max |err| {err:.3e}")
+                key = ("decode_attention", dtype)
+                full[key] = max(full.get(key, 0.0), err)
+        # ring buffer that has wrapped: slot i < 10 holds position i + c
+        c = 64
+        q = randn(gen, (1, 2, 16), dtype, dev)
+        kc, vc = randn(gen, (1, c, 2, 16), dtype, dev), randn(gen, (1, c, 2, 16), dtype, dev)
+        pos = torch.where(torch.arange(c) < 10, torch.arange(c) + c, torch.arange(c))
+        pos = pos.to(torch.int32).to(dev)
+        npos = torch.tensor(c + 9, dtype=torch.int32, device=dev)
+        max_err(K.decode_attention(q, kc, vc, pos, npos, window=c),
+                R.decode_attention_ref(*f32(q, kc, vc), pos, npos, c), dtype)
+        n += 1
+    torch.cuda.synchronize()
+    log(f"[kernels] {n} comparisons within tolerance (f32 2e-5; bf16 atol 2e-5 rtol 4e-3 "
+        f"against the plain version in f32; TF32 off)")
+    return {name: full[(name, torch.bfloat16)] for name in ("flash_attention", "decode_attention")}
+
+
+def to_device(tree, device):
+    return {k: to_device(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
+def phase_model(dev):
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.runtime import Engine, ServeConfig
+
+    # small model: the CUDA path (kernels) against the CPU path (plain
+    # versions), which the CPU tests hold against the JAX reference
+    small = Model(get_config("qwen3-4b", smoke=True))
+    p_cpu = small.init(seed=1, device="cpu")
+    p_gpu = to_device(p_cpu, dev)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, 512, (2, 64)))
+    with torch.inference_mode():
+        want = small.prefill(p_cpu, {"tokens": toks})
+        got = small.prefill(p_gpu, {"tokens": toks.to(dev)}).cpu()
+        err = (got - want).abs().max().item()
+        if not err <= 1e-3:
+            raise AssertionError(f"small model: CUDA prefill vs CPU prefill max |err| {err:.3e}")
+        st_c = small.init_decode_state(2, 16, device="cpu")
+        st_g = small.init_decode_state(2, 16, device=dev)
+        for t in range(16):
+            lc, st_c = small.decode_step(p_cpu, st_c, toks[:, t])
+            lg, st_g = small.decode_step(p_gpu, st_g, toks[:, t].to(dev))
+        err_d = (lg.cpu() - lc).abs().max().item()
+        if not err_d <= 1e-3:
+            raise AssertionError(f"small model: CUDA decode vs CPU decode max |err| {err_d:.3e}")
+    log(f"[model] smoke qwen3-4b f32, CUDA vs CPU path: prefill max |err| {err:.3e}, "
+        f"16-step decode max |err| {err_d:.3e} (tolerance 1e-3)")
+
+    cfg = get_config("qwen3-4b")
+    model = Model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(seed=0, device=dev)
+    torch.cuda.synchronize()
+    log(f"[model] {cfg.name} full width, bf16: {model.num_params() / 1e9:.3f}B params "
+        f"initialised on the card in {time.perf_counter() - t0:.3f}s")
+    rng = np.random.default_rng(0)
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S_PREFILL)).astype(np.int32))
+
+    # ---- the main path, with the launch counters read around it
+    K.reset_launch_counts()
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        logits = model.prefill(params, {"tokens": prompts.to(dev)})
+        torch.cuda.synchronize()
+        t_prefill = time.perf_counter() - t0
+    after_prefill = K.launch_counts()
+    engine = Engine(model, ServeConfig(batch=B, context=CONTEXT), device=dev)
+    out, rec = engine.generate(params, prompts[:, :PROMPT].numpy(), max_new_tokens=NEW_TOKENS)
+    counts = K.launch_counts()
+    # ----
+    if logits.shape != (B, cfg.vocab_size) or not torch.isfinite(logits).all():
+        raise AssertionError(f"prefill logits {tuple(logits.shape)} not finite/shaped")
+    if out.shape != (B, NEW_TOKENS) or out.min() < 0 or out.max() >= cfg.vocab_size:
+        raise AssertionError(f"generated tokens {out.shape} out of range")
+    if min(counts.values()) <= 0:
+        raise AssertionError(f"a kernel of the main path was never launched: {counts}")
+    steps = PROMPT + NEW_TOKENS
+    log(f"[model] launches on the main path: {counts} (flash {after_prefill['flash_attention']} "
+        f"per prefill; decode {counts['decode_attention'] / steps:g} per decode step over "
+        f"{steps} steps)")
+    log(f"[model] first prefill ({B} x {S_PREFILL} tokens) {t_prefill * 1e3:.3f} ms; generated "
+        f"{out.shape}, first row {out[0, :8].tolist()}")
+    rep = engine.report()
+    for row in rec.breakdown_table():
+        log(f"[model]   {row['stage']:>16s}: mean {row['mean'] * 1e3:8.3f} ms  cv {row['cv']:.3f}")
+    log(f"[model] decode step mean {rep['mean_s'] * 1e3:.3f} ms cv {rep['cv']:.3f} p99 "
+        f"{rep['p99_s'] * 1e3:.3f} ms -> {B / rep['mean_s']:.1f} tokens/s (batch {B})")
+
+    # ---- prefill vs token-by-token decode over one prompt
+    agree = prompts[:, :AGREE_LEN].to(dev)
+    with torch.inference_mode():
+        pre = model.prefill(params, {"tokens": agree}).float()
+        state = model.init_decode_state(B, AGREE_LEN, device=dev)
+        for t in range(AGREE_LEN):
+            dec, state = model.decode_step(params, state, agree[:, t])
+    rel = ((dec - pre).abs().max() / pre.abs().max()).item()
+    same = (dec.argmax(-1) == pre.argmax(-1)).float().mean().item()
+    log(f"[model] prefill vs {AGREE_LEN}-step decode, last position: max |diff| / max |logit| "
+        f"= {rel:.3e} (tolerance 5e-2: bf16 activations rounded in differently shaped products "
+        f"over 36 layers); argmax agreement {same:.2f}")
+    if not rel <= 5e-2:
+        raise AssertionError("prefill and decode disagree")
+    return model, params, counts, rep["mean_s"]
+
+
+def _device_us(evt) -> float:
+    # the attribute's name changed across torch versions
+    return getattr(evt, "self_device_time_total", None) or getattr(evt, "self_cuda_time_total", 0)
+
+
+def phase_profile(model, params, dev, step_s: float, prefill_s: float):
+    """Device time by kernel for one prefill and a few decode steps
+    (torch.profiler); the device's busy share is its summed kernel time
+    over the unprofiled wall time of the same work."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, model.cfg.vocab_size, (B, S_PREFILL)).astype(np.int32)).to(dev)
+    n_steps = 4
+    with torch.inference_mode():
+        state = model.init_decode_state(B, CONTEXT, device=dev)
+        for t in range(PROMPT):
+            _, state = model.decode_step(params, state, toks[:, t])
+        torch.cuda.synchronize()
+        runs = {
+            "prefill": (lambda: model.prefill(params, {"tokens": toks}), 1, prefill_s),
+            "decode step": (lambda: model.decode_step(params, state, toks[:, PROMPT]),
+                            n_steps, step_s),
+        }
+        for name, (fn, reps, wall_s) in runs.items():
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+            # device-side events only: a CPU op's device time repeats its kernels'
+            rows = [(e.key, _device_us(e) / reps, e.count // reps)
+                    for e in prof.key_averages()
+                    if e.device_type != DeviceType.CPU and _device_us(e) > 0]
+            rows.sort(key=lambda r: -r[1])
+            total_ms = sum(r[1] for r in rows) / 1e3
+            log(f"[profile] {name}: device busy {total_ms:.3f} ms of {wall_s * 1e3:.3f} ms wall "
+                f"({total_ms / (wall_s * 1e3):.3f} busy, {1 - total_ms / (wall_s * 1e3):.3f} idle); "
+                f"{sum(r[2] for r in rows)} kernels")
+            for key, us, count in rows[:8]:
+                log(f"[profile]   {us / 1e3:9.3f} ms  x{count:<5d} {key[:90]}")
+
+
+def prefill_ms(model, params, dev, iters=3):
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, model.cfg.vocab_size, (B, S_PREFILL)).astype(np.int32)).to(dev)
+    times = []
+    with torch.inference_mode():
+        for _ in range(iters):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.prefill(params, {"tokens": toks})
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def sdpa(q, k, v, **kw):
+    """scaled_dot_product_attention on (B,H,S,D) tensors with grouped KV
+    heads; timed here only, the port never calls it."""
+    return F.scaled_dot_product_attention(q, k, v, enable_gqa=True, **kw)
+
+
+def bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_times(dev):
+    from repro_torch import kernels as K
+    from repro_torch.kernels import ref as R
+
+    dt = torch.bfloat16
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    res = {}
+
+    q = randn(gen, (B, S_PREFILL, H, D), dt, dev)
+    k = randn(gen, (B, S_PREFILL, KV, D), dt, dev)
+    v = randn(gen, (B, S_PREFILL, KV, D), dt, dev)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    ms = graph_ms(lambda: K.flash_attention(q, k, v, causal=True), 20)
+    plain = graph_ms(lambda: R.flash_attention_ref(q, k, v, True, None), 3)
+    lib = graph_ms(lambda: sdpa(qt, kt, vt, is_causal=True), 20)
+    lib_err = (sdpa(qt, kt, vt, is_causal=True).transpose(1, 2).float()
+               - K.flash_attention(q, k, v).float()).abs().max().item()
+    esz = q.element_size()
+    pairs = S_PREFILL * (S_PREFILL + 1) // 2
+    b_ms, b_by = bound((2 * q.numel() + k.numel() + v.numel()) * esz,
+                       4.0 * B * H * D * pairs, dt)
+    res["flash_attention"] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                                  bound_by=b_by)
+    log(f"[times] flash_attention q {tuple(q.shape)} kv {tuple(k.shape)} bf16 causal: kernel "
+        f"{ms:.4f} ms, plain {plain:.4f} ms, sdpa {lib:.4f} ms (|sdpa - kernel| {lib_err:.2e}), "
+        f"bound {b_ms:.4f} ms ({b_by}); {b_ms / ms:.3f} of bound")
+
+    # decode: cycle over caches larger than the 50 MB L2 together, as the
+    # 36 layers of a decode step each read their own cache
+    n_copies = 4
+    qd = randn(gen, (B, H, D), dt, dev)
+    caches = [(randn(gen, (B, CONTEXT, KV, D), dt, dev), randn(gen, (B, CONTEXT, KV, D), dt, dev))
+              for _ in range(n_copies)]
+    caches_t = [(kc.transpose(1, 2).contiguous(), vc.transpose(1, 2).contiguous())
+                for kc, vc in caches]
+    pos = torch.arange(CONTEXT, dtype=torch.int32, device=dev)
+    npos = torch.tensor(CONTEXT - 1, dtype=torch.int32, device=dev)
+    mask = (pos <= npos).view(1, 1, 1, CONTEXT)
+    qdt = qd.view(B, H, 1, D)
+    it = {"i": 0}
+
+    def cyc(fn):
+        def call():
+            it["i"] = (it["i"] + 1) % n_copies
+            return fn(it["i"])
+        return call
+
+    ms = graph_ms(cyc(lambda i: K.decode_attention(qd, *caches[i], pos, npos)), 200)
+    plain = graph_ms(cyc(lambda i: R.decode_attention_ref(qd, *caches[i], pos, npos)), 40)
+    lib = graph_ms(cyc(lambda i: sdpa(qdt, *caches_t[i], attn_mask=mask)), 200)
+    nbytes = (2 * qd.numel() + 2 * caches[0][0].numel()) * esz + 4 * (CONTEXT + 1)
+    b_ms, b_by = bound(nbytes, 4.0 * B * H * D * CONTEXT, dt)
+    res["decode_attention"] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                                   bound_by=b_by)
+    log(f"[times] decode_attention q {tuple(qd.shape)} cache {tuple(caches[0][0].shape)} bf16 "
+        f"(all {CONTEXT} slots valid): kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa "
+        f"{lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}); {b_ms / ms:.3f} of bound")
+    return res
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
+        return 1
+    src = Path(__file__).resolve().parent / "src"
+    if not (src / "repro_torch" / "__init__.py").is_file():
+        print(f"chip_smoke: {src / 'repro_torch'} not found; run from a checkout of the repo",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(src))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda:0")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    log(f"[device] {torch.cuda.get_device_name(0)}; torch {torch.__version__} cuda "
+        f"{torch.version.cuda}; python {sys.version.split()[0]}")
+
+    t_all = time.perf_counter()
+    phase_build()
+    errs = phase_kernels(dev)
+    model, params, counts, step_s = phase_model(dev)
+    pre = prefill_ms(model, params, dev)
+    log(f"[times] Model.prefill {B} x {S_PREFILL} tokens: {', '.join(f'{t:.3f}' for t in pre)} ms")
+    phase_profile(model, params, dev, step_s, min(pre) / 1e3)
+    times = phase_times(dev)
+
+    sources = {"flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                                   "src/repro/kernels/flash_attention.py:85"),
+               "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
+                                    "src/repro/kernels/decode_attention.py:75")}
+    rows = []
+    for name, (source, replaces) in sources.items():
+        t = times[name]
+        rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                     "launches": counts[name], "max_abs_err": errs[name],
+                     "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                     "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    if any(not math.isfinite(r["ms"]) for r in rows):
+        raise AssertionError("non-finite kernel time")
+    log(f"[done] all phases passed in {time.perf_counter() - t_all:.1f}s")
+    print(smi)
+    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

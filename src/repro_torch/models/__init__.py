@@ -1,0 +1,13 @@
+"""Model definitions (dense transformer family) in PyTorch."""
+from .params import ParamSpec, count_params, from_numpy, init_params, stack_specs
+from .transformer import DecodeState, Model
+
+__all__ = [
+    "DecodeState",
+    "Model",
+    "ParamSpec",
+    "count_params",
+    "from_numpy",
+    "init_params",
+    "stack_specs",
+]

@@ -1,0 +1,117 @@
+"""The hand-written CUDA kernels against their plain PyTorch versions on the
+card (marked ``cuda``; each test skips when ``torch.cuda.is_available()``
+is false, so on a CPU-only machine they all skip).  Run on the card with::
+
+    python -m pytest -m cuda tests/test_torch_cuda.py -q
+
+Imports torch and numpy only, so it runs where JAX is not installed.  Shapes
+are the reference sweep's (``tests/test_kernels.py``) plus a ragged
+sequence and cache length at head_dim 128.  The kernels compute in f32 and
+round the output to q's dtype once, so each is held against its plain
+version computed in f32 on the same inputs.  Tolerance: f32 2e-5 (the
+reference sweep's; summation order); bf16 the same plus half a bf16 ulp of
+the value, at most 2**-8 of it (rtol 4e-3).  TF32 off.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch import kernels as K  # noqa: E402
+from repro_torch.kernels import ref as R  # noqa: E402
+from repro_torch.kernels.decode_attention import decode_attention_cuda  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention_cuda  # noqa: E402
+
+TOL = {"float32": dict(atol=2e-5, rtol=2e-5), "bfloat16": dict(atol=2e-5, rtol=4e-3)}
+
+FLASH_SHAPES = [(1, 128, 4, 4, 32), (2, 256, 4, 2, 32), (1, 128, 8, 1, 64), (1, 100, 4, 2, 128)]
+DECODE_SHAPES = [(2, 4, 2, 32, 256), (1, 8, 1, 64, 128), (2, 4, 4, 32, 128), (2, 8, 2, 128, 100)]
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _randn(dev, dtype, seed, *shapes):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return [torch.randn(s, generator=gen, device=dev).to(getattr(torch, dtype)) for s in shapes]
+
+
+def _f32(*xs):
+    return [x.float() for x in xs]
+
+
+def _close(got, want, dtype):
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                               **TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,k,d", FLASH_SHAPES)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("window", [None, 96])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_matches_plain(dev, b, s, h, k, d, causal, window, dtype):
+    q, kk, v = _randn(dev, dtype, 0, (b, s, h, d), (b, s, k, d), (b, s, k, d))
+    n0 = flash_attention_cuda.launches
+    got = K.flash_attention(q, kk, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches == n0 + 1
+    _close(got, R.flash_attention_ref(*_f32(q, kk, v), causal, window), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,k,d,c", DECODE_SHAPES)
+@pytest.mark.parametrize("window", [None, 48])
+@pytest.mark.parametrize("fill", [16, 100])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_kernel_matches_plain(dev, b, h, k, d, c, window, fill, dtype):
+    q, kc, vc = _randn(dev, dtype, 3, (b, h, d), (b, c, k, d), (b, c, k, d))
+    pos = torch.where(torch.arange(c) < fill, torch.arange(c), -1).to(torch.int32).to(dev)
+    npos = torch.tensor(fill - 1, dtype=torch.int32, device=dev)
+    n0 = decode_attention_cuda.launches
+    got = K.decode_attention(q, kc, vc, pos, npos, window=window)
+    torch.cuda.synchronize()
+    assert decode_attention_cuda.launches == n0 + 1
+    _close(got, R.decode_attention_ref(*_f32(q, kc, vc), pos, npos, window), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_kernel_ring_buffer_wraparound(dev, dtype):
+    c = 64
+    q, kc, vc = _randn(dev, dtype, 6, (1, 2, 16), (1, c, 2, 16), (1, c, 2, 16))
+    pos = torch.where(torch.arange(c) < 10, torch.arange(c) + c, torch.arange(c))
+    pos = pos.to(torch.int32).to(dev)
+    npos = torch.tensor(c + 9, dtype=torch.int32, device=dev)
+    _close(K.decode_attention(q, kc, vc, pos, npos, window=c),
+           R.decode_attention_ref(*_f32(q, kc, vc), pos, npos, c), dtype)
+
+
+@pytest.mark.cuda
+def test_model_cuda_path_matches_cpu_path(dev):
+    """The small model through the kernels against the same model through
+    the plain versions (which tests/test_torch_serve.py holds against JAX);
+    1e-3 since cuBLAS and the CPU sum in different orders."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+
+    model = Model(get_config("qwen3-4b", smoke=True))
+    p_cpu = model.init(seed=1, device="cpu")
+    p_gpu = _to(p_cpu, dev)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, 512, (2, 64)))
+    with torch.inference_mode():
+        want = model.prefill(p_cpu, {"tokens": toks})
+        got = model.prefill(p_gpu, {"tokens": toks.to(dev)}).cpu()
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-3, rtol=1e-3)
+
+
+def _to(tree, dev):
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dev)
+    return {k: _to(v, dev) for k, v in tree.items()}
