@@ -3,31 +3,45 @@
 
     python3 chip_smoke.py
 
+Three serving paths at full width, four hand-written kernels: qwen3-4b
+(dense: flash_attention, decode_attention), rwkv6-3b (ssm: rwkv6_wkv) and
+zamba2-2.7b (hybrid: mamba2_ssd, and flash/decode attention at head_dim 80
+in the shared block).
+
 Phases (each raises on failure; none is caught):
 
 1. build   — compile every kernel in src/repro_torch/kernels/csrc with nvcc,
              one process per source, all at once;
 2. kernels — each hand-written kernel against its plain PyTorch version on
-             the card: the reference's test sweep shapes (tests/test_kernels.py,
-             ring-buffer wraparound included) and the full-width qwen3-4b
-             shapes, at float32 and bfloat16, each held against its plain
-             version run in float32 on the same inputs (tolerances at TOL),
-             TF32 off;
-3. model   — the port's CUDA path against its CPU path on a small model
-             (f32, 1e-3: cuBLAS and CPU sum in different orders); then the
-             main path at full qwen3-4b width in bf16 with seeded random
-             weights: Model.prefill on 4 x 1024 tokens and Engine.generate
-             answering 4 requests (context 1024, prompt 64, 32 new tokens),
-             with the kernels' launch counters reset just before and read
-             just after; then prefill against token-by-token decode on one
-             128-token prompt (the two attention kernels end to end);
-4. times   — Model.prefill wall time; device time by kernel for a prefill
-             and for decode steps (torch.profiler) with the device's busy
-             share; each kernel, its plain version and the PyTorch library
-             call (scaled_dot_product_attention) at the full-width shapes,
+             the card.  Attention: the reference's test sweep shapes
+             (tests/test_kernels.py, ring-buffer wraparound included) and
+             the full-width qwen3-4b (head_dim 128) and zamba2-2.7b
+             (head_dim 80) shapes, at float32 and bfloat16, each held
+             against its plain version run in float32 on the same inputs
+             (tolerances at TOL).  Scans: the reference's sweeps
+             (tests/test_kernels.py:96-180, logw = -25 included) and the
+             full-width shapes, rwkv6 at (4,1024,40,64) chunk 64 with decay
+             strength 0.5 and 6.0, mamba2 at x (4,1024,80,64), N 64, chunk
+             256, head_block 8; f32 at the reference's 2e-4.  TF32 off;
+3. model   — for each arch: the port's CUDA path against its CPU path on
+             the smoke model (f32, 1e-3: cuBLAS and CPU sum in different
+             orders); then the arch's main path at full width in bf16 with
+             seeded random weights: Model.prefill on 4 x 1024 tokens and
+             Engine.generate answering 4 requests (context 1024, prompt 64,
+             32 new tokens), with the kernels' launch counters reset just
+             before and read just after, and each counter held to the
+             launches that path must make (PATHS); then prefill against
+             token-by-token decode on one prompt (128 tokens; 256 for
+             zamba2, whose prefill needs whole 256-row SSD chunks);
+4. times   — per arch: Model.prefill wall time and the device time by
+             kernel for a prefill and for decode steps (torch.profiler)
+             with the device's busy share; each kernel, its plain version
+             and, for attention, the PyTorch library call
+             (scaled_dot_product_attention) at the full-width shapes,
              device time only (calls captured in a CUDA graph, replayed
              between CUDA events); the bound from the shapes and the H100's
-             peaks.
+             peaks.  No single PyTorch call computes either scan, so their
+             library_ms is null.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line, and
 as the last line ``{"ok": true, "device": {...}}``.  Exits non-zero, with no
@@ -56,24 +70,48 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # different orders).  bf16: the one rounding, at most half a bf16 ulp, which
 # is 2**-8 of the value (rtol 4e-3), on top of the same f32 differences.
 TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5), torch.bfloat16: dict(atol=2e-5, rtol=4e-3)}
+# The scans take and return f32; held against the step recurrences at the
+# reference sweep's 2e-4 (tests/test_kernels.py:96-180).
+SCAN_TOL = dict(atol=2e-4, rtol=2e-4)
 
 # the reference's kernel sweeps (tests/test_kernels.py:27-92)
 FLASH_SWEEP = [(1, 128, 4, 4, 32), (2, 256, 4, 2, 32), (1, 128, 8, 1, 64)]
 DECODE_SWEEP = [(2, 4, 2, 32, 256), (1, 8, 1, 64, 128), (2, 4, 4, 32, 128)]
 
-# full-width qwen3-4b serving shapes
-B, S_PREFILL, CONTEXT, PROMPT, NEW_TOKENS, AGREE_LEN = 4, 1024, 1024, 64, 32, 128
-H, KV, D = 32, 8, 128
+RWKV_SWEEP = [(1, 64, 2, 16), (2, 128, 3, 32), (1, 128, 1, 64)]      # (b, s, h, dk)
+MAMBA_SWEEP = [(1, 64, 4, 16, 16), (2, 128, 8, 16, 24)]              # (b, s, h, p, n)
+
+# full-width serving shapes: batch, prefill, context, prompt, new tokens
+B, S_PREFILL, CONTEXT, PROMPT, NEW_TOKENS = 4, 1024, 1024, 64, 32
+H, KV, D = 32, 8, 128                 # qwen3-4b attention
+ZH, ZKV, ZD = 32, 32, 80              # zamba2-2.7b shared-block attention
+RWKV_FULL = (B, S_PREFILL, 40, 64)    # rwkv6-3b scan: (b, s, heads, dk), chunk 64
+MAMBA_FULL = (B, S_PREFILL, 80, 64, 64)  # zamba2-2.7b scan: (b, s, heads, P, N)
+RWKV_CHUNK, MAMBA_CHUNK, MAMBA_HB = 64, 256, 8
+
+# Each path's launches: per prefill, and per decode step of Engine.generate
+# (one per layer or per site of the shared attention block), and the
+# length of its prefill-versus-decode check.
+PATHS = {
+    "qwen3-4b": dict(prefill={"flash_attention": 36}, step={"decode_attention": 36}, agree=128),
+    "rwkv6-3b": dict(prefill={"rwkv6_wkv": 32}, step={}, agree=128),
+    "zamba2-2.7b": dict(prefill={"mamba2_ssd": 54, "flash_attention": 9},
+                        step={"decode_attention": 9}, agree=256),
+}
+
+
+KERNELS = ("flash_attention", "decode_attention", "rwkv6_wkv", "mamba2_ssd")
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def max_err(got: torch.Tensor, want: torch.Tensor, dtype: torch.dtype) -> float:
+def max_err(got: torch.Tensor, want: torch.Tensor, dtype: torch.dtype,
+            tol: dict | None = None) -> float:
     g, w = got.float(), want.float()
     err = (g - w).abs()
-    tol = TOL[dtype]
+    tol = tol or TOL[dtype]
     bad = err > tol["atol"] + tol["rtol"] * w.abs()
     if not torch.isfinite(g).all() or bad.any():
         raise AssertionError(f"kernel disagrees with its plain version: max |err| "
@@ -125,7 +163,8 @@ def phase_build():
 
 def phase_kernels(dev):
     """Each kernel against its plain version; returns the largest
-    full-width bf16 error of each (the main path's dtype)."""
+    full-width error of each: bf16 for attention (the main path's dtype),
+    f32 for the scans (their only dtype)."""
     from repro_torch import kernels as K
     from repro_torch.kernels import ref as R
 
@@ -134,7 +173,8 @@ def phase_kernels(dev):
     full = {}
     n = 0
     for dtype in (torch.float32, torch.bfloat16):
-        for (b, s, h, k, d) in FLASH_SWEEP + [(B, S_PREFILL, H, KV, D)]:
+        for (b, s, h, k, d) in FLASH_SWEEP + [(B, S_PREFILL, H, KV, D),
+                                              (B, S_PREFILL, ZH, ZKV, ZD)]:
             for causal in (True, False):
                 for window in (None, 96):
                     if s == S_PREFILL and (not causal or window):
@@ -147,13 +187,15 @@ def phase_kernels(dev):
                     err = max_err(got, want, dtype)
                     n += 1
                     if s == S_PREFILL:
-                        log(f"[kernels] flash_attention full width {tuple(q.shape)} "
-                            f"{str(dtype)[6:]} causal: max |err| {err:.3e}")
-                        full[("flash_attention", dtype)] = err
+                        log(f"[kernels] flash_attention full width q {tuple(q.shape)} "
+                            f"kv {tuple(kk.shape)} {str(dtype)[6:]} causal: max |err| {err:.3e}")
+                        key = ("flash_attention", dtype)
+                        full[key] = max(full.get(key, 0.0), err)
         cases = [(shape, w, f) for shape in DECODE_SWEEP for w in (None, 48) for f in (16, 100)]
         # full width: a full cache, and Engine.generate's fill (prompt + new
         # tokens), where most cache splits hold only empty slots
-        cases += [((B, H, KV, D, CONTEXT), w, f)
+        cases += [((B, h, k, d, CONTEXT), w, f)
+                  for (h, k, d) in ((H, KV, D), (ZH, ZKV, ZD))
                   for w, f in ((None, CONTEXT), (256, CONTEXT), (None, PROMPT + NEW_TOKENS))]
         for (b, h, k, d, c), window, fill in cases:
             q = randn(gen, (b, h, d), dtype, dev)
@@ -183,7 +225,62 @@ def phase_kernels(dev):
     torch.cuda.synchronize()
     log(f"[kernels] {n} comparisons within tolerance (f32 2e-5; bf16 atol 2e-5 rtol 4e-3 "
         f"against the plain version in f32; TF32 off)")
-    return {name: full[(name, torch.bfloat16)] for name in ("flash_attention", "decode_attention")}
+    errs = {name: full[(name, torch.bfloat16)] for name in ("flash_attention", "decode_attention")}
+    errs.update(phase_scan_kernels(dev, gen))
+    return errs
+
+
+def rwkv6_inputs(gen, shape, decay_strength, dev):
+    b, s, h, dk = shape
+    r, k, v, w = (randn(gen, shape, torch.float32, dev) for _ in range(4))
+    logw = (torch.full_like(w, -25.0) if decay_strength is None
+            else -F.softplus(w * decay_strength))
+    return r, k, v, logw, randn(gen, (h, dk), torch.float32, dev)
+
+
+def mamba2_inputs(gen, shape, dev):
+    b, s, h, p, n = shape
+    x = randn(gen, (b, s, h, p), torch.float32, dev)
+    dt = F.softplus(randn(gen, (b, s, h), torch.float32, dev))
+    a = -torch.exp(randn(gen, (h,), torch.float32, dev) * 0.2)
+    return x, dt, a, randn(gen, (b, s, n), torch.float32, dev), randn(gen, (b, s, n), torch.float32, dev)
+
+
+def phase_scan_kernels(dev, gen):
+    """The two scan kernels against their step recurrences, f32 at 2e-4;
+    returns the largest full-width error of each."""
+    from repro_torch import kernels as K
+    from repro_torch.kernels import ref as R
+
+    full = {"rwkv6_wkv": 0.0, "mamba2_ssd": 0.0}
+    n = 0
+    cases = [(shape, c, ds) for shape in RWKV_SWEEP for c in (16, 32, 64) for ds in (0.5, 6.0)]
+    cases += [((1, 64, 1, 16), 32, None)]                 # logw = -25: stays finite
+    cases += [(RWKV_FULL, RWKV_CHUNK, ds) for ds in (0.5, 6.0)]
+    for shape, chunk, ds in cases:
+        args = rwkv6_inputs(gen, shape, ds, dev)
+        err = max_err(K.rwkv6_wkv(*args, chunk), R.rwkv6_wkv_ref(*args), torch.float32, SCAN_TOL)
+        n += 1
+        if shape == RWKV_FULL:
+            log(f"[kernels] rwkv6_wkv full width {shape} chunk {chunk} decay strength {ds}: "
+                f"max |err| {err:.3e}")
+            full["rwkv6_wkv"] = max(full["rwkv6_wkv"], err)
+    cases = [(shape, c, hb) for shape in MAMBA_SWEEP for c in (16, 32) for hb in (2, 4)]
+    cases += [((1, 100, 4, 8, 16), 100, 4)]               # a ragged 64-row sub-tile
+    cases += [(MAMBA_FULL, MAMBA_CHUNK, MAMBA_HB)]
+    for shape, chunk, hb in cases:
+        args = mamba2_inputs(gen, shape, dev)
+        err = max_err(K.mamba2_ssd(*args, chunk, hb), R.mamba2_ssd_ref(*args), torch.float32,
+                      SCAN_TOL)
+        n += 1
+        if shape == MAMBA_FULL:
+            log(f"[kernels] mamba2_ssd full width x {shape[:4]} N {shape[4]} chunk {chunk} "
+                f"head_block {hb}: max |err| {err:.3e}")
+            full["mamba2_ssd"] = err
+    torch.cuda.synchronize()
+    log(f"[kernels] {n} scan comparisons within tolerance (f32 atol 2e-4 rtol 2e-4 against "
+        f"the step recurrences)")
+    return full
 
 
 def to_device(tree, device):
@@ -191,7 +288,17 @@ def to_device(tree, device):
             for k, v in tree.items()}
 
 
-def phase_model(dev):
+def expected_counts(arch: str, steps: int) -> dict:
+    """Launches of one prefill and ``steps`` decode steps on ``arch``'s path."""
+    path = PATHS[arch]
+    return {name: path["prefill"].get(name, 0) + steps * path["step"].get(name, 0)
+            for name in KERNELS}
+
+
+def phase_model(dev, arch: str):
+    """The smoke model's CUDA path against its CPU path, then the arch's
+    main path at full width with its launches counted, then prefill
+    against token-by-token decode."""
     from repro_torch import kernels as K
     from repro_torch.configs import get_config
     from repro_torch.models import Model
@@ -199,7 +306,7 @@ def phase_model(dev):
 
     # small model: the CUDA path (kernels) against the CPU path (plain
     # versions), which the CPU tests hold against the JAX reference
-    small = Model(get_config("qwen3-4b", smoke=True))
+    small = Model(get_config(arch, smoke=True))
     p_cpu = small.init(seed=1, device="cpu")
     p_gpu = to_device(p_cpu, dev)
     toks = torch.from_numpy(np.random.default_rng(1).integers(0, 512, (2, 64)))
@@ -208,7 +315,8 @@ def phase_model(dev):
         got = small.prefill(p_gpu, {"tokens": toks.to(dev)}).cpu()
         err = (got - want).abs().max().item()
         if not err <= 1e-3:
-            raise AssertionError(f"small model: CUDA prefill vs CPU prefill max |err| {err:.3e}")
+            raise AssertionError(f"{arch} small model: CUDA prefill vs CPU prefill max |err| "
+                                 f"{err:.3e}")
         st_c = small.init_decode_state(2, 16, device="cpu")
         st_g = small.init_decode_state(2, 16, device=dev)
         for t in range(16):
@@ -216,11 +324,12 @@ def phase_model(dev):
             lg, st_g = small.decode_step(p_gpu, st_g, toks[:, t].to(dev))
         err_d = (lg.cpu() - lc).abs().max().item()
         if not err_d <= 1e-3:
-            raise AssertionError(f"small model: CUDA decode vs CPU decode max |err| {err_d:.3e}")
-    log(f"[model] smoke qwen3-4b f32, CUDA vs CPU path: prefill max |err| {err:.3e}, "
+            raise AssertionError(f"{arch} small model: CUDA decode vs CPU decode max |err| "
+                                 f"{err_d:.3e}")
+    log(f"[model] smoke {arch} f32, CUDA vs CPU path: prefill max |err| {err:.3e}, "
         f"16-step decode max |err| {err_d:.3e} (tolerance 1e-3)")
 
-    cfg = get_config("qwen3-4b")
+    cfg = get_config(arch)
     model = Model(cfg)
     t0 = time.perf_counter()
     params = model.init(seed=0, device=dev)
@@ -243,38 +352,41 @@ def phase_model(dev):
     counts = K.launch_counts()
     # ----
     if logits.shape != (B, cfg.vocab_size) or not torch.isfinite(logits).all():
-        raise AssertionError(f"prefill logits {tuple(logits.shape)} not finite/shaped")
+        raise AssertionError(f"{arch} prefill logits {tuple(logits.shape)} not finite/shaped")
     if out.shape != (B, NEW_TOKENS) or out.min() < 0 or out.max() >= cfg.vocab_size:
-        raise AssertionError(f"generated tokens {out.shape} out of range")
-    if min(counts.values()) <= 0:
-        raise AssertionError(f"a kernel of the main path was never launched: {counts}")
+        raise AssertionError(f"{arch} generated tokens {out.shape} out of range")
     steps = PROMPT + NEW_TOKENS
-    log(f"[model] launches on the main path: {counts} (flash {after_prefill['flash_attention']} "
-        f"per prefill; decode {counts['decode_attention'] / steps:g} per decode step over "
-        f"{steps} steps)")
-    log(f"[model] first prefill ({B} x {S_PREFILL} tokens) {t_prefill * 1e3:.3f} ms; generated "
-        f"{out.shape}, first row {out[0, :8].tolist()}")
+    for name, seen, want_counts in (("prefill", after_prefill, expected_counts(arch, 0)),
+                                    ("main path", counts, expected_counts(arch, steps))):
+        if seen != want_counts:
+            raise AssertionError(f"{arch}: launches after the {name} {seen}, expected "
+                                 f"{want_counts}")
+    log(f"[model] {arch} launches on the main path: {counts} (per prefill "
+        f"{PATHS[arch]['prefill']}; per decode step {PATHS[arch]['step']} over {steps} steps)")
+    log(f"[model] {arch} first prefill ({B} x {S_PREFILL} tokens) {t_prefill * 1e3:.3f} ms; "
+        f"generated {out.shape}, first row {out[0, :8].tolist()}")
     rep = engine.report()
     for row in rec.breakdown_table():
         log(f"[model]   {row['stage']:>16s}: mean {row['mean'] * 1e3:8.3f} ms  cv {row['cv']:.3f}")
-    log(f"[model] decode step mean {rep['mean_s'] * 1e3:.3f} ms cv {rep['cv']:.3f} p99 "
+    log(f"[model] {arch} decode step mean {rep['mean_s'] * 1e3:.3f} ms cv {rep['cv']:.3f} p99 "
         f"{rep['p99_s'] * 1e3:.3f} ms -> {B / rep['mean_s']:.1f} tokens/s (batch {B})")
 
     # ---- prefill vs token-by-token decode over one prompt
-    agree = prompts[:, :AGREE_LEN].to(dev)
+    agree_len = PATHS[arch]["agree"]
+    agree = prompts[:, :agree_len].to(dev)
     with torch.inference_mode():
         pre = model.prefill(params, {"tokens": agree}).float()
-        state = model.init_decode_state(B, AGREE_LEN, device=dev)
-        for t in range(AGREE_LEN):
+        state = model.init_decode_state(B, agree_len, device=dev)
+        for t in range(agree_len):
             dec, state = model.decode_step(params, state, agree[:, t])
     rel = ((dec - pre).abs().max() / pre.abs().max()).item()
     same = (dec.argmax(-1) == pre.argmax(-1)).float().mean().item()
-    log(f"[model] prefill vs {AGREE_LEN}-step decode, last position: max |diff| / max |logit| "
-        f"= {rel:.3e} (tolerance 5e-2: bf16 activations rounded in differently shaped products "
-        f"over 36 layers); argmax agreement {same:.2f}")
+    log(f"[model] {arch} prefill vs {agree_len}-step decode, last position: max |diff| / max "
+        f"|logit| = {rel:.3e} (tolerance 5e-2: bf16 activations rounded in differently shaped "
+        f"products over {cfg.num_layers} layers); argmax agreement {same:.2f}")
     if not rel <= 5e-2:
-        raise AssertionError("prefill and decode disagree")
-    return model, params, counts, rep["mean_s"]
+        raise AssertionError(f"{arch}: prefill and decode disagree")
+    return model, params, counts, rep
 
 
 def _device_us(evt) -> float:
@@ -313,7 +425,7 @@ def phase_profile(model, params, dev, step_s: float, prefill_s: float):
                     if e.device_type != DeviceType.CPU and _device_us(e) > 0]
             rows.sort(key=lambda r: -r[1])
             total_ms = sum(r[1] for r in rows) / 1e3
-            log(f"[profile] {name}: device busy {total_ms:.3f} ms of {wall_s * 1e3:.3f} ms wall "
+            log(f"[profile] {model.cfg.name} {name}: device busy {total_ms:.3f} ms of {wall_s * 1e3:.3f} ms wall "
                 f"({total_ms / (wall_s * 1e3):.3f} busy, {1 - total_ms / (wall_s * 1e3):.3f} idle); "
                 f"{sum(r[2] for r in rows)} kernels")
             for key, us, count in rows[:8]:
@@ -345,18 +457,11 @@ def bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def phase_times(dev):
-    from repro_torch import kernels as K
-    from repro_torch.kernels import ref as R
-
+def time_flash(K, R, gen, dev, h, kv, d):
     dt = torch.bfloat16
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(7)
-    res = {}
-
-    q = randn(gen, (B, S_PREFILL, H, D), dt, dev)
-    k = randn(gen, (B, S_PREFILL, KV, D), dt, dev)
-    v = randn(gen, (B, S_PREFILL, KV, D), dt, dev)
+    q = randn(gen, (B, S_PREFILL, h, d), dt, dev)
+    k = randn(gen, (B, S_PREFILL, kv, d), dt, dev)
+    v = randn(gen, (B, S_PREFILL, kv, d), dt, dev)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     ms = graph_ms(lambda: K.flash_attention(q, k, v, causal=True), 20)
     plain = graph_ms(lambda: R.flash_attention_ref(q, k, v, True, None), 3)
@@ -366,25 +471,27 @@ def phase_times(dev):
     esz = q.element_size()
     pairs = S_PREFILL * (S_PREFILL + 1) // 2
     b_ms, b_by = bound((2 * q.numel() + k.numel() + v.numel()) * esz,
-                       4.0 * B * H * D * pairs, dt)
-    res["flash_attention"] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
-                                  bound_by=b_by)
+                       4.0 * B * h * d * pairs, dt)
     log(f"[times] flash_attention q {tuple(q.shape)} kv {tuple(k.shape)} bf16 causal: kernel "
         f"{ms:.4f} ms, plain {plain:.4f} ms, sdpa {lib:.4f} ms (|sdpa - kernel| {lib_err:.2e}), "
         f"bound {b_ms:.4f} ms ({b_by}); {b_ms / ms:.3f} of bound")
+    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by)
 
-    # decode: cycle over caches larger than the 50 MB L2 together, as the
-    # 36 layers of a decode step each read their own cache
+
+def time_decode(K, R, gen, dev, h, kv, d):
+    """Cycles over caches larger than the 50 MB L2 together, as the layers
+    (or sites) of a decode step each read their own cache."""
+    dt = torch.bfloat16
     n_copies = 4
-    qd = randn(gen, (B, H, D), dt, dev)
-    caches = [(randn(gen, (B, CONTEXT, KV, D), dt, dev), randn(gen, (B, CONTEXT, KV, D), dt, dev))
+    qd = randn(gen, (B, h, d), dt, dev)
+    caches = [(randn(gen, (B, CONTEXT, kv, d), dt, dev), randn(gen, (B, CONTEXT, kv, d), dt, dev))
               for _ in range(n_copies)]
     caches_t = [(kc.transpose(1, 2).contiguous(), vc.transpose(1, 2).contiguous())
                 for kc, vc in caches]
     pos = torch.arange(CONTEXT, dtype=torch.int32, device=dev)
     npos = torch.tensor(CONTEXT - 1, dtype=torch.int32, device=dev)
     mask = (pos <= npos).view(1, 1, 1, CONTEXT)
-    qdt = qd.view(B, H, 1, D)
+    qdt = qd.view(B, h, 1, d)
     it = {"i": 0}
 
     def cyc(fn):
@@ -396,13 +503,59 @@ def phase_times(dev):
     ms = graph_ms(cyc(lambda i: K.decode_attention(qd, *caches[i], pos, npos)), 200)
     plain = graph_ms(cyc(lambda i: R.decode_attention_ref(qd, *caches[i], pos, npos)), 40)
     lib = graph_ms(cyc(lambda i: sdpa(qdt, *caches_t[i], attn_mask=mask)), 200)
-    nbytes = (2 * qd.numel() + 2 * caches[0][0].numel()) * esz + 4 * (CONTEXT + 1)
-    b_ms, b_by = bound(nbytes, 4.0 * B * H * D * CONTEXT, dt)
-    res["decode_attention"] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
-                                   bound_by=b_by)
+    nbytes = (2 * qd.numel() + 2 * caches[0][0].numel()) * qd.element_size() + 4 * (CONTEXT + 1)
+    b_ms, b_by = bound(nbytes, 4.0 * B * h * d * CONTEXT, dt)
     log(f"[times] decode_attention q {tuple(qd.shape)} cache {tuple(caches[0][0].shape)} bf16 "
         f"(all {CONTEXT} slots valid): kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa "
         f"{lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}); {b_ms / ms:.3f} of bound")
+    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by)
+
+
+def time_scans(K, R, gen, dev):
+    """The scans at their full-width shapes.  Bounds: each input read once
+    and the output written once (f32), against the least arithmetic of the
+    recurrence, one rank-1 update of the state and one read of it per
+    position and head, a multiply-add per state element each: 4 K^2
+    (RWKV6) and 4 P N (Mamba2) flops; the decays fold into these in the
+    chunked form.  No single PyTorch call computes either scan."""
+    res = {}
+    b, s, h, dk = RWKV_FULL
+    args = rwkv6_inputs(gen, RWKV_FULL, 0.5, dev)
+    ms = graph_ms(lambda: K.rwkv6_wkv(*args, RWKV_CHUNK), 20)
+    plain = graph_ms(lambda: R.rwkv6_wkv_ref(*args), 1, replays=2)
+    nbytes = (5 * args[0].numel() + args[4].numel()) * 4
+    b_ms, b_by = bound(nbytes, 4.0 * b * s * h * dk * dk, torch.float32)
+    res["rwkv6_wkv"] = dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    log(f"[times] rwkv6_wkv {RWKV_FULL} f32 chunk {RWKV_CHUNK}: kernel {ms:.4f} ms, plain "
+        f"{plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}); {b_ms / ms:.3f} of bound")
+
+    b, s, h, p, n = MAMBA_FULL
+    args = mamba2_inputs(gen, MAMBA_FULL, dev)
+    ms = graph_ms(lambda: K.mamba2_ssd(*args, MAMBA_CHUNK, MAMBA_HB), 20)
+    plain = graph_ms(lambda: R.mamba2_ssd_ref(*args), 1, replays=2)
+    nbytes = (2 * args[0].numel() + sum(x.numel() for x in args[1:])) * 4
+    b_ms, b_by = bound(nbytes, 4.0 * b * s * h * p * n, torch.float32)
+    res["mamba2_ssd"] = dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    log(f"[times] mamba2_ssd x {MAMBA_FULL[:4]} N {n} f32 chunk {MAMBA_CHUNK} head_block "
+        f"{MAMBA_HB}: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
+        f"{b_ms / ms:.3f} of bound")
+    return res
+
+
+def phase_times(dev):
+    """Each kernel at its main path's full-width shapes; the attention
+    kernels' rows are at qwen3-4b's head_dim 128, with zamba2's head_dim 80
+    timed beside them."""
+    from repro_torch import kernels as K
+    from repro_torch.kernels import ref as R
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    res = {"flash_attention": time_flash(K, R, gen, dev, H, KV, D),
+           "decode_attention": time_decode(K, R, gen, dev, H, KV, D)}
+    time_flash(K, R, gen, dev, ZH, ZKV, ZD)
+    time_decode(K, R, gen, dev, ZH, ZKV, ZD)
+    res.update(time_scans(K, R, gen, dev))
     return res
 
 
@@ -427,21 +580,30 @@ def main() -> int:
     t_all = time.perf_counter()
     phase_build()
     errs = phase_kernels(dev)
-    model, params, counts, step_s = phase_model(dev)
-    pre = prefill_ms(model, params, dev)
-    log(f"[times] Model.prefill {B} x {S_PREFILL} tokens: {', '.join(f'{t:.3f}' for t in pre)} ms")
-    phase_profile(model, params, dev, step_s, min(pre) / 1e3)
+    launches = dict.fromkeys(KERNELS, 0)
+    for arch in PATHS:
+        model, params, counts, rep = phase_model(dev, arch)
+        for name in KERNELS:
+            launches[name] += counts[name]
+        pre = prefill_ms(model, params, dev)
+        log(f"[times] {arch} Model.prefill {B} x {S_PREFILL} tokens: "
+            f"{', '.join(f'{t:.3f}' for t in pre)} ms")
+        phase_profile(model, params, dev, rep["mean_s"], min(pre) / 1e3)
+        del model, params
+        torch.cuda.empty_cache()
     times = phase_times(dev)
 
-    sources = {"flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
-                                   "src/repro/kernels/flash_attention.py:85"),
-               "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
-                                    "src/repro/kernels/decode_attention.py:75")}
+    sources = {"flash_attention": ("flash_attention.cu", "flash_attention.py:85"),
+               "decode_attention": ("decode_attention.cu", "decode_attention.py:75"),
+               "rwkv6_wkv": ("rwkv6_scan.cu", "rwkv6_scan.py:109"),
+               "mamba2_ssd": ("mamba2_ssd.cu", "mamba2_ssd.py:66")}
     rows = []
     for name, (source, replaces) in sources.items():
         t = times[name]
-        rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                     "launches": counts[name], "max_abs_err": errs[name],
+        rows.append({"name": name, "route": "cuda",
+                     "source": f"src/repro_torch/kernels/csrc/{source}",
+                     "replaces": f"src/repro/kernels/{replaces}",
+                     "launches": launches[name], "max_abs_err": errs[name],
                      "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     if any(not math.isfinite(r["ms"]) for r in rows):

@@ -14,6 +14,8 @@ __all__ = ["ARCHS", "get_config"]
 # arch id → module name
 ARCHS: dict[str, str] = {
     "qwen3-4b": "qwen3_4b",
+    "rwkv6-3b": "rwkv6_3b",
+    "zamba2-2.7b": "zamba2_2p7b",
 }
 
 

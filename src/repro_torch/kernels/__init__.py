@@ -6,6 +6,8 @@ Layout per kernel: ``csrc/<name>.cu`` (the kernel, plain C interface),
 ``ops.py`` (dispatch by device), ``ref.py`` (plain PyTorch versions) and
 ``_build.py`` (nvcc + ctypes).
 """
-from .ops import decode_attention, flash_attention, launch_counts, reset_launch_counts
+from .ops import decode_attention, flash_attention, launch_counts, mamba2_ssd, \
+    reset_launch_counts, rwkv6_wkv
 
-__all__ = ["decode_attention", "flash_attention", "launch_counts", "reset_launch_counts"]
+__all__ = ["decode_attention", "flash_attention", "rwkv6_wkv", "mamba2_ssd",
+           "launch_counts", "reset_launch_counts"]

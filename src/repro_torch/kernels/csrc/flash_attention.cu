@@ -188,6 +188,7 @@ int dispatch_d(const void* q, const void* k, const void* v, void* o, int B,
     case 16: return launch<T, 16>(q, k, v, o, B, S, H, KH, causal, window, stream);
     case 32: return launch<T, 32>(q, k, v, o, B, S, H, KH, causal, window, stream);
     case 64: return launch<T, 64>(q, k, v, o, B, S, H, KH, causal, window, stream);
+    case 80: return launch<T, 80>(q, k, v, o, B, S, H, KH, causal, window, stream);
     case 128: return launch<T, 128>(q, k, v, o, B, S, H, KH, causal, window, stream);
     default: return (int)cudaErrorInvalidValue;
   }

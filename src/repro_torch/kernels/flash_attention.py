@@ -20,7 +20,7 @@ from . import _build
 
 __all__ = ["flash_attention_cuda", "check_attention_inputs", "SUPPORTED_HEAD_DIMS"]
 
-SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
+SUPPORTED_HEAD_DIMS = (16, 32, 64, 80, 128)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _fn = None

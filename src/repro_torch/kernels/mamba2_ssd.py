@@ -1,0 +1,78 @@
+"""Mamba2 SSD scan forward: the wrapper of the hand-written Hopper kernel
+``csrc/mamba2_ssd.cu``.
+
+Replaces the TPU kernel ``repro/kernels/mamba2_ssd.py::mamba2_ssd_fwd``.
+The kernel starts from a zero state and returns y without the D-skip term,
+which is what the model's prefill needs.  One block per (batch, head) walks
+the sequence in 64-row sub-tiles and carries the (P×N) f32 state in shared
+memory; ``chunk`` and ``head_block`` are checked as the reference checks
+them and do not change the result (see the source's note).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+__all__ = ["mamba2_ssd_cuda", "check_mamba2_inputs", "MAX_DIM"]
+
+MAX_DIM = 64         # the kernel's largest head width P and state size N
+
+_fn = None
+
+
+def _kernel():
+    global _fn
+    if _fn is None:
+        fn = _build.load("mamba2_ssd").mamba2_ssd_fwd
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+def check_mamba2_inputs(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                        bmat: torch.Tensor, cmat: torch.Tensor, chunk: int,
+                        head_block: int) -> None:
+    """The reference kernel's checks, on any device: S % chunk and
+    H % head_block; plus matching shapes."""
+    b, s, h, _ = x.shape
+    n = bmat.shape[-1]
+    if tuple(dt.shape) != (b, s, h) or tuple(a.shape) != (h,) \
+            or tuple(bmat.shape) != (b, s, n) or cmat.shape != bmat.shape:
+        raise ValueError(f"x {tuple(x.shape)}, dt {tuple(dt.shape)}, a {tuple(a.shape)}, "
+                         f"B {tuple(bmat.shape)}, C {tuple(cmat.shape)}")
+    if chunk < 1 or head_block < 1 or s % chunk or h % head_block:
+        raise ValueError(f"S={s} % chunk={chunk} or H={h} % hb={head_block}")
+
+
+def mamba2_ssd_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                    bmat: torch.Tensor, cmat: torch.Tensor, chunk: int = 64,
+                    head_block: int = 8) -> torch.Tensor:
+    """x (B,S,H,P), dt (B,S,H), a (H,), B/C (B,S,N), float32 CUDA tensors →
+    y (B,S,H,P) float32.  Launches on the current stream without
+    synchronising."""
+    if x.device.type != "cuda":
+        raise ValueError(f"mamba2_ssd_cuda needs CUDA tensors, got {x.device}")
+    check_mamba2_inputs(x, dt, a, bmat, cmat, chunk, head_block)
+    for t in (x, dt, a, bmat, cmat):
+        if t.device != x.device or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError("mamba2_ssd_cuda takes contiguous float32 tensors on one device")
+    b, s, h, p = x.shape
+    n = bmat.shape[-1]
+    if p > MAX_DIM or n > MAX_DIM:
+        raise ValueError(f"head width {p} / state {n} not supported (at most {MAX_DIM})")
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _kernel()(x.data_ptr(), dt.data_ptr(), a.data_ptr(), bmat.data_ptr(),
+                        cmat.data_ptr(), out.data_ptr(), b, s, h, p, n, stream)
+    if err:
+        raise RuntimeError(f"mamba2_ssd kernel launch failed: CUDA error {err}")
+    mamba2_ssd_cuda.launches += 1
+    return out
+
+
+mamba2_ssd_cuda.launches = 0

@@ -15,12 +15,17 @@ import torch
 from . import ref as _ref
 from .decode_attention import decode_attention_cuda
 from .flash_attention import flash_attention_cuda
+from .mamba2_ssd import check_mamba2_inputs, mamba2_ssd_cuda
+from .rwkv6_scan import check_rwkv6_inputs, rwkv6_wkv_cuda
 
-__all__ = ["flash_attention", "decode_attention", "launch_counts", "reset_launch_counts"]
+__all__ = ["flash_attention", "decode_attention", "rwkv6_wkv", "mamba2_ssd",
+           "launch_counts", "reset_launch_counts"]
 
 _WRAPPERS = {
     "flash_attention": flash_attention_cuda,
     "decode_attention": decode_attention_cuda,
+    "rwkv6_wkv": rwkv6_wkv_cuda,
+    "mamba2_ssd": mamba2_ssd_cuda,
 }
 
 
@@ -50,6 +55,27 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
         return decode_attention_cuda(q, k_cache, v_cache, positions, next_pos,
                                      window=window)
     return _ref.decode_attention_ref(q, k_cache, v_cache, positions, next_pos, window)
+
+
+def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tensor,
+              u: torch.Tensor, chunk: int = 64) -> torch.Tensor:
+    """The RWKV6 WKV scan from a zero state: r, k, v, logw (B,S,H,K), u
+    (H,K) → y (B,S,H,K) float32.  ``chunk`` is checked on every device."""
+    check_rwkv6_inputs(r, k, v, logw, u, chunk)
+    if _on_cuda(r):
+        return rwkv6_wkv_cuda(r, k, v, logw, u, chunk)
+    return _ref.rwkv6_wkv_ref(r, k, v, logw, u)
+
+
+def mamba2_ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
+               cmat: torch.Tensor, chunk: int = 64, head_block: int = 8) -> torch.Tensor:
+    """The Mamba2 SSD scan from a zero state, one B/C group: x (B,S,H,P),
+    dt (B,S,H), a (H,), B/C (B,S,N) → y (B,S,H,P) float32 without the
+    D-skip term.  ``chunk`` and ``head_block`` are checked on every device."""
+    check_mamba2_inputs(x, dt, a, bmat, cmat, chunk, head_block)
+    if _on_cuda(x):
+        return mamba2_ssd_cuda(x, dt, a, bmat, cmat, chunk, head_block)
+    return _ref.mamba2_ssd_ref(x, dt, a, bmat, cmat)
 
 
 def launch_counts() -> dict[str, int]:

@@ -1,12 +1,16 @@
 """Plain PyTorch versions of the ported kernels (the ``ref.py`` layer).
 
-Dense masked softmax attention in float32, with the same signatures and
-``(B, S, H, D)`` / ``(B, C, K, D)`` layouts as the reference's
-``repro/kernels/ref.py``.  They follow the kernels' arithmetic: the scale
+Attention: dense masked softmax attention in float32, with the same
+signatures and ``(B, S, H, D)`` / ``(B, C, K, D)`` layouts as the
+reference's ``repro/kernels/ref.py``.  They follow the kernels' arithmetic: the scale
 multiplies the f32 scores, masked scores are ``-1e30`` (never ``-inf``),
 and the output is cast to ``q.dtype``.  (The reference's ``dense_attention``
 instead folds the scale into q in q's dtype and casts the probabilities to
 ``v.dtype``; at bf16 the two differ by rounding, at f32 they agree.)
+
+Scans: the step-by-step recurrences of the reference's ``rwkv6_wkv_ref``
+(through ``rwkv6_recurrent``) and ``mamba2_ssd_ref``, in float32 from a
+zero state, structurally unlike the chunked kernels they check.
 
 The kernel wrappers use these for CPU tensors; ``chip_smoke.py`` holds
 each kernel against them on the card.
@@ -18,7 +22,8 @@ from typing import Optional
 
 import torch
 
-__all__ = ["NEG_INF", "flash_attention_ref", "decode_attention_ref", "attention_mask"]
+__all__ = ["NEG_INF", "flash_attention_ref", "decode_attention_ref", "attention_mask",
+           "rwkv6_recurrent", "rwkv6_wkv_ref", "mamba2_ssd_ref"]
 
 NEG_INF = -1e30
 
@@ -67,3 +72,46 @@ def decode_attention_ref(q: torch.Tensor,           # (B, H, D)
                          window: Optional[int] = None) -> torch.Tensor:
     allow = attention_mask(next_pos.reshape(1), positions, True, window)
     return _dense(q[:, None], k_cache, v_cache, allow)[:, 0]
+
+
+def rwkv6_recurrent(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    logw: torch.Tensor, u: torch.Tensor,
+                    s0: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The RWKV6 recurrence one step at a time: r, k, v, logw (B,S,H,K), u
+    (H,K), state s0 (B,H,K,K) → (y (B,S,H,K), final state).  Per step
+    ``y_t = r_t · (S + diag(u) k_t v_tᵀ)``, ``S ← diag(exp(logw_t)) S + k_t v_tᵀ``."""
+    s = s0
+    ys = []
+    for t in range(r.shape[1]):
+        kv = k[:, t, :, :, None] * v[:, t, :, None, :]          # (B,H,K,K)
+        ys.append(torch.einsum("bhk,bhkj->bhj", r[:, t], s + u[None, :, :, None] * kv))
+        s = s * torch.exp(logw[:, t])[..., None] + kv
+    return torch.stack(ys, dim=1), s
+
+
+def rwkv6_wkv_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  logw: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """The WKV scan from a zero state, in float32 → (B,S,H,K) float32."""
+    b, _, h, dk = r.shape
+    s0 = torch.zeros((b, h, dk, dk), dtype=torch.float32, device=r.device)
+    y, _ = rwkv6_recurrent(r.float(), k.float(), v.float(), logw.float(), u.float(), s0)
+    return y
+
+
+def mamba2_ssd_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                   bmat: torch.Tensor, cmat: torch.Tensor) -> torch.Tensor:
+    """The sequential SSD recurrence from a zero state, in float32:
+    ``h_t = exp(dt_t a) h + dt_t x_t ⊗ B_t``, ``y_t = h_t · C_t``.
+    x (B,S,H,P), dt (B,S,H), a (H,), B/C (B,S,N) → y (B,S,H,P) float32,
+    without the D-skip term."""
+    b, s, h, p = x.shape
+    n = bmat.shape[-1]
+    x, dt, a, bmat, cmat = (t.float() for t in (x, dt, a, bmat, cmat))
+    hst = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(s):
+        dec = torch.exp(dt[:, t] * a[None, :])                   # (B,H)
+        upd = torch.einsum("bh,bn,bhp->bhpn", dt[:, t], bmat[:, t], x[:, t])
+        hst = hst * dec[..., None, None] + upd
+        ys.append(torch.einsum("bn,bhpn->bhp", cmat[:, t], hst))
+    return torch.stack(ys, dim=1)

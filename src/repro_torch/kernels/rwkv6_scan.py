@@ -1,0 +1,79 @@
+"""RWKV6 WKV scan forward: the wrapper of the hand-written Hopper kernel
+``csrc/rwkv6_scan.cu``.
+
+Replaces the TPU kernel ``repro/kernels/rwkv6_scan.py::rwkv6_wkv_fwd``.
+The kernel starts from a zero state and returns y only, which is all the
+model's prefill needs.  One block per (batch, head) walks the sequence in
+fold tiles of ``min(chunk, 32)`` rows and keeps the (K×K) f32 state in
+shared memory; see the source's note for the arithmetic and what bounds it.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+__all__ = ["rwkv6_wkv_cuda", "check_rwkv6_inputs", "STATE_TILE", "MAX_HEAD_DIM"]
+
+STATE_TILE = 32      # fold-tile rows, the TPU kernel's _STATE_TILE
+MAX_HEAD_DIM = 64    # the kernel's largest head width (a multiple of 16)
+
+_fn = None
+
+
+def _kernel():
+    global _fn
+    if _fn is None:
+        fn = _build.load("rwkv6_scan").rwkv6_wkv_fwd
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+def check_rwkv6_inputs(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       logw: torch.Tensor, u: torch.Tensor, chunk: int) -> None:
+    """The reference kernel's checks (``rwkv6_scan.py:120-130``), on any
+    device: the sequence divides into chunks, and a chunk above the fold
+    tile is a multiple of it (else the fold would degenerate to tiny
+    tiles); plus matching shapes."""
+    b, s, h, dk = r.shape
+    if k.shape != r.shape or v.shape != r.shape or logw.shape != r.shape \
+            or tuple(u.shape) != (h, dk):
+        raise ValueError(f"r {tuple(r.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}, "
+                         f"logw {tuple(logw.shape)}, u {tuple(u.shape)}")
+    if chunk < 1 or s % chunk:
+        raise ValueError(f"seq {s} not divisible by chunk {chunk}")
+    if chunk > STATE_TILE and chunk % STATE_TILE:
+        raise ValueError(f"chunk {chunk} must be <= {STATE_TILE} or a multiple of it")
+
+
+def rwkv6_wkv_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   logw: torch.Tensor, u: torch.Tensor, chunk: int = 64) -> torch.Tensor:
+    """r, k, v, logw (B,S,H,K) and u (H,K), float32 CUDA tensors →
+    y (B,S,H,K) float32.  Launches on the current stream without
+    synchronising."""
+    if r.device.type != "cuda":
+        raise ValueError(f"rwkv6_wkv_cuda needs CUDA tensors, got {r.device}")
+    check_rwkv6_inputs(r, k, v, logw, u, chunk)
+    for t in (r, k, v, logw, u):
+        if t.device != r.device or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError("rwkv6_wkv_cuda takes contiguous float32 tensors on one device")
+    b, s, h, dk = r.shape
+    if dk > MAX_HEAD_DIM or dk % 16:
+        raise ValueError(f"head width {dk} not supported (a multiple of 16 up to {MAX_HEAD_DIM})")
+    out = torch.empty_like(r)
+    with torch.cuda.device(r.device):
+        stream = torch.cuda.current_stream(r.device).cuda_stream
+        err = _kernel()(r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
+                        u.data_ptr(), out.data_ptr(), b, s, h, dk,
+                        min(chunk, STATE_TILE), stream)
+    if err:
+        raise RuntimeError(f"rwkv6_wkv kernel launch failed: CUDA error {err}")
+    rwkv6_wkv_cuda.launches += 1
+    return out
+
+
+rwkv6_wkv_cuda.launches = 0

@@ -3,6 +3,8 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b \
         --batch 4 --context 1024 --prompt-len 64 --tokens 32
 
+(``--arch`` takes every ported arch: qwen3-4b, rwkv6-3b, zamba2-2.7b.)
+
 Runs on CUDA unless ``--device cpu`` is given (a CPU run is for checking
 control flow at ``--smoke`` size; its times are not the card's).
 Weights are random, from a ``torch.Generator`` seeded with 0.

@@ -1,4 +1,4 @@
-"""Model definitions (dense transformer family) in PyTorch."""
+"""Model definitions of the ported families (dense, ssm, hybrid) in PyTorch."""
 from .params import ParamSpec, count_params, from_numpy, init_params, stack_specs
 from .transformer import DecodeState, Model
 

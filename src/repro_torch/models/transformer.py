@@ -1,5 +1,6 @@
-"""The dense transformer stack (``repro/models/transformer.py`` for the
-dense family), with the reference's functional API::
+"""Model stacks of the ported families (``repro/models/transformer.py``):
+dense, ssm (RWKV6) and hybrid (Zamba2), with the reference's functional
+API::
 
     init(seed, device)              → params (nested dict, layer-stacked)
     forward(params, batch)          → (logits, aux)           [prefill]
@@ -8,7 +9,10 @@ dense family), with the reference's functional API::
     decode_step(params, state, tok) → (logits, DecodeState)   [serving]
 
 The reference's ``lax.scan`` over stacked layer weights is a Python loop
-over the stacked axis.  Other families (MoE, SSM, hybrid, VLM, audio) and
+over the stacked axis.  The hybrid stack is stacked twice, (sites,
+attn_every, ...): each site runs ``attn_every`` Mamba2 layers, then the one
+*shared* transformer block (one set of weights at every site, a KV cache
+per site).  Decode states are updated in place.  MoE, VLM and audio and
 ``loss`` come with later slices of the port.
 """
 from __future__ import annotations
@@ -28,16 +32,23 @@ from .attention import (
     decode_attention_block,
     init_kv_cache,
 )
+from .mamba2 import SSMState, init_ssm_state, mamba2_block, mamba2_decode_step, mamba2_specs
 from .params import ParamSpec, count_params, count_params_from_specs, init_params, \
     resolve_dtype, stack_specs
+from .rwkv6 import RWKVState, init_rwkv_state, rwkv6_block, rwkv6_decode_step, rwkv6_specs
 
 __all__ = ["Model", "DecodeState"]
 
 
+PORTED_FAMILIES = ("dense", "ssm", "hybrid")
+
+
 class DecodeState(NamedTuple):
-    """Decode state of the dense family (the reference's union state has
-    ``ssm`` and ``rwkv`` fields for the families not ported yet)."""
-    kv: KVCache
+    """The reference's union decode state; a family's unused fields are
+    None (the reference's are empty pytrees)."""
+    kv: Optional[KVCache] = None
+    ssm: Optional[SSMState] = None
+    rwkv: Optional[RWKVState] = None
 
 
 def _decode_window(cfg: ModelConfig, capacity: int) -> Optional[int]:
@@ -60,6 +71,10 @@ def _dense_layer_specs(cfg: ModelConfig) -> dict:
     }
 
 
+def _mamba_layer_specs(cfg: ModelConfig) -> dict:
+    return {"ln": L.rmsnorm_spec(cfg.d_model), "mixer": mamba2_specs(cfg)}
+
+
 def _layer(tree: Any, i: int) -> Any:
     """Layer ``i`` of a layer-stacked param tree (views, no copies)."""
     if isinstance(tree, dict):
@@ -72,22 +87,36 @@ class Model:
     cfg: ModelConfig
 
     def __post_init__(self) -> None:
-        if self.cfg.family != "dense":
+        if self.cfg.family not in PORTED_FAMILIES:
             raise NotImplementedError(
                 f"{self.cfg.name}: family {self.cfg.family!r} is not ported yet "
-                "(repro_torch ports the dense family first; MoE, SSM, hybrid, "
-                "VLM and audio come with later slices)")
+                f"(repro_torch has {', '.join(PORTED_FAMILIES)}; MoE, VLM and audio "
+                "come with later slices)")
 
     # ---------------- specs ----------------
     def specs(self) -> dict:
         cfg = self.cfg
-        return {
+        specs: dict[str, Any] = {
             "final_ln": L.rmsnorm_spec(cfg.d_model),
             "embed": L.embed_specs(cfg),
             "lm_head": {"table": ParamSpec((cfg.padded_vocab, cfg.d_model),
                                            ("vocab", "embed"), scale=1.0)},
-            "layers": stack_specs(_dense_layer_specs(cfg), cfg.num_layers),
         }
+        if cfg.family == "dense":
+            specs["layers"] = stack_specs(_dense_layer_specs(cfg), cfg.num_layers)
+        elif cfg.family == "ssm":
+            specs["layers"] = stack_specs(rwkv6_specs(cfg), cfg.num_layers)
+        else:  # hybrid
+            group = stack_specs(_mamba_layer_specs(cfg), cfg.attn_every)
+            specs["layers"] = stack_specs(group, self.n_attn_sites())
+            # Zamba2's shared block is a full transformer block (attn + MLP)
+            specs["shared_attn"] = {
+                "ln": L.rmsnorm_spec(cfg.d_model),
+                "attn": attention_specs(cfg),
+                "ln2": L.rmsnorm_spec(cfg.d_model),
+                "mlp": L.mlp_specs(cfg),
+            }
+        return specs
 
     def init(self, seed: int = 0, device: str | torch.device = "cuda") -> dict:
         """Random weights from a ``torch.Generator`` on ``device`` seeded
@@ -118,6 +147,23 @@ class Model:
         positions = torch.arange(s, dtype=torch.int32, device=x.device)
         causal = not cfg.encoder_only
         window = cfg.effective_window(s)
+        if cfg.family == "ssm":
+            for i in range(cfg.num_layers):
+                x = rwkv6_block(_layer(params["layers"], i), x, cfg)
+            return x
+        if cfg.family == "hybrid":
+            shared = params["shared_attn"]
+            for site in range(self.n_attn_sites()):
+                site_params = _layer(params["layers"], site)
+                for j in range(cfg.attn_every):
+                    lp = _layer(site_params, j)
+                    z = L.rmsnorm(lp["ln"], x, cfg.norm_eps)
+                    x = x + mamba2_block(lp["mixer"], z, cfg)
+                z = L.rmsnorm(shared["ln"], x, cfg.norm_eps)
+                x = x + attention_block(shared["attn"], z, cfg, positions, causal, window)
+                z = L.rmsnorm(shared["ln2"], x, cfg.norm_eps)
+                x = x + L.mlp(shared["mlp"], z)
+            return x
         for i in range(cfg.num_layers):
             lp = _layer(params["layers"], i)
             h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
@@ -136,32 +182,69 @@ class Model:
         return self._head(params, x[:, -1:, :])[:, 0]
 
     # ---------------- decode ----------------
+    def n_attn_sites(self) -> int:
+        cfg = self.cfg
+        if cfg.family == "hybrid":
+            return cfg.num_layers // cfg.attn_every
+        if cfg.family == "ssm":
+            return 0
+        return cfg.num_layers
+
     def init_decode_state(self, batch: int, context: int,
                           device: str | torch.device = "cuda") -> DecodeState:
         cfg = self.cfg
         if not cfg.supports_decode:
             raise ValueError(f"{cfg.name} is encoder-only: no decode step")
-        kv = init_kv_cache(cfg, batch, context, resolve_dtype(cfg.dtype),
-                           cfg.num_layers, device=device)
+        dtype = resolve_dtype(cfg.dtype)
+        if cfg.family == "ssm":
+            return DecodeState(rwkv=init_rwkv_state(cfg, batch, dtype, cfg.num_layers, device))
+        kv = init_kv_cache(cfg, batch, context, dtype, self.n_attn_sites(), device=device)
+        if cfg.family == "hybrid":
+            return DecodeState(kv=kv, ssm=init_ssm_state(cfg, batch, dtype, cfg.num_layers,
+                                                         device))
         return DecodeState(kv=kv)
 
     def decode_step(self, params: dict, state: DecodeState,
                     tokens: torch.Tensor) -> tuple[torch.Tensor, DecodeState]:
         """tokens: (B,) one new token per sequence.  Updates ``state``'s
-        cache in place and returns it with the logits (B, vocab)."""
+        caches and recurrent states in place and returns it with the
+        logits (B, vocab)."""
         cfg = self.cfg
-        cache = state.kv
         x = L.embed(params["embed"], tokens[:, None]).to(resolve_dtype(cfg.dtype))
+        if cfg.family == "ssm":
+            st = state.rwkv
+            for i in range(cfg.num_layers):
+                x = rwkv6_decode_step(_layer(params["layers"], i), x, cfg,
+                                      st.s[i], st.shift_t[i], st.shift_c[i])
+            return self._head(params, x)[:, 0], state
+
+        cache = state.kv
         window = _decode_window(cfg, cache.positions.shape[0])
         slot = cache_write_slot(cache.positions, cache.next_pos)
         cache.positions.index_copy_(0, slot, cache.next_pos.reshape(1))
-        for i in range(cfg.num_layers):
-            lp = _layer(params["layers"], i)
-            h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
-            x = x + decode_attention_block(
-                lp["attn"], h, cfg, cache.k[i], cache.v[i], cache.positions,
-                cache.next_pos, slot, window)
-            h = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
-            x = x + L.mlp(lp["mlp"], h)
+        if cfg.family == "hybrid":
+            ssm, shared = state.ssm, params["shared_attn"]
+            for site in range(self.n_attn_sites()):
+                site_params = _layer(params["layers"], site)
+                for j in range(cfg.attn_every):
+                    lp = _layer(site_params, j)
+                    i = site * cfg.attn_every + j
+                    z = L.rmsnorm(lp["ln"], x, cfg.norm_eps)
+                    x = x + mamba2_decode_step(lp["mixer"], z, cfg, ssm.h[i], ssm.conv[i])
+                z = L.rmsnorm(shared["ln"], x, cfg.norm_eps)
+                x = x + decode_attention_block(
+                    shared["attn"], z, cfg, cache.k[site], cache.v[site], cache.positions,
+                    cache.next_pos, slot, window)
+                z = L.rmsnorm(shared["ln2"], x, cfg.norm_eps)
+                x = x + L.mlp(shared["mlp"], z)
+        else:
+            for i in range(cfg.num_layers):
+                lp = _layer(params["layers"], i)
+                h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
+                x = x + decode_attention_block(
+                    lp["attn"], h, cfg, cache.k[i], cache.v[i], cache.positions,
+                    cache.next_pos, slot, window)
+                h = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
+                x = x + L.mlp(lp["mlp"], h)
         cache.next_pos.add_(1)
         return self._head(params, x)[:, 0], state

@@ -6,11 +6,13 @@ is false, so on a CPU-only machine they all skip).  Run on the card with::
 
 Imports torch and numpy only, so it runs where JAX is not installed.  Shapes
 are the reference sweep's (``tests/test_kernels.py``) plus a ragged
-sequence and cache length at head_dim 128.  The kernels compute in f32 and
-round the output to q's dtype once, so each is held against its plain
+sequence and cache length at head_dim 128.  Head_dim 80 is zamba2's.  The
+attention kernels compute in f32 and round the output to q's dtype once, so each is held against its plain
 version computed in f32 on the same inputs.  Tolerance: f32 2e-5 (the
 reference sweep's; summation order); bf16 the same plus half a bf16 ulp of
-the value, at most 2**-8 of it (rtol 4e-3).  TF32 off.
+the value, at most 2**-8 of it (rtol 4e-3).  The scan kernels take and
+return f32 and are held against the step recurrences at the reference
+sweep's 2e-4 (``test_kernels.py:96-180``).  TF32 off.
 """
 import numpy as np
 import pytest
@@ -21,11 +23,21 @@ from repro_torch import kernels as K  # noqa: E402
 from repro_torch.kernels import ref as R  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention_cuda  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention_cuda  # noqa: E402
+from repro_torch.kernels.mamba2_ssd import mamba2_ssd_cuda  # noqa: E402
+from repro_torch.kernels.rwkv6_scan import rwkv6_wkv_cuda  # noqa: E402
 
 TOL = {"float32": dict(atol=2e-5, rtol=2e-5), "bfloat16": dict(atol=2e-5, rtol=4e-3)}
 
-FLASH_SHAPES = [(1, 128, 4, 4, 32), (2, 256, 4, 2, 32), (1, 128, 8, 1, 64), (1, 100, 4, 2, 128)]
-DECODE_SHAPES = [(2, 4, 2, 32, 256), (1, 8, 1, 64, 128), (2, 4, 4, 32, 128), (2, 8, 2, 128, 100)]
+FLASH_SHAPES = [(1, 128, 4, 4, 32), (2, 256, 4, 2, 32), (1, 128, 8, 1, 64), (1, 100, 4, 2, 128),
+                (2, 256, 4, 4, 80)]
+DECODE_SHAPES = [(2, 4, 2, 32, 256), (1, 8, 1, 64, 128), (2, 4, 4, 32, 128), (2, 8, 2, 128, 100),
+                 (2, 4, 4, 80, 256)]
+# the scans (tests/test_kernels.py:96-180), plus a ragged Mamba2 sub-tile
+# (S = 100) and a 256-row chunk at zamba2's P = N = 64
+RWKV_SHAPES = [(1, 64, 2, 16), (2, 128, 3, 32), (1, 128, 1, 64)]
+MAMBA_SHAPES = [(1, 64, 4, 16, 16, 16), (2, 128, 8, 16, 24, 32), (1, 100, 4, 8, 16, 100),
+                (2, 512, 8, 64, 64, 256)]
+SCAN = dict(atol=2e-4, rtol=2e-4)
 
 
 @pytest.fixture
@@ -94,17 +106,50 @@ def test_decode_kernel_ring_buffer_wraparound(dev, dtype):
 
 
 @pytest.mark.cuda
-def test_model_cuda_path_matches_cpu_path(dev):
+@pytest.mark.parametrize("b,s,h,dk", RWKV_SHAPES)
+@pytest.mark.parametrize("chunk", [16, 32, 64])
+@pytest.mark.parametrize("decay_strength", [0.5, 6.0, None])   # None: logw = -25
+def test_rwkv6_kernel_matches_plain(dev, b, s, h, dk, chunk, decay_strength):
+    r, k, v, w, u = _randn(dev, "float32", 10, *[(b, s, h, dk)] * 4, (h, dk))
+    logw = (torch.full_like(w, -25.0) if decay_strength is None
+            else -torch.nn.functional.softplus(w * decay_strength))
+    n0 = rwkv6_wkv_cuda.launches
+    got = K.rwkv6_wkv(r, k, v, logw, u, chunk)
+    torch.cuda.synchronize()
+    assert rwkv6_wkv_cuda.launches == n0 + 1 and bool(torch.isfinite(got).all())
+    np.testing.assert_allclose(got.cpu().numpy(),
+                               R.rwkv6_wkv_ref(r, k, v, logw, u).cpu().numpy(), **SCAN)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,p,n,chunk", MAMBA_SHAPES)
+def test_mamba2_kernel_matches_plain(dev, b, s, h, p, n, chunk):
+    x, dt, a, bm, cm = _randn(dev, "float32", 20, (b, s, h, p), (b, s, h), (h,), (b, s, n),
+                              (b, s, n))
+    dt = torch.nn.functional.softplus(dt)
+    a = -torch.exp(a * 0.2)
+    n0 = mamba2_ssd_cuda.launches
+    got = K.mamba2_ssd(x, dt, a, bm, cm, chunk, 4)
+    torch.cuda.synchronize()
+    assert mamba2_ssd_cuda.launches == n0 + 1
+    np.testing.assert_allclose(got.cpu().numpy(),
+                               R.mamba2_ssd_ref(x, dt, a, bm, cm).cpu().numpy(), **SCAN)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,seq", [("qwen3-4b", 64), ("rwkv6-3b", 64), ("zamba2-2.7b", 64)])
+def test_model_cuda_path_matches_cpu_path(dev, arch, seq):
     """The small model through the kernels against the same model through
-    the plain versions (which tests/test_torch_serve.py holds against JAX);
-    1e-3 since cuBLAS and the CPU sum in different orders."""
+    the plain versions (which tests/test_torch_serve.py and
+    tests/test_torch_recurrent.py hold against JAX); 1e-3 since cuBLAS and
+    the CPU sum in different orders."""
     from repro_torch.configs import get_config
     from repro_torch.models import Model
 
-    model = Model(get_config("qwen3-4b", smoke=True))
+    model = Model(get_config(arch, smoke=True))
     p_cpu = model.init(seed=1, device="cpu")
     p_gpu = _to(p_cpu, dev)
-    toks = torch.from_numpy(np.random.default_rng(1).integers(0, 512, (2, 64)))
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, 512, (2, seq)))
     with torch.inference_mode():
         want = model.prefill(p_cpu, {"tokens": toks})
         got = model.prefill(p_gpu, {"tokens": toks.to(dev)}).cpu()

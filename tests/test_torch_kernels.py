@@ -3,8 +3,8 @@
 CPU arms: the port's plain versions (``repro_torch.kernels.ref``, which the
 wrappers use for CPU tensors) against the JAX Pallas kernels run as
 ``tests/test_kernels.py`` runs them (``interpret=True``), over that file's
-flash and decode sweeps and the ring-buffer wraparound, on the same inputs
-made with numpy.  Tolerance: f32 2e-5 absolute and relative, the reference
+flash and decode sweeps plus head_dim 80 (zamba2's shared block) and the
+ring-buffer wraparound, on the same inputs made with numpy.  Tolerance: f32 2e-5 absolute and relative, the reference
 sweep's own (``test_kernels.py:23``); both sides accumulate in f32 in a
 different order.
 
@@ -35,11 +35,13 @@ FLASH_SHAPES = [
     (1, 128, 4, 4, 32),    # MHA
     (2, 256, 4, 2, 32),    # GQA
     (1, 128, 8, 1, 64),    # MQA
+    (1, 128, 4, 4, 80),    # MHA at zamba2's head_dim
 ]
 DECODE_SHAPES = [
     (2, 4, 2, 32, 256),
     (1, 8, 1, 64, 128),   # MQA
     (2, 4, 4, 32, 128),   # MHA
+    (2, 4, 4, 80, 128),   # MHA at zamba2's head_dim
 ]
 
 
@@ -109,7 +111,8 @@ def test_cpu_dispatch_counts_no_launch():
     K.reset_launch_counts()
     q, kk, v = _randn(1, (1, 64, 2, 32), (1, 64, 1, 32), (1, 64, 1, 32))
     K.flash_attention(*_t(q, kk, v))
-    assert K.launch_counts() == {"flash_attention": 0, "decode_attention": 0}
+    assert K.launch_counts() == {"flash_attention": 0, "decode_attention": 0,
+                                 "rwkv6_wkv": 0, "mamba2_ssd": 0}
 
 
 # ------------------------------------------------------ wrapper checks ----
