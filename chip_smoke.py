@@ -6,7 +6,8 @@
 Three serving paths at full width, four hand-written kernels: qwen3-4b
 (dense: flash_attention, decode_attention), rwkv6-3b (ssm: rwkv6_wkv) and
 zamba2-2.7b (hybrid: mamba2_ssd, and flash/decode attention at head_dim 80
-in the shared block).
+in the shared block).  bf16 flash runs the wgmma/TMA kernel, f32 flash the
+FMA kernel; decode is one launch per call.
 
 Phases (each raises on failure; none is caught):
 
@@ -37,20 +38,26 @@ Phases (each raises on failure; none is caught):
              kernel for a prefill and for decode steps (torch.profiler)
              with the device's busy share; each kernel, its plain version
              and, for attention, the PyTorch library call
-             (scaled_dot_product_attention) at the full-width shapes,
-             device time only (calls captured in a CUDA graph, replayed
-             between CUDA events); the bound from the shapes and the H100's
-             peaks.  No single PyTorch call computes either scan, so their
+             (scaled_dot_product_attention, with |sdpa - kernel|) at the
+             full-width shapes, device time only (calls captured in a CUDA
+             graph, replayed between CUDA events; for attention the median
+             of ROUNDS rounds, kernel and SDPA alternating, with the range
+             printed); the bound from the shapes and the H100's peaks.
+             No single PyTorch call computes either scan, so their
              library_ms is null.
 
-Prints the card's name and power limit, one ``{"kernels": [...]}`` line, and
-as the last line ``{"ok": true, "device": {...}}``.  Exits non-zero, with no
-result, when there is no CUDA device or no ``src/repro_torch`` beside it.
+The build phase prints each kernel's registers, static shared memory and
+spill bytes from the compiler's -Xptxas -v report.  Prints the card's name
+and power limit, one ``{"kernels": [...]}`` line (each row also names the
+kernel's design), and as the last line ``{"ok": true, "device": {...}}``.
+Exits non-zero, with no result, when there is no CUDA device or no
+``src/repro_torch`` beside it.
 """
 from __future__ import annotations
 
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -64,8 +71,10 @@ import torch.nn.functional as F
 # CUDA-core rates by input type
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-# Both kernels compute in f32 and round the output to q's dtype once, so each
-# is held against its plain version computed in f32 on the same inputs.
+# Both kernels compute in f32 (bf16 flash: products of bf16 values summed in
+# f32, and P carried as bf16 hi + lo, within 2**-16 of p) and round the
+# output to q's dtype once, so each is held against its plain version
+# computed in f32 on the same inputs.
 # f32: the reference sweep's 2e-5 (tests/test_kernels.py:23; the two sum in
 # different orders).  bf16: the one rounding, at most half a bf16 ulp, which
 # is 2**-8 of the value (rtol 4e-3), on top of the same f32 differences.
@@ -101,6 +110,17 @@ PATHS = {
 
 
 KERNELS = ("flash_attention", "decode_attention", "rwkv6_wkv", "mamba2_ssd")
+SOURCES = {"flash_attention": ("flash_attention.cu", "flash_attention.py:85"),
+           "decode_attention": ("decode_attention.cu", "decode_attention.py:75"),
+           "rwkv6_wkv": ("rwkv6_scan.cu", "rwkv6_scan.py:109"),
+           "mamba2_ssd": ("mamba2_ssd.cu", "mamba2_ssd.py:66")}
+# Each kernel's design
+DESIGNS = {"flash_attention": {"bfloat16": "wgmma+tma", "float32": "fma"},
+           "decode_attention": "cp.async ring + cluster merge",
+           "rwkv6_wkv": "fma", "mamba2_ssd": "fma"}
+# The attention kernels' times are medians of ROUNDS timings, each kernel
+# round followed by one of SDPA, so the two see the same state of the card.
+ROUNDS = 5
 
 
 def log(msg: str) -> None:
@@ -119,10 +139,9 @@ def max_err(got: torch.Tensor, want: torch.Tensor, dtype: torch.dtype,
     return err.max().item()
 
 
-def graph_ms(fn, iters: int, replays: int = 5) -> float:
-    """Mean device milliseconds per call: ``iters`` calls captured in one
-    CUDA graph, replayed between CUDA events, so the host's launch cost is
-    not in the time."""
+def capture(fn, iters: int) -> torch.cuda.CUDAGraph:
+    """``iters`` calls of ``fn`` captured in one CUDA graph (after three
+    warm-up calls on a side stream)."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -134,6 +153,12 @@ def graph_ms(fn, iters: int, replays: int = 5) -> float:
         for _ in range(iters):
             fn()
     graph.replay()
+    return graph
+
+
+def replay_ms(graph: torch.cuda.CUDAGraph, iters: int, replays: int = 5) -> float:
+    """Mean device milliseconds per captured call over ``replays`` replays
+    between CUDA events, so the host's launch cost is not in the time."""
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     start.record()
@@ -143,6 +168,24 @@ def graph_ms(fn, iters: int, replays: int = 5) -> float:
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (replays * iters)
 
+
+def graph_ms(fn, iters: int, replays: int = 5) -> float:
+    """Mean device milliseconds per call of ``fn`` (CUDA-graph replays)."""
+    return replay_ms(capture(fn, iters), iters, replays)
+
+
+def rounds_ms(kernel, library, iters: int) -> tuple[list[float], list[float]]:
+    """``ROUNDS`` timings each of ``kernel`` and ``library``, alternating."""
+    gk, gl = capture(kernel, iters), capture(library, iters)
+    ks, ls = [], []
+    for _ in range(ROUNDS):
+        ks.append(replay_ms(gk, iters))
+        ls.append(replay_ms(gl, iters))
+    return ks, ls
+
+
+def spread(xs: list[float]) -> str:
+    return f"median {statistics.median(xs):.4f} ms, range {min(xs):.4f}-{max(xs):.4f}"
 
 def randn(gen, shape, dtype, dev):
     return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(dtype)
@@ -159,6 +202,11 @@ def phase_build():
     libs = build.build_all()
     log(f"[build] {len(libs)} kernels in {time.perf_counter() - t0:.3f}s: "
         + ", ".join(p.name for p in libs.values()))
+    for name in libs:
+        for r in build.ptxas_report(name):
+            log(f"[build]   {r['kernel']}: {r['registers']} registers, "
+                f"{r['smem_bytes']} B static smem, spill {r['spill_stores']}/{r['spill_loads']} B "
+                f"(stores/loads)")
 
 
 def phase_kernels(dev):
@@ -463,9 +511,10 @@ def time_flash(K, R, gen, dev, h, kv, d):
     k = randn(gen, (B, S_PREFILL, kv, d), dt, dev)
     v = randn(gen, (B, S_PREFILL, kv, d), dt, dev)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    ms = graph_ms(lambda: K.flash_attention(q, k, v, causal=True), 20)
+    ks, ls = rounds_ms(lambda: K.flash_attention(q, k, v, causal=True),
+                       lambda: sdpa(qt, kt, vt, is_causal=True), 20)
+    ms, lib = statistics.median(ks), statistics.median(ls)
     plain = graph_ms(lambda: R.flash_attention_ref(q, k, v, True, None), 3)
-    lib = graph_ms(lambda: sdpa(qt, kt, vt, is_causal=True), 20)
     lib_err = (sdpa(qt, kt, vt, is_causal=True).transpose(1, 2).float()
                - K.flash_attention(q, k, v).float()).abs().max().item()
     esz = q.element_size()
@@ -475,6 +524,7 @@ def time_flash(K, R, gen, dev, h, kv, d):
     log(f"[times] flash_attention q {tuple(q.shape)} kv {tuple(k.shape)} bf16 causal: kernel "
         f"{ms:.4f} ms, plain {plain:.4f} ms, sdpa {lib:.4f} ms (|sdpa - kernel| {lib_err:.2e}), "
         f"bound {b_ms:.4f} ms ({b_by}); {b_ms / ms:.3f} of bound")
+    log(f"[times]   {ROUNDS} rounds: kernel {spread(ks)}; sdpa {spread(ls)}")
     return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by)
 
 
@@ -500,14 +550,23 @@ def time_decode(K, R, gen, dev, h, kv, d):
             return fn(it["i"])
         return call
 
-    ms = graph_ms(cyc(lambda i: K.decode_attention(qd, *caches[i], pos, npos)), 200)
+    ks, ls = rounds_ms(cyc(lambda i: K.decode_attention(qd, *caches[i], pos, npos)),
+                       cyc(lambda i: sdpa(qdt, *caches_t[i], attn_mask=mask)), 200)
+    ms, lib = statistics.median(ks), statistics.median(ls)
     plain = graph_ms(cyc(lambda i: R.decode_attention_ref(qd, *caches[i], pos, npos)), 40)
-    lib = graph_ms(cyc(lambda i: sdpa(qdt, *caches_t[i], attn_mask=mask)), 200)
+    lib_err = (sdpa(qdt, *caches_t[0], attn_mask=mask).view(B, h, d).float()
+               - K.decode_attention(qd, *caches[0], pos, npos).float()).abs().max().item()
     nbytes = (2 * qd.numel() + 2 * caches[0][0].numel()) * qd.element_size() + 4 * (CONTEXT + 1)
     b_ms, b_by = bound(nbytes, 4.0 * B * h * d * CONTEXT, dt)
+    from repro_torch.kernels.decode_attention import TILE, splits_for
+    splits, tiles = splits_for(dev.index, B, h, kv, CONTEXT, d, dt), -(-CONTEXT // TILE)
+    log(f"[times] decode_attention at these shapes: {splits} splits of "
+        f"{-(-tiles // splits)} tiles per (batch, KV head)")
     log(f"[times] decode_attention q {tuple(qd.shape)} cache {tuple(caches[0][0].shape)} bf16 "
         f"(all {CONTEXT} slots valid): kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa "
-        f"{lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}); {b_ms / ms:.3f} of bound")
+        f"{lib:.4f} ms (|sdpa - kernel| {lib_err:.2e}), bound {b_ms:.4f} ms ({b_by}); "
+        f"{b_ms / ms:.3f} of bound")
+    log(f"[times]   {ROUNDS} rounds: kernel {spread(ks)}; sdpa {spread(ls)}")
     return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by)
 
 
@@ -593,19 +652,16 @@ def main() -> int:
         torch.cuda.empty_cache()
     times = phase_times(dev)
 
-    sources = {"flash_attention": ("flash_attention.cu", "flash_attention.py:85"),
-               "decode_attention": ("decode_attention.cu", "decode_attention.py:75"),
-               "rwkv6_wkv": ("rwkv6_scan.cu", "rwkv6_scan.py:109"),
-               "mamba2_ssd": ("mamba2_ssd.cu", "mamba2_ssd.py:66")}
     rows = []
-    for name, (source, replaces) in sources.items():
+    for name, (source, replaces) in SOURCES.items():
         t = times[name]
         rows.append({"name": name, "route": "cuda",
                      "source": f"src/repro_torch/kernels/csrc/{source}",
                      "replaces": f"src/repro/kernels/{replaces}",
                      "launches": launches[name], "max_abs_err": errs[name],
                      "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-                     "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+                     "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+                     "design": DESIGNS[name]})
     if any(not math.isfinite(r["ms"]) for r in rows):
         raise AssertionError("non-finite kernel time")
     log(f"[done] all phases passed in {time.perf_counter() - t_all:.1f}s")

@@ -4,8 +4,10 @@ use and loads them with ``ctypes``.
 Each ``csrc/<name>.cu`` exports a plain C function and is compiled on its
 own into ``build/<name>-<hash>.so`` beside this module (``build/`` is
 git-ignored); the hash covers the sources, so an edited kernel is rebuilt.
-A missing ``nvcc`` or a failed compile raises: nothing falls back to the
-plain PyTorch versions.
+The compiler's ``-Xptxas -v`` report (registers, shared memory, spills per
+kernel) is kept beside the library as ``<name>-<hash>.ptxas.txt`` and read
+by ``ptxas_report``.  A missing ``nvcc`` or a failed compile raises:
+nothing falls back to the plain PyTorch versions.
 """
 from __future__ import annotations
 
@@ -13,18 +15,20 @@ import concurrent.futures
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["SOURCES", "BUILD_DIR", "NVCC_FLAGS", "find_nvcc", "build", "build_all", "load"]
+__all__ = ["SOURCES", "BUILD_DIR", "NVCC_FLAGS", "find_nvcc", "build", "build_all", "load",
+           "ptxas_report"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("flash_attention", "decode_attention", "rwkv6_scan", "mamba2_ssd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -67,6 +71,7 @@ def build(name: str) -> Path:
         raise RuntimeError(
             f"nvcc failed for {name} (exit {proc.returncode}):\n"
             f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+    out.with_suffix(".ptxas.txt").write_text(proc.stderr)
     os.replace(tmp, out)   # atomic: a concurrent build never sees half a file
     return out
 
@@ -87,3 +92,27 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build(name)))
             _loaded[name] = lib
         return lib
+
+
+def ptxas_report(name: str) -> list[dict]:
+    """Per kernel of ``csrc/<name>.cu`` as built: its (mangled) name, and
+    the registers, static shared memory and spill bytes ``ptxas -v``
+    reported.  Builds first if needed."""
+    text = build(name).with_suffix(".ptxas.txt").read_text()
+    rows, cur = [], None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = {"kernel": m.group(1), "registers": 0, "smem_bytes": 0,
+                   "spill_stores": 0, "spill_loads": 0}
+            rows.append(cur)
+        elif cur is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                cur["registers"] = int(m.group(1))
+                m = re.search(r"(\d+) bytes smem", line)
+                cur["smem_bytes"] = int(m.group(1)) if m else 0
+    return rows

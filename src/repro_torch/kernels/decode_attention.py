@@ -3,26 +3,29 @@ of the hand-written Hopper kernel ``csrc/decode_attention.cu``.
 
 Replaces the TPU kernel ``repro/kernels/decode_attention.py::decode_attention_fwd``,
 the kernel form of the model's decode attention.  On the H100 it is bound
-by the memory rate (each cache byte feeds a few multiply-adds); the kernel
-reads each K/V byte once, shared by the G query heads of a KV group, splits
-the cache tiles over enough blocks to fill the SMs (combining the splits'
-partial softmax states in a second kernel), and reads ``positions`` and
-``next_pos`` from device memory, so no decode step waits on the host.
+by the memory rate (each cache byte feeds a few multiply-adds).  The kernel
+reads each K/V byte once, shared by the query heads of a KV group, through
+a ring of 16-byte ``cp.async`` copies; it splits the cache tiles over a
+thread-block cluster of up to ``MAX_SPLITS`` blocks, which merge their
+partial softmax states through distributed shared memory in the same
+launch; and it reads ``positions`` and ``next_pos`` from device memory, so
+no decode step waits on the host.  The wrapper allocates only the output.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
 from . import _build
 from .flash_attention import DTYPE_CODES, check_attention_inputs
 
-__all__ = ["decode_attention_cuda", "num_splits"]
+__all__ = ["decode_attention_cuda", "num_splits", "splits_for", "TILE", "MAX_SPLITS"]
 
 TILE = 64            # cache slots per tile (BK in the kernel)
+MAX_SPLITS = 8       # splits form one thread-block cluster: the portable size
 _fn = None
 
 
@@ -30,7 +33,7 @@ def _kernel():
     global _fn
     if _fn is None:
         fn = _build.load("decode_attention").decode_attention_fwd
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -41,14 +44,43 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def num_splits(batch: int, kv_heads: int, capacity: int, sm_count: int) -> int:
-    """Cache splits per (batch, KV head): enough blocks for two per SM,
-    never more splits than tiles, and every split owning at least one
-    tile (the kernel gives each ceil(tiles / splits) tiles)."""
+def num_splits(batch: int, kv_heads: int, capacity: int, sm_count: int,
+               clusters_fit: Callable[[int], bool] = lambda splits: True) -> int:
+    """Cache splits per (batch, KV head): the most, from a bound of two
+    blocks per SM and ``MAX_SPLITS`` (one cluster) and halving from there,
+    whose clusters ``clusters_fit`` on the card at once; never more splits
+    than tiles, and every split owning at least one tile (the kernel gives
+    each ceil(tiles / splits) tiles)."""
     tiles = -(-capacity // TILE)
-    want = -(-2 * sm_count // (batch * kv_heads))
-    per_split = -(-tiles // min(tiles, max(1, want)))
-    return -(-tiles // per_split)
+    want = 2 * sm_count // (batch * kv_heads)
+    bound = min(tiles, MAX_SPLITS, max(1, want))
+    while True:
+        splits = -(-tiles // -(-tiles // bound))
+        if splits == 1 or clusters_fit(splits):
+            return splits
+        bound = (bound + 1) // 2
+
+
+@functools.lru_cache(maxsize=None)
+def splits_for(device: int, batch: int, heads: int, kv_heads: int, capacity: int,
+               head_dim: int, dtype: torch.dtype) -> int:
+    """``num_splits`` for a launch on CUDA device ``device``, whose clusters
+    fit when the occupancy API runs at least as many of them at once as the
+    launch needs."""
+    fn = _build.load("decode_attention").decode_attention_clusters
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def clusters_fit(splits: int) -> bool:
+        need_fit = (ctypes.c_int * 2)()
+        with torch.cuda.device(device):
+            err = fn(batch, heads, kv_heads, head_dim, DTYPE_CODES[dtype], splits,
+                     ctypes.addressof(need_fit))
+        if err:
+            raise RuntimeError(f"decode_attention_clusters failed: CUDA error {err}")
+        return need_fit[1] >= need_fit[0]
+
+    return num_splits(batch, kv_heads, capacity, _sm_count(device), clusters_fit)
 
 
 def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
@@ -72,15 +104,14 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
             raise ValueError(f"{name} must be {n} contiguous int32 on {q.device}, "
                              f"got {t.dtype} {tuple(t.shape)} on {t.device}")
     kh = k_cache.shape[2]
-    splits = num_splits(b, kh, c, _sm_count(q.device.index))
+    splits = splits_for(q.device.index, b, h, kh, c, d, q.dtype)
+    if any(t.data_ptr() % 16 for t in (q, k_cache, v_cache)):
+        raise ValueError("the kernel's 16-byte loads need 16-byte aligned q and caches")
     out = torch.empty_like(q)
-    part_acc = torch.empty((b, kh, splits, h // kh, d), dtype=torch.float32, device=q.device)
-    part_ml = torch.empty((b, kh, splits, h // kh, 2), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _kernel()(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                         positions.data_ptr(), next_pos.data_ptr(), out.data_ptr(),
-                        part_acc.data_ptr(), part_ml.data_ptr(),
                         b, c, h, kh, d, -1 if window is None else int(window),
                         splits, DTYPE_CODES[q.dtype], stream)
     if err:

@@ -2,12 +2,13 @@
 ``csrc/flash_attention.cu``.
 
 Replaces the TPU kernel ``repro/kernels/flash_attention.py::flash_attention_fwd``.
-On the H100 the causal prefill is bound by the tensor-core rate; the kernel
-keeps every intermediate on chip (one block per batch, query head and
-64-row query tile, K/V tiles staged through shared memory, online softmax
-in registers) and skips KV tiles outside the causal/window band.  This
-first version multiplies with f32 FMAs, not ``wgmma``: see the source's
-note and ``PERF.md`` for where it stands against its bound.
+On the H100 the causal prefill is bound by the tensor-core rate.  bfloat16
+inputs (the serving path) run a warp-specialised kernel: TMA loads Q, K and
+V tiles straight from the (B,S,H,D) / (B,S,K,D) tensors into a ring of
+shared-memory stages, two warpgroups multiply with ``wgmma`` and keep the
+online softmax in registers.  float32 inputs run the first version's f32
+FMA kernel.  Both keep every intermediate on chip and skip KV tiles outside
+the causal/window band; see the source's note.
 """
 from __future__ import annotations
 
@@ -72,6 +73,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape != v.shape or k.shape[:2] != (b, s):
         raise ValueError(f"q {tuple(q.shape)} vs k {tuple(k.shape)} / v {tuple(v.shape)}")
     out = torch.empty_like(q)
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("the bf16 kernel's TMA loads need 16-byte aligned tensors")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

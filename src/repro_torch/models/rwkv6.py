@@ -25,6 +25,7 @@ import torch.nn.functional as F
 
 from repro_torch import kernels
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.rwkv6_scan import STATE_TILE
 from .layers import rmsnorm, rmsnorm_spec
 from .params import ParamSpec
 
@@ -131,7 +132,7 @@ def _gate_and_out(params: Mapping[str, Any], y: torch.Tensor, g: torch.Tensor,
 def rwkv6_time_mix(params: Mapping[str, Any], x: torch.Tensor,
                    cfg: ModelConfig) -> torch.Tensor:
     """Full-sequence time mix from a zero state: x (B,S,d) normed → (B,S,d).
-    The scan runs through ``kernels.rwkv6_wkv`` with the reference's chunk."""
+    The scan runs through ``kernels.rwkv6_wkv`` (chunk chosen below)."""
     b, s, d = x.shape
     r = _project(params, x, "mu_r", None, "wr").float()
     k = _project(params, x, "mu_k", None, "wk").float()
@@ -140,7 +141,13 @@ def rwkv6_time_mix(params: Mapping[str, Any], x: torch.Tensor,
     logw = _decay(params, _token_shift(x, params["mu_w"], None))
     u = params["bonus_u"].float()
 
-    chunk = min(cfg.ssm_chunk, s) if s >= 2 else 1
+    # The reference's jnp ``_wkv_chunked`` takes the largest divisor of S up
+    # to ssm_chunk, and any chunk gives it the same result (chunk invariance,
+    # tests/test_kernels.py:96-149).  The kernel's check refuses a chunk above
+    # its fold tile that is not a multiple of it (48 at S = 96), so the port
+    # takes the largest divisor of S up to min(ssm_chunk, STATE_TILE): that
+    # is the fold tile the kernel would use, and the result is the same.
+    chunk = min(cfg.ssm_chunk, STATE_TILE, s)
     while s % chunk:
         chunk -= 1
     y = kernels.rwkv6_wkv(r, k, v, logw, u, chunk)

@@ -5,10 +5,12 @@ is false, so on a CPU-only machine they all skip).  Run on the card with::
     python -m pytest -m cuda tests/test_torch_cuda.py -q
 
 Imports torch and numpy only, so it runs where JAX is not installed.  Shapes
-are the reference sweep's (``tests/test_kernels.py``) plus a ragged
-sequence and cache length at head_dim 128.  Head_dim 80 is zamba2's.  The
-attention kernels compute in f32 and round the output to q's dtype once, so each is held against its plain
-version computed in f32 on the same inputs.  Tolerance: f32 2e-5 (the
+are the reference sweep's (``tests/test_kernels.py``) plus ragged sequence
+and cache lengths, every supported head_dim (80 is zamba2's), and decode
+splits at the cluster cap.  The attention kernels compute in f32 (bf16
+flash carries P as bf16 hi + lo, within 2**-16 of p) and round the output
+to q's dtype once, so each is held against its plain version computed in
+f32 on the same inputs.  Tolerance: f32 2e-5 (the
 reference sweep's; summation order); bf16 the same plus half a bf16 ulp of
 the value, at most 2**-8 of it (rtol 4e-3).  The scan kernels take and
 return f32 and are held against the step recurrences at the reference
@@ -21,15 +23,20 @@ torch = pytest.importorskip("torch")
 
 from repro_torch import kernels as K  # noqa: E402
 from repro_torch.kernels import ref as R  # noqa: E402
-from repro_torch.kernels.decode_attention import decode_attention_cuda  # noqa: E402
+from repro_torch.kernels.decode_attention import MAX_SPLITS, decode_attention_cuda, \
+    splits_for  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention_cuda  # noqa: E402
 from repro_torch.kernels.mamba2_ssd import mamba2_ssd_cuda  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import rwkv6_wkv_cuda  # noqa: E402
 
 TOL = {"float32": dict(atol=2e-5, rtol=2e-5), "bfloat16": dict(atol=2e-5, rtol=4e-3)}
 
+# bf16 runs the wgmma/TMA kernel: every head_dim (16 and 80 take the 32-byte
+# swizzle, 32 the 64-byte, 64 and 128 the 128-byte), G = H/K of 1, 2, 4 and
+# 8, ragged S (100, 200) and S below one 128-row q tile (64, 96)
 FLASH_SHAPES = [(1, 128, 4, 4, 32), (2, 256, 4, 2, 32), (1, 128, 8, 1, 64), (1, 100, 4, 2, 128),
-                (2, 256, 4, 4, 80)]
+                (2, 256, 4, 4, 80), (1, 64, 2, 2, 16), (2, 96, 8, 2, 64), (1, 200, 8, 1, 128),
+                (1, 200, 4, 2, 80), (1, 256, 4, 1, 16)]
 DECODE_SHAPES = [(2, 4, 2, 32, 256), (1, 8, 1, 64, 128), (2, 4, 4, 32, 128), (2, 8, 2, 128, 100),
                  (2, 4, 4, 80, 256)]
 # the scans (tests/test_kernels.py:96-180), plus a ragged Mamba2 sub-tile
@@ -91,6 +98,22 @@ def test_decode_kernel_matches_plain(dev, b, h, k, d, c, window, fill, dtype):
     torch.cuda.synchronize()
     assert decode_attention_cuda.launches == n0 + 1
     _close(got, R.decode_attention_ref(*_f32(q, kc, vc), pos, npos, window), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,k,d,c", [(1, 8, 1, 64, 2048), (1, 32, 8, 128, 1024)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_kernel_at_cluster_cap(dev, b, h, k, d, c, dtype):
+    """Batch 1: the splits reach the cluster cap of 8 (4 and 2 tiles each);
+    every slot valid, with a window."""
+    assert splits_for(torch.cuda.current_device(), b, h, k, c, d, getattr(torch, dtype)) \
+        == MAX_SPLITS
+    q, kc, vc = _randn(dev, dtype, 4, (b, h, d), (b, c, k, d), (b, c, k, d))
+    pos = torch.arange(c, dtype=torch.int32, device=dev)
+    npos = torch.tensor(c - 1, dtype=torch.int32, device=dev)
+    for window in (None, 300):
+        _close(K.decode_attention(q, kc, vc, pos, npos, window=window),
+               R.decode_attention_ref(*_f32(q, kc, vc), pos, npos, window), dtype)
 
 
 @pytest.mark.cuda

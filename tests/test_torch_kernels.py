@@ -9,7 +9,10 @@ sweep's own (``test_kernels.py:23``); both sides accumulate in f32 in a
 different order.
 
 The hand-written kernels themselves are held against the plain versions
-on the card by ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
+on the card by ``tests/test_torch_cuda.py`` and ``chip_smoke.py``; their
+arithmetic is written out here in torch (the bf16 flash kernel's tiles,
+exp2 softmax and P split into bf16 hi and lo; the decode kernel's warps,
+splits and merges) and held against the plain versions on the CPU.
 """
 import numpy as np
 import pytest
@@ -23,7 +26,7 @@ from repro.kernels.flash_attention import flash_attention_fwd  # noqa: E402
 from repro_torch import kernels as K  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import ref as R  # noqa: E402
-from repro_torch.kernels.decode_attention import decode_attention_cuda, \
+from repro_torch.kernels.decode_attention import MAX_SPLITS, decode_attention_cuda, \
     num_splits  # noqa: E402
 from repro_torch.kernels.flash_attention import check_attention_inputs, \
     flash_attention_cuda  # noqa: E402
@@ -168,54 +171,68 @@ def test_build_library_name_tracks_sources():
 
 
 # ---------------------------------------- split-KV decode: the algorithm ----
-def _split_decode_model(q, kc, vc, pos, npos, window, splits, tile=64):
-    """The decode kernel's arithmetic in torch: per split, an online
-    softmax over its tiles with the -1e30 sentinel; then the combine with
-    weights exp(m_s - max m)."""
+def _online(m, l, acc, sc, vt):
+    """One online-softmax update with scores sc (..., t) over values vt."""
+    m_new = torch.maximum(m, sc.amax(-1))
+    corr = torch.exp(m - m_new)
+    p = torch.exp(sc - m_new[..., None])
+    return m_new, l * corr + p.sum(-1), acc * corr[..., None] + torch.einsum(
+        "bkgt,btkd->bkgd", p, vt)
+
+
+def _merge(ms, ls, accs):
+    """Merge partial softmax states with weights exp(m_s - max m)."""
+    m_all = torch.stack(ms)
+    w = torch.exp(m_all - m_all.amax(0))
+    return m_all.amax(0), (w * torch.stack(ls)).sum(0), (w[..., None] * torch.stack(accs)).sum(0)
+
+
+def _split_decode_model(q, kc, vc, pos, npos, window, splits, tile=64, warps=8):
+    """The decode kernel's arithmetic in torch: in each split (one block of
+    the cluster) each warp owns ``tile / warps`` slots of every tile and
+    runs its own online softmax over them with the -1e30 sentinel (the
+    ragged last tile's padding slots masked too); the block merges its
+    warps, then the cluster merges the splits, each with weights
+    exp(m - max m)."""
     b, h, d = q.shape
     c, kh = kc.shape[1], kc.shape[2]
     g = h // kh
     tiles = -(-c // tile)
     per = -(-tiles // splits)
+    rows = tile // warps
     qg = q.reshape(b, kh, g, d).double()
-    ms, ls, accs = [], [], []
+    kp_all = torch.cat([pos, torch.full((tiles * tile - c,), -1, dtype=pos.dtype)])
+    pad = torch.zeros(b, tiles * tile - c, kh, d, dtype=torch.float64)
+    k_all, v_all = torch.cat([kc.double(), pad], 1), torch.cat([vc.double(), pad], 1)
+    neg = torch.tensor(R.NEG_INF, dtype=torch.float64)
+    blocks = []
     for s in range(splits):
-        m = torch.full((b, kh, g), R.NEG_INF, dtype=torch.float64)
-        l = torch.zeros(b, kh, g, dtype=torch.float64)
-        acc = torch.zeros(b, kh, g, d, dtype=torch.float64)
-        for t in range(s * per, min(tiles, (s + 1) * per)):
-            sl = slice(t * tile, min(c, (t + 1) * tile))
-            kt, vt, kp = kc[:, sl].double(), vc[:, sl].double(), pos[sl]
-            sc = torch.einsum("bkgd,btkd->bkgt", qg, kt) / d ** 0.5
-            ok = (kp >= 0) & (kp <= npos)
-            if window is not None:
-                ok &= kp > npos - window
-            sc = torch.where(ok, sc, torch.tensor(R.NEG_INF, dtype=torch.float64))
-            if sc.shape[-1] < tile:      # the ragged tile's padding slots are masked too
-                pad = torch.full((*sc.shape[:-1], tile - sc.shape[-1]), R.NEG_INF,
-                                 dtype=torch.float64)
-                sc = torch.cat([sc, pad], -1)
-                vt = torch.cat([vt, torch.zeros(b, tile - vt.shape[1], kh, d,
-                                                dtype=torch.float64)], 1)
-            m_new = torch.maximum(m, sc.amax(-1))
-            corr = torch.exp(m - m_new)
-            p = torch.exp(sc - m_new[..., None])
-            l = l * corr + p.sum(-1)
-            acc = acc * corr[..., None] + torch.einsum("bkgt,btkd->bkgd", p, vt)
-            m = m_new
-        ms.append(m), ls.append(l), accs.append(acc)
-    m_all = torch.stack(ms)
-    w = torch.exp(m_all - m_all.amax(0))
-    lsum = (w * torch.stack(ls)).sum(0)
-    out = (w[..., None] * torch.stack(accs)).sum(0) / lsum.clamp_min(1e-30)[..., None]
-    return out.reshape(b, h, d).float()
+        states = []
+        for w in range(warps):
+            m = torch.full((b, kh, g), R.NEG_INF, dtype=torch.float64)
+            l = torch.zeros(b, kh, g, dtype=torch.float64)
+            acc = torch.zeros(b, kh, g, d, dtype=torch.float64)
+            for t in range(s * per, min(tiles, (s + 1) * per)):
+                sl = slice(t * tile + w * rows, t * tile + (w + 1) * rows)
+                kp, vt = kp_all[sl], v_all[:, sl]
+                sc = torch.einsum("bkgd,btkd->bkgt", qg, k_all[:, sl]) / d ** 0.5
+                ok = (kp >= 0) & (kp <= npos)
+                if window is not None:
+                    ok &= kp > npos - window
+                m, l, acc = _online(m, l, acc, torch.where(ok, sc, neg), vt)
+            states.append((m, l, acc))
+        blocks.append(_merge(*zip(*states)))
+    _, lsum, out = _merge(*zip(*blocks))
+    return (out / lsum.clamp_min(1e-30)[..., None]).reshape(b, h, d).float()
 
 
 @pytest.mark.parametrize("c,fill,window,splits", [
     (256, 16, None, 4),     # splits 2-4 hold only empty slots: weight 0
     (256, 100, 48, 3),      # window: the first split's slots are all outside it
     (100, 100, None, 2),    # ragged last tile
-    (1024, 1024, None, 8),  # qwen3-4b's shape at batch 4 on 132 SMs
+    (1024, 1024, None, 8),  # qwen3-4b's shape at batch 4: the wrapper's bound on 132 SMs
+    (1024, 1024, None, 4),  # what the launch runs there: 4 splits' clusters fit at once
+    (4096, 1000, 256, MAX_SPLITS),   # the cluster cap: 8 tiles per split
 ])
 def test_split_decode_arithmetic_matches_plain(c, fill, window, splits):
     q, kc, vc, pos, npos = _t(*_decode_inputs(2, 8, 2, 32, c, fill))
@@ -233,11 +250,110 @@ def test_split_decode_arithmetic_wraparound():
 
 
 @pytest.mark.parametrize("b,kh,c,sms", [(4, 8, 1024, 132), (1, 1, 64, 132), (2, 2, 100, 132),
-                                        (64, 8, 1024, 132), (1, 1, 4096, 132), (2, 4, 448, 16)])
+                                        (64, 8, 1024, 132), (1, 1, 4096, 132), (2, 4, 448, 16),
+                                        (1, 8, 1024, 132)])
 def test_num_splits_cover_every_tile(b, kh, c, sms):
     tiles = -(-c // 64)
     s = num_splits(b, kh, c, sms)
     per = -(-tiles // s)
-    assert 1 <= s <= tiles and (s - 1) * per < tiles <= s * per
+    assert 1 <= s <= min(tiles, MAX_SPLITS) and (s - 1) * per < tiles <= s * per
     if (b, kh, c) == (4, 8, 1024):
         assert s == 8                  # 256 blocks for 132 SMs
+    if (b, kh, c) == (1, 8, 1024):
+        assert s == MAX_SPLITS         # batch 1: the cluster cap leaves 64 blocks
+
+
+@pytest.mark.parametrize("most,want", [(8, 8), (7, 4), (4, 4), (3, 2), (1, 1), (0, 1)])
+def test_num_splits_halve_until_clusters_fit(most, want):
+    """qwen3-4b at batch 4 (16 tiles, bound 8): when clusters of more than
+    ``most`` blocks do not all fit at once, the splits halve to the first
+    count that does (8 -> 4 -> 2 -> 1), each split still owning a tile."""
+    asked = []
+
+    def fit(splits):
+        asked.append(splits)
+        return splits <= most
+
+    assert num_splits(4, 8, 1024, 132, fit) == want
+    assert asked == [s for s in (8, 4, 2) if s >= want]
+
+
+# ------------------------------------ bf16 flash (wgmma): the algorithm ----
+LOG2E = 1.4426950408889634
+TOL_BF16 = dict(atol=2e-5, rtol=4e-3)   # chip_smoke.py's TOL[bfloat16]
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _flash_wgmma_model(q, k, v, causal, window, bq=128, bk=64, split_p=True):
+    """The bf16 flash kernel's arithmetic in torch: per 64-row warpgroup of
+    a 128-row q tile, the block's 64-key tiles (tiles outside the band
+    skipped), scores of bf16 q and k summed in f32 and scaled into the
+    log2 domain, masks with the -1e30 sentinel, an exp2 online softmax, and
+    P split into bf16 hi and lo, each times bf16 v, summed in f32; the
+    output rounded to bf16 once.  ``split_p=False`` keeps only hi."""
+    b, s, h, d = q.shape
+    g = h // k.shape[2]
+    kx, vx = k.repeat_interleave(g, 2), v.repeat_interleave(g, 2)
+    scale = LOG2E / d ** 0.5
+    out = torch.zeros(b, s, h, d)
+    for q0 in range(0, s, bq):
+        q_last = min(q0 + bq - 1, s - 1)
+        hi = q_last // bk + 1 if causal else -(-s // bk)
+        lo = min(max(0, q0 - window + 1) // bk if window else 0, max(hi - 1, 0))
+        for first in (q0, q0 + 64):
+            if first >= s:
+                continue
+            last = first + 63
+            rows = torch.arange(first, min(last + 1, s))
+            qt = q[:, rows]                                   # (b, r, h, d)
+            m = torch.full((b, len(rows), h), R.NEG_INF)
+            l = torch.zeros(b, len(rows), h)
+            o = torch.zeros(b, len(rows), h, d)
+            for j in range(lo, hi):
+                k0 = j * bk
+                if (causal and k0 > last) or (window and k0 + bk - 1 <= first - window):
+                    continue
+                cols = torch.arange(k0, min(k0 + bk, s))
+                sc = torch.einsum("brhd,bchd->brhc", qt, kx[:, cols]) * scale
+                ok = torch.ones(len(rows), len(cols), dtype=torch.bool)
+                if causal:
+                    ok &= cols[None] <= rows[:, None]
+                if window:
+                    ok &= cols[None] > rows[:, None] - window
+                sc = torch.where(ok[None, :, None], sc, torch.tensor(R.NEG_INF))
+                m_new = torch.maximum(m, sc.amax(-1))
+                corr = torch.exp2(m - m_new)
+                p = torch.exp2(sc - m_new[..., None])
+                p_hi = _bf16(p)
+                p_lo = _bf16(p - p_hi) if split_p else torch.zeros_like(p)
+                l = l * corr + p.sum(-1)
+                o = o * corr[..., None] + torch.einsum("brhc,bchd->brhd", p_hi, vx[:, cols]) \
+                    + torch.einsum("brhc,bchd->brhd", p_lo, vx[:, cols])
+                m = m_new
+            out[:, rows] = o / l.clamp_min(1e-30)[..., None]
+    return _bf16(out)
+
+
+@pytest.mark.parametrize("b,s,h,k,d", [(1, 128, 4, 4, 32), (2, 256, 4, 2, 32), (1, 128, 8, 1, 64),
+                                       (1, 200, 4, 2, 128), (1, 128, 4, 4, 80), (1, 100, 2, 1, 16)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("window", [None, 96])
+def test_flash_wgmma_arithmetic_matches_plain(b, s, h, k, d, causal, window):
+    q, kk, v = (_bf16(x) for x in _t(*_randn(4, (b, s, h, d), (b, s, k, d), (b, s, k, d))))
+    want = R.flash_attention_ref(q, kk, v, causal, window)
+    got = _flash_wgmma_model(q, kk, v, causal, window)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL_BF16)
+
+
+@pytest.mark.parametrize("b,s,h,k,d", [(2, 256, 4, 2, 32), (1, 200, 4, 2, 128)])
+def test_flash_single_rounding_of_p_breaks_tolerance(b, s, h, k, d):
+    """Why the kernel multiplies P's lo part too: with P rounded to bf16
+    once, outputs near zero miss TOL_BF16 (an error of up to 2**-8 of
+    sum p|v| / l against an atol of 2e-5)."""
+    q, kk, v = (_bf16(x) for x in _t(*_randn(4, (b, s, h, d), (b, s, k, d), (b, s, k, d))))
+    want = R.flash_attention_ref(q, kk, v, True, None)
+    got = _flash_wgmma_model(q, kk, v, True, None, split_p=False)
+    assert ((got - want).abs() > TOL_BF16["atol"] + TOL_BF16["rtol"] * want.abs()).any()

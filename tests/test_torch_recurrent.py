@@ -2,9 +2,10 @@
 family hybrid) against the JAX reference, on the same bridged weights and
 the same numpy inputs.
 
-Variants: the smoke configs of both archs, and zamba2 smoke at 4 layers,
-so that two sites of the shared attention block run with their separate
-KV caches.  All comparisons run in float32 on the CPU, where the port's
+Variants: the smoke configs of both archs, zamba2 smoke at 4 layers, so
+that two sites of the shared attention block run with their separate KV
+caches, and rwkv6 smoke at the full config's ssm_chunk of 64, whose
+reference chunks at S = 96, 48 and 37 the WKV kernel's check refuses.  All comparisons run in float32 on the CPU, where the port's
 scans and attention take their kernels' plain versions.  Tolerances:
 logits and decode states 1e-4 absolute and relative (the two frameworks
 sum every layer's matrix products, and the scans, in different orders);
@@ -32,7 +33,8 @@ from repro_torch.runtime import Engine, ServeConfig  # noqa: E402
 
 ARCHS = ("rwkv6-3b", "zamba2-2.7b")
 VARIANTS = {"rwkv6": ("rwkv6-3b", {}), "zamba2": ("zamba2-2.7b", {}),
-            "zamba2-2sites": ("zamba2-2.7b", {"num_layers": 4})}
+            "zamba2-2sites": ("zamba2-2.7b", {"num_layers": 4}),
+            "rwkv6-chunk64": ("rwkv6-3b", {"ssm_chunk": 64})}
 LOGITS = dict(atol=1e-4, rtol=1e-4)
 B = 2
 
@@ -122,6 +124,28 @@ def test_forward_and_prefill_match_reference(bridged, seq):
     want, _ = jax.jit(jmodel.forward)(jparams, {"tokens": jnp.asarray(toks)})
     got, aux = tmodel.forward(tparams, {"tokens": torch.from_numpy(toks)})
     assert aux == {} and got.shape == (B, seq, jcfg.vocab_size)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **LOGITS)
+    last = tmodel.prefill(tparams, {"tokens": torch.from_numpy(toks)})
+    np.testing.assert_allclose(last.numpy(), np.asarray(want)[:, -1], **LOGITS)
+
+
+@pytest.mark.parametrize("seq", [96, 48, 37])
+def test_prefill_serves_the_lengths_the_reference_serves(bridged, seq):
+    """At S = 96, 48 and 37 the reference's rwkv6 chunk (the largest
+    divisor of S up to ssm_chunk) is 48, 48 and 37, which the WKV kernel's
+    check refuses; the port picks its own chunk and returns the reference's
+    logits.  The hybrid raises on both sides where S is not a multiple of
+    ssm_chunk."""
+    jcfg, jmodel, jparams, tmodel, tparams = bridged
+    toks = _tokens(seq, (B, seq), jcfg.vocab_size)
+    if jcfg.family == "hybrid" and seq % jcfg.ssm_chunk:
+        with pytest.raises(ValueError):
+            jmodel.forward(jparams, {"tokens": jnp.asarray(toks)})
+        with pytest.raises(ValueError):
+            tmodel.prefill(tparams, {"tokens": torch.from_numpy(toks)})
+        return
+    want, _ = jax.jit(jmodel.forward)(jparams, {"tokens": jnp.asarray(toks)})
+    got, _ = tmodel.forward(tparams, {"tokens": torch.from_numpy(toks)})
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **LOGITS)
     last = tmodel.prefill(tparams, {"tokens": torch.from_numpy(toks)})
     np.testing.assert_allclose(last.numpy(), np.asarray(want)[:, -1], **LOGITS)
