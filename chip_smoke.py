@@ -7,7 +7,9 @@ Three serving paths at full width, four hand-written kernels: qwen3-4b
 (dense: flash_attention, decode_attention), rwkv6-3b (ssm: rwkv6_wkv) and
 zamba2-2.7b (hybrid: mamba2_ssd, and flash/decode attention at head_dim 80
 in the shared block).  bf16 flash runs the wgmma/TMA kernel, f32 flash the
-FMA kernel; decode is one launch per call.
+FMA kernel; decode is one launch per call; each scan call launches two
+kernels (the shared scores, then the scan) on the tensor cores in split
+TF32, and counts as one call.
 
 Phases (each raises on failure; none is caught):
 
@@ -20,10 +22,14 @@ Phases (each raises on failure; none is caught):
              (head_dim 80) shapes, at float32 and bfloat16, each held
              against its plain version run in float32 on the same inputs
              (tolerances at TOL).  Scans: the reference's sweeps
-             (tests/test_kernels.py:96-180, logw = -25 included) and the
-             full-width shapes, rwkv6 at (4,1024,40,64) chunk 64 with decay
-             strength 0.5 and 6.0, mamba2 at x (4,1024,80,64), N 64, chunk
-             256, head_block 8; f32 at the reference's 2e-4.  TF32 off;
+             (tests/test_kernels.py:96-180, logw = -25 included), ragged
+             and odd lengths (S = 37, 96, 100) at head widths and state
+             sizes of 16, 32 and 64, and the full-width shapes, rwkv6 at
+             (4,1024,40,64) chunk 64 with decay strength 0.5 and 6.0 and
+             logw = -25, mamba2 at x (4,1024,80,64), N 64, chunk 256,
+             head_block 8; f32 at the reference's 2e-4, the full-width
+             errors printed.  TF32 off (the scans' own split TF32 is
+             written in their kernels);
 3. model   — for each arch: the port's CUDA path against its CPU path on
              the smoke model (f32, 1e-3: cuBLAS and CPU sum in different
              orders); then the arch's main path at full width in bf16 with
@@ -42,12 +48,13 @@ Phases (each raises on failure; none is caught):
              full-width shapes, device time only (calls captured in a CUDA
              graph, replayed between CUDA events; for attention the median
              of ROUNDS rounds, kernel and SDPA alternating, with the range
-             printed); the bound from the shapes and the H100's peaks.
-             No single PyTorch call computes either scan, so their
-             library_ms is null.
+             printed; the scans as medians of ROUNDS rounds too); the bound
+             from the shapes and the H100's peaks.  No single PyTorch call
+             computes either scan, so their library_ms is null.
 
 The build phase prints each kernel's registers, static shared memory and
-spill bytes from the compiler's -Xptxas -v report.  Prints the card's name
+spill bytes from the compiler's -Xptxas -v report, and the scan kernels'
+blocks per SM from the occupancy API.  Prints the card's name
 and power limit, one ``{"kernels": [...]}`` line (each row also names the
 kernel's design), and as the last line ``{"ok": true, "device": {...}}``.
 Exits non-zero, with no result, when there is no CUDA device or no
@@ -70,7 +77,9 @@ import torch.nn.functional as F
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 rate and tensor-core /
 # CUDA-core rates by input type
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12, "tf32": 495e12}
+# the scans multiply in split TF32: three tensor-core passes per product
+TF32_PASSES = 3
 # Both kernels compute in f32 (bf16 flash: products of bf16 values summed in
 # f32, and P carried as bf16 hi + lo, within 2**-16 of p) and round the
 # output to q's dtype once, so each is held against its plain version
@@ -117,9 +126,11 @@ SOURCES = {"flash_attention": ("flash_attention.cu", "flash_attention.py:85"),
 # Each kernel's design
 DESIGNS = {"flash_attention": {"bfloat16": "wgmma+tma", "float32": "fma"},
            "decode_attention": "cp.async ring + cluster merge",
-           "rwkv6_wkv": "fma", "mamba2_ssd": "fma"}
-# The attention kernels' times are medians of ROUNDS timings, each kernel
-# round followed by one of SDPA, so the two see the same state of the card.
+           "rwkv6_wkv": "scores pre-pass + mma.sync split tf32, 16-row sub-blocks, "
+                        "cp.async double buffer",
+           "mamba2_ssd": "C.B^T pre-pass + mma.sync split tf32, cp.async double buffer"}
+# Kernel times are medians of ROUNDS timings; for attention each kernel
+# round is followed by one of SDPA, so the two see the same state of the card.
 ROUNDS = 5
 
 
@@ -207,6 +218,11 @@ def phase_build():
             log(f"[build]   {r['kernel']}: {r['registers']} registers, "
                 f"{r['smem_bytes']} B static smem, spill {r['spill_stores']}/{r['spill_loads']} B "
                 f"(stores/loads)")
+    import importlib
+    for name in ("mamba2_ssd", "rwkv6_scan"):
+        occ = importlib.import_module(f"repro_torch.kernels.{name}").occupancy()
+        log(f"[build]   {name} scan kernel: {occ['blocks_per_sm']} blocks per SM (occupancy "
+            f"API) of {occ['threads']} threads and {occ['smem_bytes']} B dynamic smem")
 
 
 def phase_kernels(dev):
@@ -304,10 +320,17 @@ def phase_scan_kernels(dev, gen):
     n = 0
     cases = [(shape, c, ds) for shape in RWKV_SWEEP for c in (16, 32, 64) for ds in (0.5, 6.0)]
     cases += [((1, 64, 1, 16), 32, None)]                 # logw = -25: stays finite
-    cases += [(RWKV_FULL, RWKV_CHUNK, ds) for ds in (0.5, 6.0)]
+    # lengths that are no multiple of the 32-row fold tile, with the chunk
+    # the model picks (the largest divisor of S up to 32), every head width
+    cases += [((2, s, 3, dk), c, ds) for s, c in ((37, 1), (96, 32), (100, 25))
+              for dk in (16, 32, 64) for ds in (0.5, 6.0, None)]
+    cases += [(RWKV_FULL, RWKV_CHUNK, ds) for ds in (0.5, 6.0, None)]
     for shape, chunk, ds in cases:
         args = rwkv6_inputs(gen, shape, ds, dev)
-        err = max_err(K.rwkv6_wkv(*args, chunk), R.rwkv6_wkv_ref(*args), torch.float32, SCAN_TOL)
+        got = K.rwkv6_wkv(*args, chunk)
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"rwkv6_wkv {shape} decay {ds}: not finite")
+        err = max_err(got, R.rwkv6_wkv_ref(*args), torch.float32, SCAN_TOL)
         n += 1
         if shape == RWKV_FULL:
             log(f"[kernels] rwkv6_wkv full width {shape} chunk {chunk} decay strength {ds}: "
@@ -315,6 +338,8 @@ def phase_scan_kernels(dev, gen):
             full["rwkv6_wkv"] = max(full["rwkv6_wkv"], err)
     cases = [(shape, c, hb) for shape in MAMBA_SWEEP for c in (16, 32) for hb in (2, 4)]
     cases += [((1, 100, 4, 8, 16), 100, 4)]               # a ragged 64-row sub-tile
+    cases += [((2, s, 4, p, n), s, 4) for s in (37, 96, 100)
+              for p, n in ((16, 32), (32, 64), (64, 16))]  # ragged, odd, P and N 16-64
     cases += [(MAMBA_FULL, MAMBA_CHUNK, MAMBA_HB)]
     for shape, chunk, hb in cases:
         args = mamba2_inputs(gen, shape, dev)
@@ -328,6 +353,9 @@ def phase_scan_kernels(dev, gen):
     torch.cuda.synchronize()
     log(f"[kernels] {n} scan comparisons within tolerance (f32 atol 2e-4 rtol 2e-4 against "
         f"the step recurrences)")
+    log(f"[kernels] scans at full width, split TF32: rwkv6_wkv max |err| "
+        f"{full['rwkv6_wkv']:.3e}, mamba2_ssd max |err| {full['mamba2_ssd']:.3e} (limit 2e-4 + "
+        f"2e-4 |want|)")
     return full
 
 
@@ -570,34 +598,53 @@ def time_decode(K, R, gen, dev, h, kv, d):
     return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by)
 
 
-def time_scans(K, R, gen, dev):
-    """The scans at their full-width shapes.  Bounds: each input read once
-    and the output written once (f32), against the least arithmetic of the
-    recurrence, one rank-1 update of the state and one read of it per
-    position and head, a multiply-add per state element each: 4 K^2
-    (RWKV6) and 4 P N (Mamba2) flops; the decays fold into these in the
-    chunked form.  No single PyTorch call computes either scan."""
-    res = {}
-    b, s, h, dk = RWKV_FULL
-    args = rwkv6_inputs(gen, RWKV_FULL, 0.5, dev)
-    ms = graph_ms(lambda: K.rwkv6_wkv(*args, RWKV_CHUNK), 20)
-    plain = graph_ms(lambda: R.rwkv6_wkv_ref(*args), 1, replays=2)
-    nbytes = (5 * args[0].numel() + args[4].numel()) * 4
-    b_ms, b_by = bound(nbytes, 4.0 * b * s * h * dk * dk, torch.float32)
-    res["rwkv6_wkv"] = dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=b_ms, bound_by=b_by)
-    log(f"[times] rwkv6_wkv {RWKV_FULL} f32 chunk {RWKV_CHUNK}: kernel {ms:.4f} ms, plain "
-        f"{plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}); {b_ms / ms:.3f} of bound")
+def kernel_rounds(fn, iters: int) -> list[float]:
+    """``ROUNDS`` timings of ``fn`` (one CUDA graph, replayed each round)."""
+    graph = capture(fn, iters)
+    return [replay_ms(graph, iters) for _ in range(ROUNDS)]
 
-    b, s, h, p, n = MAMBA_FULL
-    args = mamba2_inputs(gen, MAMBA_FULL, dev)
-    ms = graph_ms(lambda: K.mamba2_ssd(*args, MAMBA_CHUNK, MAMBA_HB), 20)
-    plain = graph_ms(lambda: R.mamba2_ssd_ref(*args), 1, replays=2)
-    nbytes = (2 * args[0].numel() + sum(x.numel() for x in args[1:])) * 4
-    b_ms, b_by = bound(nbytes, 4.0 * b * s * h * p * n, torch.float32)
-    res["mamba2_ssd"] = dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=b_ms, bound_by=b_by)
-    log(f"[times] mamba2_ssd x {MAMBA_FULL[:4]} N {n} f32 chunk {MAMBA_CHUNK} head_block "
-        f"{MAMBA_HB}: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
-        f"{b_ms / ms:.3f} of bound")
+
+def time_scans(K, R, gen, dev):
+    """The scans at their full-width shapes, medians of ROUNDS rounds.
+    Bounds: each input read once and the output written once (f32), against
+    the least arithmetic of the recurrence, one rank-1 update of the state
+    and one read of it per position and head, a multiply-add per state
+    element each: 4 K^2 (RWKV6) and 4 P N (Mamba2) flops, at the rate of
+    the units the design uses: split TF32, three tensor-core passes at
+    495 TFLOP/s (the f32 CUDA-core rate, 67 TFLOP/s, is logged beside it).
+    The decays fold into these in the chunked form.  No single PyTorch call
+    computes either scan."""
+    res = {}
+    for name, shape in (("rwkv6_wkv", RWKV_FULL), ("mamba2_ssd", MAMBA_FULL)):
+        if name == "rwkv6_wkv":
+            b, s, h, dk = shape
+            args = rwkv6_inputs(gen, shape, 0.5, dev)
+            call = lambda: K.rwkv6_wkv(*args, RWKV_CHUNK)  # noqa: E731
+            plain = lambda: R.rwkv6_wkv_ref(*args)  # noqa: E731
+            nbytes = (5 * args[0].numel() + args[4].numel()) * 4
+            flops = 4.0 * b * s * h * dk * dk
+            what = f"{shape} f32 chunk {RWKV_CHUNK}"
+        else:
+            b, s, h, p, n = shape
+            args = mamba2_inputs(gen, shape, dev)
+            call = lambda: K.mamba2_ssd(*args, MAMBA_CHUNK, MAMBA_HB)  # noqa: E731
+            plain = lambda: R.mamba2_ssd_ref(*args)  # noqa: E731
+            nbytes = (2 * args[0].numel() + sum(x.numel() for x in args[1:])) * 4
+            flops = 4.0 * b * s * h * p * n
+            what = f"x {shape[:4]} N {n} f32 chunk {MAMBA_CHUNK} head_block {MAMBA_HB}"
+        ks = kernel_rounds(call, 20)
+        ms = statistics.median(ks)
+        plain_ms = graph_ms(plain, 1, replays=2)
+        b_ms, b_by = bound(nbytes, TF32_PASSES * flops, "tf32")
+        f32_ms = flops / PEAK_FLOPS[torch.float32] * 1e3
+        res[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by)
+        log(f"[times] {name} {what}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.1f} MB at 3.35 TB/s = "
+            f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms; {flops / 1e9:.2f} GFLOP x {TF32_PASSES} "
+            f"split-TF32 passes at 495 TFLOP/s = {TF32_PASSES * flops / PEAK_FLOPS['tf32'] * 1e3:.4f}"
+            f" ms; at the f32 CUDA-core rate it would read {f32_ms:.4f} ms); "
+            f"{b_ms / ms:.3f} of bound")
+        log(f"[times]   {ROUNDS} rounds: kernel {spread(ks)}")
     return res
 
 

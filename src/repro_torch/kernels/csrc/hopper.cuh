@@ -1,7 +1,8 @@
-// Hopper (sm_90a) building blocks shared by the hand-written attention
-// kernels: shared-memory addresses, mbarriers, TMA tensor maps and copies,
-// 16-byte cp.async, and the warpgroup matrix multiply (wgmma) with its
-// shared-memory descriptor and fence / commit / wait wrappers.
+// Hopper (sm_90a) building blocks shared by the hand-written kernels:
+// shared-memory addresses, mbarriers, TMA tensor maps and copies, 16- and
+// 4-byte cp.async, the warpgroup matrix multiply (wgmma) with its
+// shared-memory descriptor and fence / commit / wait wrappers, and the
+// warp-level TF32 product (mma.sync m16n8k8) in split TF32 for the scans.
 //
 // Swizzled tiles.  A TMA box whose inner extent is SWB bytes (32, 64 or
 // 128), loaded with the SWB-byte swizzle, lands in shared memory as rows of
@@ -96,6 +97,12 @@ __device__ __forceinline__ uint32_t swizzle(uint32_t off) {
 // ---- cp.async (16 bytes; src_bytes 0 fills zeros) ------------------------
 __device__ __forceinline__ void cp_async_16(void* dst, const void* src, int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+// 4 bytes through L1 (for strided scalars); src_bytes 0 fills a zero
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
                "r"(src_bytes)
                : "memory");
 }
@@ -247,6 +254,70 @@ __device__ __forceinline__ void wgmma_rs_tb<128>(float (&d)[64], const uint32_t 
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// ---- split TF32 on the warp-level tensor-core product ----------------------
+// An f32 operand a is taken as hi + lo with hi = tf32(a) and lo = tf32(a - hi)
+// (a - hi is exact in f32); a product is hi*hi + hi*lo + lo*hi summed in f32,
+// which keeps ~21 mantissa bits where one TF32 pass keeps ~10 (CUTLASS's
+// fast-accurate 3xTF32 scheme; the dropped lo*lo is below f32 rounding).
+// Fragments of mma.sync.m16n8k8 (g = lane / 4, q = lane % 4):
+//   A (16 x 8, row-major): a0 (g, q), a1 (g + 8, q), a2 (g, q + 4), a3 (g + 8, q + 4)
+//   B (8 x 8, k x n):      b0 (q, g), b1 (q + 4, g)
+//   C (16 x 8):            c0 (g, 2q), c1 (g, 2q + 1), c2 (g + 8, 2q), c3 (g + 8, 2q + 1)
+// The k index may be permuted if A and B agree: an accumulator tile used as
+// the next product's A takes a0 = c0, a1 = c2, a2 = c1, a3 = c3, with B's
+// rows k = 2q and 2q + 1 in place of q and q + 4.
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+template <int R>
+__device__ __forceinline__ void split_tf32(const float (&x)[R], uint32_t (&hi)[R],
+                                           uint32_t (&lo)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    hi[i] = to_tf32(x[i]);
+    lo[i] = to_tf32(x[i] - __uint_as_float(hi[i]));
+  }
+}
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+// d += a b in split TF32 (the small terms first)
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], const uint32_t (&bh)[2],
+                                           const uint32_t (&bl)[2]) {
+  mma_tf32(d, al, bh);
+  mma_tf32(d, ah, bl);
+  mma_tf32(d, ah, bh);
+}
+// d += a b, both f32 fragments, split here
+__device__ __forceinline__ void mma_split(float (&d)[4], const uint32_t (&ah)[4],
+                                          const uint32_t (&al)[4], const float (&b)[2]) {
+  uint32_t bh[2], bl[2];
+  split_tf32(b, bh, bl);
+  mma_3xtf32(d, ah, al, bh, bl);
+}
+// The same into three accumulators d[0] += al bh, d[1] += ah bl, d[2] += ah bh,
+// so that consecutive products do not wait on one another; the sum is
+// d[2] + (d[0] + d[1]) (sum3).
+__device__ __forceinline__ void mma_split3(float (&d)[3][4], const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], const float (&b)[2]) {
+  uint32_t bh[2], bl[2];
+  split_tf32(b, bh, bl);
+  mma_tf32(d[0], al, bh);
+  mma_tf32(d[1], ah, bl);
+  mma_tf32(d[2], ah, bh);
+}
+__device__ __forceinline__ float sum3(const float (&d)[3][4], int i) {
+  return d[2][i] + (d[0][i] + d[1][i]);
 }
 
 // ---- host: tensor maps ---------------------------------------------------

@@ -3,10 +3,14 @@
 
 Replaces the TPU kernel ``repro/kernels/mamba2_ssd.py::mamba2_ssd_fwd``.
 The kernel starts from a zero state and returns y without the D-skip term,
-which is what the model's prefill needs.  One block per (batch, head) walks
-the sequence in 64-row sub-tiles and carries the (P×N) f32 state in shared
-memory; ``chunk`` and ``head_block`` are checked as the reference checks
-them and do not change the result (see the source's note).
+which is what the model's prefill needs.  A call launches two kernels: the
+first forms C·Bᵀ of every 64-row sub-tile once (it is the same for every
+head) into a scratch tensor; in the second, one block per (batch, head, 32
+rows of the state) walks the sequence in those sub-tiles, multiplies on the
+tensor cores in split TF32 and carries its rows of the (P×N) f32 state
+across them.  ``chunk`` and ``head_block`` are checked as the reference
+checks them and do not change the result (see the source's note).  The
+launch counter counts calls.
 """
 from __future__ import annotations
 
@@ -16,9 +20,12 @@ import torch
 
 from . import _build
 
-__all__ = ["mamba2_ssd_cuda", "check_mamba2_inputs", "MAX_DIM"]
+__all__ = ["mamba2_ssd_cuda", "check_mamba2_inputs", "occupancy", "MAX_DIM", "SUB_TILE",
+           "STATE_ROWS"]
 
-MAX_DIM = 64         # the kernel's largest head width P and state size N
+MAX_DIM = 64         # the kernel's largest head width P and state size N (multiples of 4)
+SUB_TILE = 64        # rows the kernel walks at a time, whatever the chunk
+STATE_ROWS = 32      # rows p of the state (columns of x) per block
 
 _fn = None
 
@@ -27,10 +34,21 @@ def _kernel():
     global _fn
     if _fn is None:
         fn = _build.load("mamba2_ssd").mamba2_ssd_fwd
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
+
+
+def occupancy() -> dict:
+    """What the occupancy API reports for the kernel: blocks per SM, and
+    the threads and shared-memory bytes of one block.  Builds the kernel."""
+    fn = _build.load("mamba2_ssd").mamba2_ssd_occupancy
+    out = [ctypes.c_int() for _ in range(3)]
+    err = fn(*(ctypes.byref(o) for o in out))
+    if err:
+        raise RuntimeError(f"mamba2_ssd occupancy query failed: CUDA error {err}")
+    return dict(zip(("blocks_per_sm", "threads", "smem_bytes"), (o.value for o in out)))
 
 
 def check_mamba2_inputs(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
@@ -62,13 +80,17 @@ def mamba2_ssd_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
             raise ValueError("mamba2_ssd_cuda takes contiguous float32 tensors on one device")
     b, s, h, p = x.shape
     n = bmat.shape[-1]
-    if p > MAX_DIM or n > MAX_DIM:
-        raise ValueError(f"head width {p} / state {n} not supported (at most {MAX_DIM})")
+    if p > MAX_DIM or n > MAX_DIM or p % 4 or n % 4:
+        raise ValueError(f"head width {p} / state {n} not supported (multiples of 4 up to "
+                         f"{MAX_DIM})")
     out = torch.empty_like(x)
+    # C·Bᵀ of every sub-tile, which the first kernel writes and the second reads
+    scores = torch.empty(b * -(-s // SUB_TILE) * SUB_TILE * SUB_TILE, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = _kernel()(x.data_ptr(), dt.data_ptr(), a.data_ptr(), bmat.data_ptr(),
-                        cmat.data_ptr(), out.data_ptr(), b, s, h, p, n, stream)
+                        cmat.data_ptr(), out.data_ptr(), scores.data_ptr(), b, s, h, p, n,
+                        stream)
     if err:
         raise RuntimeError(f"mamba2_ssd kernel launch failed: CUDA error {err}")
     mamba2_ssd_cuda.launches += 1

@@ -3,9 +3,16 @@
 
 Replaces the TPU kernel ``repro/kernels/rwkv6_scan.py::rwkv6_wkv_fwd``.
 The kernel starts from a zero state and returns y only, which is all the
-model's prefill needs.  One block per (batch, head) walks the sequence in
-fold tiles of ``min(chunk, 32)`` rows and keeps the (K×K) f32 state in
-shared memory; see the source's note for the arithmetic and what bounds it.
+model's prefill needs.  It walks the sequence in its own fold tiles of
+``FOLD_TILE`` rows, whatever the chunk (a ragged last tile is masked).  A
+call launches two kernels: the first forms the decayed scores A of every
+fold tile (the same for every column of the state) into a scratch tensor,
+pairwise on the diagonal 16-row sub-blocks and as a product off them; in
+the second, one block per (batch, head, 16 columns of the state) multiplies
+on the tensor cores in split TF32 and carries its columns of the (K×K) f32
+state across tiles.  See the source's note for the arithmetic and what
+bounds it.  ``chunk`` is checked as the reference checks it and not passed
+on.  The launch counter counts calls.
 """
 from __future__ import annotations
 
@@ -15,9 +22,13 @@ import torch
 
 from . import _build
 
-__all__ = ["rwkv6_wkv_cuda", "check_rwkv6_inputs", "STATE_TILE", "MAX_HEAD_DIM"]
+__all__ = ["rwkv6_wkv_cuda", "check_rwkv6_inputs", "occupancy", "STATE_TILE", "FOLD_TILE",
+           "SUB_BLOCK", "STATE_COLUMNS", "MAX_HEAD_DIM"]
 
-STATE_TILE = 32      # fold-tile rows, the TPU kernel's _STATE_TILE
+STATE_TILE = 32      # the TPU kernel's _STATE_TILE, which its chunk check names
+FOLD_TILE = 32       # rows the kernel folds into the state at once
+SUB_BLOCK = 16       # rows of the sub-blocks whose pairwise scores take exp directly
+STATE_COLUMNS = 16   # columns of the state per block
 MAX_HEAD_DIM = 64    # the kernel's largest head width (a multiple of 16)
 
 _fn = None
@@ -27,10 +38,21 @@ def _kernel():
     global _fn
     if _fn is None:
         fn = _build.load("rwkv6_scan").rwkv6_wkv_fwd
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
+
+
+def occupancy() -> dict:
+    """What the occupancy API reports for the kernel: blocks per SM, and
+    the threads and shared-memory bytes of one block.  Builds the kernel."""
+    fn = _build.load("rwkv6_scan").rwkv6_wkv_occupancy
+    out = [ctypes.c_int() for _ in range(3)]
+    err = fn(*(ctypes.byref(o) for o in out))
+    if err:
+        raise RuntimeError(f"rwkv6_wkv occupancy query failed: CUDA error {err}")
+    return dict(zip(("blocks_per_sm", "threads", "smem_bytes"), (o.value for o in out)))
 
 
 def check_rwkv6_inputs(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -65,11 +87,13 @@ def rwkv6_wkv_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if dk > MAX_HEAD_DIM or dk % 16:
         raise ValueError(f"head width {dk} not supported (a multiple of 16 up to {MAX_HEAD_DIM})")
     out = torch.empty_like(r)
+    # the decayed scores A of every fold tile, which the first kernel writes
+    # and the second reads
+    scores = torch.empty(b * h * -(-s // FOLD_TILE) * FOLD_TILE * FOLD_TILE, device=r.device)
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream
         err = _kernel()(r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
-                        u.data_ptr(), out.data_ptr(), b, s, h, dk,
-                        min(chunk, STATE_TILE), stream)
+                        u.data_ptr(), out.data_ptr(), scores.data_ptr(), b, s, h, dk, stream)
     if err:
         raise RuntimeError(f"rwkv6_wkv kernel launch failed: CUDA error {err}")
     rwkv6_wkv_cuda.launches += 1

@@ -144,9 +144,10 @@ def rwkv6_time_mix(params: Mapping[str, Any], x: torch.Tensor,
     # The reference's jnp ``_wkv_chunked`` takes the largest divisor of S up
     # to ssm_chunk, and any chunk gives it the same result (chunk invariance,
     # tests/test_kernels.py:96-149).  The kernel's check refuses a chunk above
-    # its fold tile that is not a multiple of it (48 at S = 96), so the port
-    # takes the largest divisor of S up to min(ssm_chunk, STATE_TILE): that
-    # is the fold tile the kernel would use, and the result is the same.
+    # the reference's fold tile that is not a multiple of it (48 at S = 96),
+    # so the port takes the largest divisor of S up to min(ssm_chunk,
+    # STATE_TILE), which passes it.  The CUDA kernel walks its own fold tile
+    # whatever the chunk, so the chunk does not change its work.
     chunk = min(cfg.ssm_chunk, STATE_TILE, s)
     while s % chunk:
         chunk -= 1

@@ -44,6 +44,10 @@ DECODE_SHAPES = [(2, 4, 2, 32, 256), (1, 8, 1, 64, 128), (2, 4, 4, 32, 128), (2,
 RWKV_SHAPES = [(1, 64, 2, 16), (2, 128, 3, 32), (1, 128, 1, 64)]
 MAMBA_SHAPES = [(1, 64, 4, 16, 16, 16), (2, 128, 8, 16, 24, 32), (1, 100, 4, 8, 16, 100),
                 (2, 512, 8, 64, 64, 256)]
+# ragged and odd lengths at state sizes P, N of 16, 32 and 64 (one chunk
+# of the whole sequence), and zamba2-2.7b's full-width prefill scan
+MAMBA_SHAPES += [(2, s, 4, p, n, s) for s in (37, 96, 100) for p, n in ((16, 32), (32, 64), (64, 16))]
+MAMBA_SHAPES += [(4, 1024, 80, 64, 64, 256)]
 SCAN = dict(atol=2e-4, rtol=2e-4)
 
 
@@ -140,6 +144,45 @@ def test_rwkv6_kernel_matches_plain(dev, b, s, h, dk, chunk, decay_strength):
     got = K.rwkv6_wkv(r, k, v, logw, u, chunk)
     torch.cuda.synchronize()
     assert rwkv6_wkv_cuda.launches == n0 + 1 and bool(torch.isfinite(got).all())
+    np.testing.assert_allclose(got.cpu().numpy(),
+                               R.rwkv6_wkv_ref(r, k, v, logw, u).cpu().numpy(), **SCAN)
+
+
+def _largest_chunk(s, cap=32):
+    """The largest divisor of s up to cap: the chunk the rwkv6 model picks."""
+    c = min(s, cap)
+    while s % c:
+        c -= 1
+    return c
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [37, 96, 100])
+@pytest.mark.parametrize("dk", [16, 32, 64])
+@pytest.mark.parametrize("decay_strength", [0.5, 6.0, None])   # None: logw = -25
+def test_rwkv6_kernel_ragged_lengths(dev, s, dk, decay_strength):
+    """Lengths that are no multiple of the 32-row fold tile (the last tile
+    masked), at every head width, with the chunk the model would pass."""
+    r, k, v, w, u = _randn(dev, "float32", 11, *[(2, s, 3, dk)] * 4, (3, dk))
+    logw = (torch.full_like(w, -25.0) if decay_strength is None
+            else -torch.nn.functional.softplus(w * decay_strength))
+    got = K.rwkv6_wkv(r, k, v, logw, u, _largest_chunk(s))
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    np.testing.assert_allclose(got.cpu().numpy(),
+                               R.rwkv6_wkv_ref(r, k, v, logw, u).cpu().numpy(), **SCAN)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("decay_strength", [0.5, 6.0, None])
+def test_rwkv6_kernel_full_width(dev, decay_strength):
+    """rwkv6-3b's prefill scan: (4, 1024, 40, 64), chunk 32."""
+    r, k, v, w, u = _randn(dev, "float32", 12, *[(4, 1024, 40, 64)] * 4, (40, 64))
+    logw = (torch.full_like(w, -25.0) if decay_strength is None
+            else -torch.nn.functional.softplus(w * decay_strength))
+    got = K.rwkv6_wkv(r, k, v, logw, u, 32)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
     np.testing.assert_allclose(got.cpu().numpy(),
                                R.rwkv6_wkv_ref(r, k, v, logw, u).cpu().numpy(), **SCAN)
 

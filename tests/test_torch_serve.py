@@ -243,7 +243,8 @@ def test_serve_cli_runs_on_cpu(capsys):
 
 # --------------------------------------------------------- independence ---
 def _port_files():
-    return sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    return (sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+            + sorted((REPO / "tools").glob("*.py")))
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: p.name)
