@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
 
-Three serving paths at full width, four hand-written kernels: qwen3-4b
+Three serving paths at full width, four hand-written kernels, and the
+perception frame path (which runs none of them): qwen3-4b
 (dense: flash_attention, decode_attention), rwkv6-3b (ssm: rwkv6_wkv) and
 zamba2-2.7b (hybrid: mamba2_ssd, and flash/decode attention at head_dim 80
 in the shared block).  bf16 flash runs the wgmma/TMA kernel, f32 flash the
@@ -50,7 +51,24 @@ Phases (each raises on failure; none is caught):
              of ROUNDS rounds, kernel and SDPA alternating, with the range
              printed; the scans as medians of ROUNDS rounds too); the bound
              from the shapes and the H100's peaks.  No single PyTorch call
-             computes either scan, so their library_ms is null.
+             computes either scan, so their library_ms is null;
+5. perception — the perception frame path (repro_torch.perception and
+             repro_torch.anytime), which runs none of the four kernels:
+             every registered pipeline at lambda = 1 and the five rungs of
+             the anytime ladder (unpadded), built on the card and on the
+             CPU from the same seed-7 weights, over PERCEPTION_FRAMES frames
+             of each of PERCEPTION_SCENES; per frame the counts must be
+             equal and the boxes within BOX_TOL_PX.  cuDNN's TF32 is put back
+             to torch's default for this phase, so the backbone's own f32
+             setting is what the check exercises.  Then, on the card: stage
+             times (mean, CV, p99) per pipeline and scene, the Pearson r of
+             post-processing time against the proposal count (two_stage,
+             lane), launches per frame and the device's busy share of the
+             inference stage (torch.profiler), and the anytime A/B of
+             benchmarks/anytime.py (city seed 3, calibrate n=12, 40 frames
+             per arm, budgets 0.5, 1.0 and 2.5 x the top rung's mean) with
+             the calibrated ladder held against the CPU's.  The kernels'
+             launch counters must stay at zero over the phase.
 
 The build phase prints each kernel's registers, static shared memory and
 spill bytes from the compiler's -Xptxas -v report, and the scan kernels'
@@ -665,6 +683,212 @@ def phase_times(dev):
     return res
 
 
+# the perception phase: scene sets (scenario, rain mm/h; the paper's Table
+# IV axis), frames per set, and the card-against-CPU bounds.  Both devices
+# compute in f32 from the same weights; the boxes differ only by the
+# convolutions' summation order (~1e-5 px), so 1e-3 px is far above that
+# noise and far below a shifted window or a reordered detection.  A box
+# within 1e-3 px moves an IoU by at most 4e-3 / 8 (boxes are 8 px or more),
+# which bounds the calibrated qualities.
+PERCEPTION_SCENES = [("city", 0.0), ("residential", 0.0), ("road", 0.0), ("city", 50.0)]
+PERCEPTION_FRAMES = 24
+BOX_TOL_PX = 1e-3
+QUALITY_TOL = 5e-4
+ANYTIME_FRAMES, ANYTIME_CAL = 40, 12
+# each pipeline's threshold on its device output (leaf index, threshold):
+# the value that decides a count when the two devices disagree
+DECIDING = {"one_stage": (1, 0.5), "early_exit": (1, 0.5), "two_stage": (1, 0.55),
+            "lane": (0, 0.6)}
+
+
+def _leaves(out) -> list:
+    return [out] if isinstance(out, np.ndarray) else list(out)
+
+
+def _explain(pipe, cuda_built, cpu_built, scene):
+    """One frame's device outputs on both sides, and each value on opposite
+    sides of the pipeline's threshold, printed beside it."""
+    from repro_torch.core.timing import fence, to_host
+    from repro_torch.perception import preprocess
+
+    img = preprocess(scene.image, cuda_built.scale, cuda_built.pad)
+    outs = []
+    for built in (cuda_built, cpu_built):
+        out = built.infer(torch.from_numpy(img).to(built.device))
+        fence(out)
+        outs.append(_leaves(to_host(out)))
+    for i, (a, b) in enumerate(zip(*outs)):
+        diff = np.abs(a.astype(np.float64) - b.astype(np.float64)).max() if a.size else 0.0
+        log(f"[perception]   {pipe} output {i} {a.shape} {a.dtype}: max |card - cpu| {diff:.3e}")
+    if pipe in DECIDING:
+        leaf, thr = DECIDING[pipe]
+        a, b = outs[0][leaf], outs[1][leaf]
+        for pos in zip(*np.nonzero((a > thr) != (b > thr))):
+            log(f"[perception]   deciding value at {pos}: card {a[pos]!r}, cpu {b[pos]!r}, "
+                f"threshold {thr}")
+
+
+def _compare_frames(label, pipe, where, got, want, cuda_built, cpu_built) -> float:
+    """Card against CPU, frame by frame; the largest box difference."""
+    worst = 0.0
+    for i, ((scene, g), (_, w)) in enumerate(zip(got, want)):
+        same_shape = g.boxes.shape == w.boxes.shape
+        err = float(np.abs(g.boxes - w.boxes).max()) if same_shape and g.boxes.size else 0.0
+        counts = (g.num_proposals, g.num_objects), (w.num_proposals, w.num_objects)
+        if counts[0] != counts[1] or not same_shape or not err <= BOX_TOL_PX:
+            log(f"[perception] {label} {where} frame {i + 1}: card (proposals, objects) "
+                f"{counts[0]} boxes {g.boxes.shape}, cpu {counts[1]} boxes {w.boxes.shape}, "
+                f"max |box diff| {err:.3e} px (bound {BOX_TOL_PX})")
+            _explain(pipe, cuda_built, cpu_built, scene)
+            raise AssertionError(f"perception: {label} {where} frame {i + 1}: card and CPU "
+                                 f"disagree")
+        worst = max(worst, err)
+    return worst
+
+
+def _ms(summary) -> str:
+    return f"{summary.mean * 1e3:.4f} / {summary.cv:.3f} / {summary.p99 * 1e3:.4f}"
+
+
+def _profile_inference(built, scenes, infer_mean_s):
+    """Launches per frame and the device's busy share of the inference
+    stage: the stage's body (host-to-device copy, device pass, fence) over
+    the frames under torch.profiler; busy = device time per frame over the
+    unprofiled stage mean."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.timing import fence
+    from repro_torch.perception import preprocess
+
+    imgs = [preprocess(sc.image, built.scale, built.pad) for sc in scenes]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for img in imgs:
+            fence(built.infer(torch.from_numpy(img).to(built.device)))
+    kernels = copies = 0
+    busy_us = 0.0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CPU or _device_us(e) <= 0:
+            continue
+        busy_us += _device_us(e)
+        if e.key.startswith(("Memcpy", "Memset")):
+            copies += e.count
+        else:
+            kernels += e.count
+    n = len(imgs)
+    busy_ms = busy_us / 1e3 / n
+    return kernels / n, copies / n, busy_ms, busy_ms / (infer_mean_s * 1e3)
+
+
+def phase_perception(dev):
+    """The perception frame path on the card against the CPU, its stage
+    times, launches and device share, and the anytime A/B (module
+    docstring, phase 5)."""
+    from repro_torch import anytime as A
+    from repro_torch import kernels as K
+    from repro_torch.core.stats import pearson
+    from repro_torch.perception import PIPELINES, SceneConfig, build_pipeline, run_pipeline
+
+    prev_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True        # torch's default
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        builds = [(name, name, 1.0, True) for name in PIPELINES]
+        builds += [(f"{r.name} rung", r.pipeline, r.scale, False) for r in A.default_rungs()]
+        recs = {}
+        n_frames, worst = 0, 0.0
+        for label, pipe, scale, pad in builds:
+            cuda_built = build_pipeline(pipe, scale=scale, pad=pad, device=dev)
+            cpu_built = build_pipeline(pipe, scale=scale, pad=pad, device="cpu")
+            for scenario, rain in PERCEPTION_SCENES:
+                cfg = SceneConfig(scenario, rain)
+                where = f"{scenario} rain {rain:g}"
+                rec, got = run_pipeline(pipe, cfg, n=PERCEPTION_FRAMES, collect=True,
+                                        built=cuda_built)
+                _, want = run_pipeline(pipe, cfg, n=PERCEPTION_FRAMES, collect=True,
+                                       built=cpu_built)
+                worst = max(worst, _compare_frames(label, pipe, where, got, want, cuda_built,
+                                                   cpu_built))
+                n_frames += len(got)
+                recs[(label, where)] = (rec, got, cuda_built)
+        log(f"[perception] card against CPU: {len(builds)} builds x {len(PERCEPTION_SCENES)} "
+            f"scene sets x {PERCEPTION_FRAMES} frames = {n_frames} frames on each device; "
+            f"proposal and object counts equal on every frame, boxes within {worst:.3e} px "
+            f"(bound {BOX_TOL_PX} px); cuDNN TF32 at torch's default")
+
+        # ---- stage times on the card, lambda = 1
+        log("[perception] stage times on the card, ms, mean / CV / p99: read, pre_processing, "
+            "inference, post_processing; end to end")
+        for name in PIPELINES:
+            for scenario, rain in PERCEPTION_SCENES:
+                where = f"{scenario} rain {rain:g}"
+                rec = recs[(name, where)][0]
+                stages = "; ".join(f"{st} {_ms(rec.summary(st))}" for st in rec.stages())
+                log(f"[perception]   {name:11s} {where:16s} {stages}; e2e {_ms(rec.summary())}")
+        for name in ("two_stage", "lane"):
+            post, props = [], []
+            for scenario, rain in PERCEPTION_SCENES:
+                rec = recs[(name, f"{scenario} rain {rain:g}")][0]
+                p = rec.meta_series("num_proposals")
+                r = pearson(rec.stage_series("post_processing"), p)
+                log(f"[perception] {name} {scenario} rain {rain:g}: Pearson r(post_processing, "
+                    f"num_proposals) = {r:.3f}, proposals {p.min():.0f}-{p.max():.0f}")
+                post.extend(rec.stage_series("post_processing"))
+                props.extend(p)
+            log(f"[perception] {name} all {len(post)} frames: Pearson r(post_processing, "
+                f"num_proposals) = {pearson(post, props):.3f}")
+
+        # ---- launches per frame and the device's share of the inference stage
+        for label, pipe, scale, pad in builds:
+            rec, got, built = recs[(label, "city rain 0")]
+            infer_s = float(rec.stage_series("inference").mean())
+            kernels, copies, busy_ms, share = _profile_inference(built, [sc for sc, _ in got],
+                                                                 infer_s)
+            log(f"[perception] {label:20s} city: {kernels:.1f} kernel launches + {copies:.1f} "
+                f"copies per frame; device busy {busy_ms:.4f} ms of the inference stage's "
+                f"{infer_s * 1e3:.4f} ms ({share:.3f} busy, {1 - share:.3f} idle)")
+
+        # ---- the anytime A/B, as benchmarks/anytime.py runs it
+        cfg = SceneConfig("city", seed=3)
+        rungs = A.default_rungs()
+        built = A.build_rungs(rungs, cfg, device=dev)
+        ladder = A.calibrate(rungs, cfg, n=ANYTIME_CAL, built=built)
+        cpu_ladder = A.calibrate(rungs, cfg, n=ANYTIME_CAL, device="cpu")
+        for r in ladder:
+            log(f"[anytime] rung {r.name:15s} quality {r.quality:.6f} e2e mean "
+                f"{r.e2e_mean * 1e3:.4f} ms (" + ", ".join(
+                    f"{k} {v * 1e3:.4f}" for k, v in r.stage_means.items()) + ")")
+        order, cpu_order = [r.name for r in ladder], [r.name for r in cpu_ladder]
+        dq = max(abs(a.quality - b.quality) for a, b in zip(ladder, cpu_ladder))
+        log(f"[anytime] calibrated order {order}; CPU order {cpu_order}; max |quality card - "
+            f"cpu| {dq:.3e} (bound {QUALITY_TOL})")
+        if order != cpu_order or not dq <= QUALITY_TOL:
+            raise AssertionError("anytime: the card's calibrated ladder differs from the CPU's")
+        top = ladder.top
+        for label, mult in (("tight", 0.5), ("mid", 1.0), ("loose", 2.5)):
+            budget = mult * top.e2e_mean
+            arms = {f"static[{top.name}]": A.FixedController(ladder),
+                    f"static[{ladder.floor.name}]": A.FixedController(ladder, ladder.floor.name),
+                    "contract": A.ContractController(ladder)}
+            for arm, ctl in arms.items():
+                rep = A.run_anytime(ladder, cfg, budget, controller=ctl, n=ANYTIME_FRAMES,
+                                    built=built)
+                if len(rep.frames) != ANYTIME_FRAMES or not math.isfinite(rep.p99_latency):
+                    raise AssertionError(f"anytime {label} {arm}: bad report")
+                log(f"[anytime] {label} budget {budget * 1e3:.4f} ms {arm:24s} miss "
+                    f"{rep.miss_rate * 100:5.1f} %  quality {rep.mean_quality:.4f}  mean "
+                    f"{rep.mean_latency * 1e3:.4f} ms  p99 {rep.p99_latency * 1e3:.4f} ms  "
+                    f"switches {rep.switches}  rungs {rep.rung_counts()}")
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev_tf32
+    counts = K.launch_counts()
+    if any(counts.values()):
+        raise AssertionError(f"perception: the perception path launched kernels {counts}")
+    log(f"[perception] kernel launch counters over the phase: {counts} (the path runs none "
+        f"of the four kernels); phase {time.perf_counter() - t0:.1f}s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
@@ -697,6 +921,7 @@ def main() -> int:
         phase_profile(model, params, dev, rep["mean_s"], min(pre) / 1e3)
         del model, params
         torch.cuda.empty_cache()
+    phase_perception(dev)
     times = phase_times(dev)
 
     rows = []

@@ -1,8 +1,11 @@
-"""Latency statistics, per-stage timing and deadline policies."""
+"""Latency statistics, per-stage timing, deadline policies and online
+latency predictors."""
 from .deadline import DeadlinePolicy, KalmanDeadline, MeanDeadline, PercentileDeadline, \
     WorstObserved
+from .predictor import FeaturePredictor, GaussianPredictor, KalmanPredictor, Prediction, \
+    rolling_eval
 from .stats import LatencySummary, Welford, summarize
-from .timing import StageRecord, StageTimer, TimelineRecorder, fence, timed_stage
+from .timing import StageRecord, StageTimer, TimelineRecorder, fence, timed_stage, to_host
 
 __all__ = [
     "DeadlinePolicy",
@@ -18,4 +21,10 @@ __all__ = [
     "TimelineRecorder",
     "fence",
     "timed_stage",
+    "to_host",
+    "FeaturePredictor",
+    "GaussianPredictor",
+    "KalmanPredictor",
+    "Prediction",
+    "rolling_eval",
 ]

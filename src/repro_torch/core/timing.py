@@ -26,6 +26,7 @@ __all__ = [
     "StageTimer",
     "timed_stage",
     "fence",
+    "to_host",
 ]
 
 
@@ -47,6 +48,29 @@ def fence(*values: Any) -> None:
     devices = {t.device for t in _tensors(values) if t.device.type == "cuda"}
     for dev in devices:
         torch.cuda.synchronize(dev)
+
+
+def _map_tensors(fn: Callable[[torch.Tensor], Any], values: Any) -> Any:
+    if isinstance(values, torch.Tensor):
+        return fn(values)
+    if isinstance(values, dict):
+        return {k: _map_tensors(fn, v) for k, v in values.items()}
+    if isinstance(values, (list, tuple)):
+        return type(values)(_map_tensors(fn, v) for v in values)
+    return values
+
+
+def to_host(tree: Any) -> Any:
+    """One readback of a whole output tree: every CUDA leaf is copied into
+    pinned host memory without blocking (a non-blocking copy to the CPU
+    allocates from the pinned pool), then each device's current stream is
+    synchronised once, so the tree costs one wait however many leaves it
+    has.  Returns the same nesting (tuples, lists, dicts) with NumPy arrays
+    for the tensors; a CPU tensor is viewed, not copied."""
+    host = _map_tensors(lambda t: t.to("cpu", non_blocking=True), tree)
+    for dev in {t.device for t in _tensors(tree) if t.device.type == "cuda"}:
+        torch.cuda.current_stream(dev).synchronize()
+    return _map_tensors(lambda t: t.numpy(), host)
 
 
 @dataclasses.dataclass

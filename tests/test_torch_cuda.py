@@ -226,3 +226,114 @@ def _to(tree, dev):
     if isinstance(tree, torch.Tensor):
         return tree.to(dev)
     return {k: _to(v, dev) for k, v in tree.items()}
+
+
+# ------------------------------------------------------------ perception --
+# The perception path runs none of the kernels above: its device work is
+# plain torch ops.  On the card it is held against its own CPU run (which
+# tests/test_torch_perception.py holds against JAX), from the same seed-7
+# weights: counts equal, boxes within 1e-3 px (chip_smoke.py's bound).
+
+@pytest.fixture
+def tf32_default():
+    """cuDNN's TF32 at torch's default (on), so the backbone's own f32
+    setting is what the tests exercise."""
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    yield
+    torch.backends.cudnn.allow_tf32 = prev
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,scale,pad", [
+    ("one_stage", 1.0, True), ("early_exit", 1.0, True), ("two_stage", 1.0, True),
+    ("lane", 1.0, True), ("lane_static", 1.0, True), ("one_stage", 0.75, False),
+    ("early_exit", 0.5, False)])
+def test_perception_card_matches_cpu(dev, tf32_default, name, scale, pad):
+    from repro_torch import kernels as K2
+    from repro_torch.perception import SceneConfig, build_pipeline, run_pipeline
+
+    K2.reset_launch_counts()
+    for scenario, rain in (("city", 0.0), ("road", 0.0), ("city", 50.0)):
+        cfg = SceneConfig(scenario, rain)
+        outs = [run_pipeline(name, cfg, n=4, collect=True,
+                             built=build_pipeline(name, scale=scale, pad=pad, device=d))[1]
+                for d in (dev, "cpu")]
+        for (_, g), (_, w) in zip(*outs):
+            assert (g.num_proposals, g.num_objects) == (w.num_proposals, w.num_objects)
+            assert g.boxes.shape == w.boxes.shape
+            np.testing.assert_allclose(g.boxes, w.boxes, atol=1e-3, rtol=0)
+    assert not any(K2.launch_counts().values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [1, 2, 3])
+@pytest.mark.parametrize("shape", [(96, 320), (87, 251)])
+def test_backbone_is_f32_on_card(dev, tf32_default, depth, shape):
+    """TF32 convolutions would miss 1e-5 by two orders of magnitude."""
+    from repro_torch.perception import detector as D
+
+    p = D.OneStageDetector().init(torch.Generator().manual_seed(7), "cpu")["backbone"]
+    x = torch.from_numpy(np.random.default_rng(depth).standard_normal((2, *shape, 3),
+                                                                      dtype=np.float32))
+    want = D.backbone_apply(p, x, depth)
+    got = D.backbone_apply(_to(p, dev), x.to(dev), depth)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [8, 16, 32])
+def test_pool_gives_the_same_bits_on_card(dev, size):
+    """The pooled luma is a fixed order of elementwise adds: the same bits
+    on both devices."""
+    from repro_torch.perception import detector as D
+
+    img = torch.from_numpy(np.random.default_rng(size).uniform(0, 1, (96, 320, 3))
+                           .astype(np.float32))
+    for mode in ("avg", "max"):
+        assert torch.equal(D._pool(img.to(dev), size, mode).cpu(), D._pool(img, size, mode))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("levels", [(0.2, 0.5, 0.9), (0.7,), (0.3, 0.6)])
+def test_static_nms_tie_order_on_card(dev, levels):
+    """Equal scores rank lower index first on the card too."""
+    from repro_torch.perception import detector as D
+
+    rng = np.random.default_rng(len(levels))
+    yx = rng.uniform(0, 80, (40, 2)).astype(np.float32)
+    boxes = torch.from_numpy(np.concatenate([yx, yx + rng.uniform(6, 30, (40, 2))], 1)
+                             .astype(np.float32))
+    scores = torch.from_numpy(rng.choice(np.float32(levels), 40))
+    want = D.static_nms(boxes, scores, 32)
+    got = D.static_nms(boxes.to(dev), scores.to(dev), 32)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+def test_to_host_reads_a_tree_back(dev):
+    from repro_torch.core.timing import to_host
+
+    a = torch.arange(6.0, device=dev).reshape(2, 3)
+    tree = (a, {"k": a > 2, "n": a.sum()}, [a.int()])
+    host = to_host(tree)
+    assert isinstance(host[0], np.ndarray) and host[1]["k"].dtype == np.bool_
+    assert np.array_equal(host[0], np.arange(6.0).reshape(2, 3)) and host[1]["n"] == 15.0
+    assert np.array_equal(host[2][0], np.arange(6).reshape(2, 3))
+
+
+@pytest.mark.cuda
+def test_importing_perception_creates_no_cuda_context(dev):
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parents[1]
+    code = ("import torch, repro_torch.perception, repro_torch.anytime\n"
+            "assert torch.cuda.is_available() and not torch.cuda.is_initialized()\n"
+            "print('ok')\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=dict(os.environ, PYTHONPATH=str(repo / "src")), timeout=120)
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
