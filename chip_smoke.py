@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Three serving paths at full width, four hand-written kernels, and the
-perception frame path (which runs none of them): qwen3-4b
+perception frame path and batched multi-camera perception (which run none
+of them): qwen3-4b
 (dense: flash_attention, decode_attention), rwkv6-3b (ssm: rwkv6_wkv) and
 zamba2-2.7b (hybrid: mamba2_ssd, and flash/decode attention at head_dim 80
 in the shared block).  bf16 flash runs the wgmma/TMA kernel, f32 flash the
@@ -68,7 +69,27 @@ Phases (each raises on failure; none is caught):
              benchmarks/anytime.py (city seed 3, calibrate n=12, 40 frames
              per arm, budgets 0.5, 1.0 and 2.5 x the top rung's mean) with
              the calibrated ladder held against the CPU's.  The kernels'
-             launch counters must stay at zero over the phase.
+             launch counters must stay at zero over the phase;
+6. batched — batched multi-camera perception (repro_torch.batched), which
+             runs none of the four kernels either: at capacity
+             BATCH_CAPACITY, the five ladder rungs (unpadded) and both lane
+             pipelines through the engine on the card (one CUDA graph per
+             engine) against the serial run_frame on the card and against
+             the engine on the CPU (counts equal, boxes within BOX_TOL_PX);
+             depths 2 and 3 against depth 1 bit for bit (every output
+             leaf); a join/leave churn with one capture and one replay a
+             tick, run under torch.cuda.set_sync_debug_mode("error");
+             per rung at 1, 2, 4 and 8 streams and depths 1 and 2 the host
+             API calls a tick (graph launches, copies, others), the device's
+             kernels, copies and busy share of a tick (torch.profiler); the
+             frames/s of the engine against the serial run_frame loop as
+             benchmarks/batched.py measures it (two_stage, one_stage,
+             early_exit; 24 ticks); and the RungBucketScheduler with 4
+             streams at 0.5 x and 4 at 2.5 x the top rung's warmed batched
+             step for SCHED_TICKS ticks at depths 1 and 2 (bucket sizes,
+             miss rate and quality per group, the floor and top rungs' step
+             at capacity 8).  The kernels' launch counters must stay at
+             zero over the phase.
 
 The build phase prints each kernel's registers, static shared memory and
 spill bytes from the compiler's -Xptxas -v report, and the scan kernels'
@@ -889,6 +910,311 @@ def phase_perception(dev):
         f"of the four kernels); phase {time.perf_counter() - t0:.1f}s")
 
 
+# ---- phase 6: batched multi-camera perception (repro_torch.batched)
+BATCH_CAPACITY = 8
+BATCH_TICKS = 3                  # card against serial and CPU, per pipeline
+DEPTH_TICKS = 5                  # depth k against depth 1
+PROFILE_STREAMS = (1, 2, 4, 8)
+PROFILE_TICKS = 12
+FPS_TICKS = 24                   # as benchmarks/batched.py
+FPS_RUNGS = ("two_stage", "one_stage", "early_exit")
+SCHED_TICKS = 40
+SCHED_BUDGETS = (0.5, 2.5)       # x the top rung's warmed batched step
+
+
+def _batched_builds():
+    """(label, pipeline, scale, pad): the five ladder rungs (unpadded, as
+    the scheduler builds them) and the two lane pipelines."""
+    from repro_torch import anytime as A
+
+    builds = [(r.name, r.pipeline, r.scale, False) for r in A.default_rungs()]
+    return builds + [("lane", "lane", 1.0, True), ("lane_static", "lane_static", 1.0, True)]
+
+
+def _stream_scenes(n_streams: int, n_ticks: int, seed0: int = 100):
+    """scenes[tick][stream]: each stream a camera of its own, cycling over
+    PERCEPTION_SCENES."""
+    from repro_torch.perception import SceneConfig, generate_scene
+
+    cfgs = [SceneConfig(*PERCEPTION_SCENES[s % len(PERCEPTION_SCENES)], seed=seed0 + s)
+            for s in range(n_streams)]
+    return [[generate_scene(cfg, t + 1) for cfg in cfgs] for t in range(n_ticks)]
+
+
+def _same_frame(label, where, got, want) -> float:
+    """Counts equal and boxes within BOX_TOL_PX; the largest box difference."""
+    same_shape = got.boxes.shape == want.boxes.shape
+    err = float(np.abs(got.boxes - want.boxes).max()) if same_shape and got.boxes.size else 0.0
+    counts = (got.num_proposals, got.num_objects), (want.num_proposals, want.num_objects)
+    if counts[0] != counts[1] or not same_shape or not err <= BOX_TOL_PX:
+        raise AssertionError(f"batched: {label} {where}: (proposals, objects) {counts[0]} "
+                             f"boxes {got.boxes.shape} against {counts[1]} {want.boxes.shape}, "
+                             f"max |box diff| {err:.3e} px (bound {BOX_TOL_PX})")
+    return err
+
+
+def _executor_outputs(built, depth, frames_seq):
+    """The host output tree of every tick, in submission order, from an
+    executor over ``built``'s device step at ``depth`` (copies: the drained
+    arrays are views of the pinned ring)."""
+    from repro_torch.batched import PipelinedExecutor
+
+    ex = PipelinedExecutor(built.device_step, BATCH_CAPACITY, frames_seq[0][0].shape,
+                           depth=depth, device=built.device)
+    outs = []
+    for frames in frames_seq:
+        ex.submit(dict(enumerate(frames)))
+        if ex.ready():
+            outs.append([a.copy() for a in _leaves(ex.drain().host)])
+    outs += [[a.copy() for a in _leaves(d.host)] for d in ex.flush()]
+    if ex.step_captures != 1 or ex.step_replays != len(frames_seq):
+        raise AssertionError(f"batched: depth {depth} executor captured {ex.step_captures} "
+                             f"times, replayed {ex.step_replays}")
+    return outs
+
+
+def _tick_profile(eng, scenes, n_ticks):
+    """Host API calls, device kernels and device busy time per tick of
+    ``eng`` under torch.profiler (CPU and CUDA activity)."""
+    from collections import Counter
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    n = eng.n_active
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for t in range(n_ticks):
+            eng.tick({f"cam{s}": scenes[t][s].image for s in range(n)})
+        eng.flush()
+        torch.cuda.synchronize()
+    api, kernels, copies, busy_us = Counter(), 0, 0, 0.0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CPU:
+            if e.key.startswith("cuda"):
+                api[e.key] += e.count
+        elif _device_us(e) > 0:
+            busy_us += _device_us(e)
+            if e.key.startswith(("Memcpy", "Memset")):
+                copies += e.count
+            else:
+                kernels += e.count
+    return ({k: v / n_ticks for k, v in api.items()}, kernels / n_ticks, copies / n_ticks,
+            busy_us / 1e3 / n_ticks)
+
+
+def _tick_wall_ms(eng, scenes, n_ticks) -> float:
+    """Host wall per tick over ``n_ticks`` (pipeline drained at the end)."""
+    n = eng.n_active
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(n_ticks):
+        eng.tick({f"cam{s}": scenes[t][s].image for s in range(n)})
+    eng.flush()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n_ticks
+
+
+def phase_batched(dev):
+    """Batched multi-camera perception on the card (module docstring,
+    phase 6)."""
+    from repro_torch import anytime as A
+    from repro_torch import kernels as K
+    from repro_torch.anytime.cost import SceneFeatures
+    from repro_torch.batched import BatchedPerceptionEngine, RungBucketScheduler
+    from repro_torch.perception import SceneConfig, build_pipeline, generate_scene, run_frame
+
+    prev_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True        # torch's default, as phase 5
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        # ---- the card's engine against the serial run_frame and the CPU engine
+        scenes = _stream_scenes(BATCH_CAPACITY, BATCH_TICKS)
+        worst = {"serial": 0.0, "cpu": 0.0}
+        for label, pipe, scale, pad in _batched_builds():
+            engines = {d: BatchedPerceptionEngine(pipe, capacity=BATCH_CAPACITY, scale=scale,
+                                                  pad=pad, device=d) for d in (dev, "cpu")}
+            for eng in engines.values():
+                for s in range(BATCH_CAPACITY):
+                    eng.join(f"cam{s}")
+            card = engines[dev]
+            for t, tick in enumerate(scenes):
+                frames = {f"cam{s}": sc.image for s, sc in enumerate(tick)}
+                _, got = card.tick(frames)
+                _, cpu = engines["cpu"].tick(frames)
+                for s, sc in enumerate(tick):
+                    where = f"tick {t} cam{s} ({sc.scenario} rain {sc.rain:g})"
+                    _, serial = run_frame(card.built, sc)
+                    worst["serial"] = max(worst["serial"], _same_frame(
+                        label, where + " card engine vs card run_frame", got[f"cam{s}"], serial))
+                    worst["cpu"] = max(worst["cpu"], _same_frame(
+                        label, where + " card engine vs cpu engine", got[f"cam{s}"],
+                        cpu[f"cam{s}"]))
+            if card.trace_count != 1 or card.replay_count != BATCH_TICKS:
+                raise AssertionError(f"batched: {label} captured {card.trace_count} times, "
+                                     f"replayed {card.replay_count}")
+            if label == "lane_static":
+                log("[batched] lane_static's step (torch.linalg.solve_ex on (8, 4) 3 x 3 "
+                    "systems) is captured in the CUDA graph and replayed")
+        log(f"[batched] card engine (capacity {BATCH_CAPACITY}) against the serial run_frame "
+            f"on the card and the CPU engine: {len(_batched_builds())} pipelines x "
+            f"{BATCH_TICKS} ticks x {BATCH_CAPACITY} streams; counts equal on every frame, "
+            f"boxes within {worst['serial']:.3e} px of serial and {worst['cpu']:.3e} px of the "
+            f"CPU (bound {BOX_TOL_PX}); one capture per engine")
+
+        # ---- depth k against depth 1, bit for bit
+        frames_seq = [[sc.image for sc in tick]
+                      for tick in _stream_scenes(BATCH_CAPACITY, DEPTH_TICKS, seed0=300)]
+        for label, pipe, scale, pad in _batched_builds():
+            built = build_pipeline(pipe, scale=scale, pad=pad, device=dev)
+            want = _executor_outputs(built, 1, frames_seq)
+            for depth in (2, 3):
+                got = _executor_outputs(built, depth, frames_seq)
+                if len(got) != len(want) or not all(
+                        all(np.array_equal(a, b) for a, b in zip(g, w))
+                        for g, w in zip(got, want)):
+                    raise AssertionError(f"batched: {label} depth {depth} differs from depth 1")
+        log(f"[batched] depths 2 and 3 equal depth 1 bit for bit: {len(_batched_builds())} "
+            f"pipelines x {DEPTH_TICKS} ticks, every output leaf")
+
+        # ---- churn: one capture, one replay a tick, no sync on the tick path
+        img = generate_scene(SceneConfig("city", seed=21), 1).image
+        eng = BatchedPerceptionEngine("early_exit", capacity=4, device=dev)
+        eng.compile()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            eng.join("a")
+            eng.join("b")
+            eng.tick({"a": img, "b": img})
+            eng.join("c")
+            eng.tick({"a": img, "b": img, "c": img})
+            eng.leave("b")
+            eng.tick({"a": img, "c": img})
+            eng.leave("a")
+            eng.leave("c")
+            eng.join("d")
+            eng.tick({"d": img})
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        ex = eng.executor
+        if (eng.trace_count, eng.replay_count, eng.ticks) != (1, 4, 4):
+            raise AssertionError(f"batched churn: captures {eng.trace_count}, replays "
+                                 f"{eng.replay_count}, ticks {eng.ticks}")
+        log(f"[batched] churn (join, join mid-run, leave, rejoin): step_captures "
+            f"{ex.step_captures}, step_replays {ex.step_replays} == ticks {eng.ticks}; the "
+            f"ticks ran under torch.cuda.set_sync_debug_mode('error') (the drain's event wait "
+            f"is the only wait); staging waits {ex.stage_waits}")
+
+        # ---- per-tick launches and the device's busy share, per rung
+        log("[batched] per tick (capacity 8 engine): host API calls (graph launches, "
+            "copies, others), device kernels and copies, device busy ms of the tick's wall ms")
+        prof_scenes = _stream_scenes(BATCH_CAPACITY, PROFILE_TICKS, seed0=400)
+        for label, pipe, scale, pad in _batched_builds()[:5]:
+            for depth in (1, 2):
+                eng = BatchedPerceptionEngine(pipe, capacity=BATCH_CAPACITY, scale=scale,
+                                              pad=pad, depth=depth, device=dev)
+                for n in PROFILE_STREAMS:
+                    eng.reset()
+                    for s in range(n):
+                        eng.join(f"cam{s}")
+                    _tick_wall_ms(eng, prof_scenes, 2)                    # warm
+                    wall = _tick_wall_ms(eng, prof_scenes, PROFILE_TICKS)
+                    api, kernels, copies, busy = _tick_profile(eng, prof_scenes, PROFILE_TICKS)
+                    graphs = sum(v for k, v in api.items() if "GraphLaunch" in k)
+                    memcpy = sum(v for k, v in api.items() if "Memcpy" in k)
+                    others = sum(api.values()) - graphs - memcpy
+                    log(f"[batched]   {label:15s} depth {depth} streams {n}: {graphs:.1f} graph "
+                        f"launches + {memcpy:.1f} copies + {others:.1f} other calls a tick; "
+                        f"device {kernels:.1f} kernels + {copies:.1f} copies, busy {busy:.4f} "
+                        f"ms of {wall:.4f} ms ({busy / wall:.3f} busy)")
+                log(f"[batched]   {label} depth {depth} host API calls a tick at 8 streams: "
+                    + ", ".join(f"{k} {v:.1f}" for k, v in sorted(api.items())))
+
+        # ---- frames/s: the batched engine against the serial run_frame loop
+        for rung in FPS_RUNGS:
+            built = build_pipeline(rung, device=dev)
+            run_frame(built, generate_scene(SceneConfig("city", seed=100), 0))
+            for n in PROFILE_STREAMS:
+                fps_scenes = _stream_scenes(n, FPS_TICKS)
+                eng = BatchedPerceptionEngine(built, capacity=n)
+                for s in range(n):
+                    eng.join(f"cam{s}")
+                eng.compile()
+                sw, bw = [], []
+                for tick in fps_scenes:
+                    t1 = time.perf_counter()
+                    for sc in tick:
+                        run_frame(built, sc)
+                    sw.append(time.perf_counter() - t1)
+                    t1 = time.perf_counter()
+                    eng.tick({f"cam{s}": sc.image for s, sc in enumerate(tick)})
+                    bw.append(time.perf_counter() - t1)
+                sw, bw = np.asarray(sw), np.asarray(bw)
+                log(f"[batched] frames/s {rung:10s} streams {n}: serial run_frame "
+                    f"{n / np.median(sw):9.1f}, batched engine {n / np.median(bw):9.1f}, "
+                    f"median paired speedup {np.median(sw / bw):.2f}x "
+                    f"({FPS_TICKS} ticks; captures {eng.trace_count})")
+
+        # ---- the rung-bucket scheduler: 4 tight and 4 loose streams
+        cfg = SceneConfig("city", seed=3)
+        rungs = A.default_rungs()
+        ladder = A.calibrate(rungs, cfg, n=ANYTIME_CAL, built=A.build_rungs(rungs, cfg, device=dev))
+        # frames made ahead, as a camera delivers them: at depth 2 a frame
+        # completes a tick after its submit, so the loop's own work between
+        # ticks would count in its latency
+        sched_scenes = _stream_scenes(BATCH_CAPACITY, SCHED_TICKS, seed0=200)
+        for depth in (1, 2):
+            sched = RungBucketScheduler(ladder, capacity=BATCH_CAPACITY, depth=depth, device=dev)
+            sched.warm()
+            step = {name: sched.engines[name].probe(
+                [generate_scene(SceneConfig(), i).image for i in range(BATCH_CAPACITY)]
+            ).end_to_end for name in (ladder.top.name, ladder.floor.name)}
+            top_ms = step[ladder.top.name]
+            log(f"[sched] depth {depth}: batched step at capacity {BATCH_CAPACITY}: top "
+                f"{ladder.top.name} {top_ms * 1e3:.4f} ms, floor {ladder.floor.name} "
+                f"{step[ladder.floor.name] * 1e3:.4f} ms (floor / top "
+                f"{step[ladder.floor.name] / top_ms:.3f}); serial calibration: top "
+                f"{ladder.top.e2e_mean * 1e3:.4f} ms, floor {ladder.floor.e2e_mean * 1e3:.4f} ms")
+            groups = {}
+            for s in range(BATCH_CAPACITY):
+                mult = SCHED_BUDGETS[0] if s < BATCH_CAPACITY // 2 else SCHED_BUDGETS[1]
+                groups[f"cam{s}"] = mult
+                sched.add_stream(f"cam{s}", mult * top_ms)
+            sizes: dict[str, list[int]] = {}
+            for scenes in sched_scenes:
+                res = sched.tick(dict(zip(groups, scenes)))
+                for rname, members in res.buckets.items():
+                    sizes.setdefault(rname, []).append(len(members))
+            sched.flush()
+            if any(e.trace_count != 1 for e in sched.engines.values()):
+                raise AssertionError("scheduler: an engine captured more than once")
+            report = {r["stream"]: r for r in sched.report()}
+            for mult in SCHED_BUDGETS:
+                rows = [r for sid, r in report.items() if groups[sid] == mult]
+                if any(r["frames"] != SCHED_TICKS for r in rows):
+                    raise AssertionError(f"scheduler: frames lost: {rows}")
+                log(f"[sched] depth {depth} budget {mult} x top ({mult * top_ms * 1e3:.4f} ms): "
+                    f"miss {np.mean([r['miss_rate'] for r in rows]) * 100:.1f} %, quality "
+                    f"{np.mean([r['mean_quality'] for r in rows]):.4f}, switches "
+                    f"{sum(r['switches'] for r in rows)}")
+            log(f"[sched] depth {depth} bucket sizes over {SCHED_TICKS} ticks (mean, ticks "
+                f"served): " + ", ".join(f"{k} {np.mean(v):.2f} x {len(v)}"
+                                         for k, v in sorted(sizes.items())))
+            feats = SceneFeatures(batch_size=4.0, batched=True, pipeline_depth=float(depth))
+            log(f"[sched] depth {depth} learned batched cost at 4 streams: " + ", ".join(
+                f"{r.name} {sched.cost.predict(r.name, feats).mean * 1e3:.4f} ms"
+                for r in ladder))
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev_tf32
+        torch.cuda.set_sync_debug_mode("default")
+    counts = K.launch_counts()
+    if any(counts.values()):
+        raise AssertionError(f"batched: the batched path launched kernels {counts}")
+    log(f"[batched] kernel launch counters over the phase: {counts}; phase "
+        f"{time.perf_counter() - t0:.1f}s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
@@ -922,6 +1248,7 @@ def main() -> int:
         del model, params
         torch.cuda.empty_cache()
     phase_perception(dev)
+    phase_batched(dev)
     times = phase_times(dev)
 
     rows = []

@@ -1,11 +1,13 @@
-"""Latency statistics, per-stage timing, deadline policies and online
-latency predictors."""
+"""Latency statistics, per-stage timing, variance attribution, deadline
+policies and online latency predictors."""
 from .deadline import DeadlinePolicy, KalmanDeadline, MeanDeadline, PercentileDeadline, \
     WorstObserved
 from .predictor import FeaturePredictor, GaussianPredictor, KalmanPredictor, Prediction, \
     rolling_eval
 from .stats import LatencySummary, Welford, summarize
-from .timing import StageRecord, StageTimer, TimelineRecorder, fence, timed_stage, to_host
+from .timing import STAGE_AXES, StageRecord, StageTimer, TimelineRecorder, fence, instrument, \
+    run_pipeline, timed_stage, to_host
+from .variance import VarianceDecomposition, classify, decompose, variance_reduction
 
 __all__ = [
     "DeadlinePolicy",
@@ -16,12 +18,19 @@ __all__ = [
     "LatencySummary",
     "Welford",
     "summarize",
+    "STAGE_AXES",
     "StageRecord",
     "StageTimer",
     "TimelineRecorder",
     "fence",
+    "instrument",
+    "run_pipeline",
     "timed_stage",
     "to_host",
+    "VarianceDecomposition",
+    "classify",
+    "decompose",
+    "variance_reduction",
     "FeaturePredictor",
     "GaussianPredictor",
     "KalmanPredictor",

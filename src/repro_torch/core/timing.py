@@ -13,7 +13,7 @@ import contextlib
 import dataclasses
 import time
 from collections import defaultdict
-from typing import Any, Callable, Iterator
+from typing import Any, Callable, Iterator, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -25,9 +25,32 @@ __all__ = [
     "TimelineRecorder",
     "StageTimer",
     "timed_stage",
+    "instrument",
+    "run_pipeline",
     "fence",
     "to_host",
+    "STAGE_AXES",
 ]
+
+# Canonical stage names from the paper's Fig. 3 timeline.
+READ = "read"
+PRE = "pre_processing"
+INFER = "inference"
+POST = "post_processing"
+CANONICAL_STAGES = (READ, PRE, INFER, POST)
+
+# Default variation-axis tag per canonical stage (paper Table I): read is
+# I/O-bound, pre/post scale with input content, inference is the model.
+# Unknown stage names fall back to the residual end_to_end axis.
+STAGE_AXES = {
+    READ: "io",
+    PRE: "data",
+    INFER: "model",
+    POST: "data",
+    "upload": "io",
+    "step": "model",
+    "post": "data",
+}
 
 
 def _tensors(values: Any) -> Iterator[torch.Tensor]:
@@ -87,18 +110,33 @@ class StageRecord:
 
 class TimelineRecorder:
     """Accumulates StageRecords across jobs and answers the paper's
-    questions: per-stage summaries and correlation of stage latencies with
-    end-to-end latency."""
+    questions: per-stage summaries, variance attribution inputs, and
+    correlation of any metadata series with end-to-end latency.
 
-    def __init__(self) -> None:
+    When constructed with ``metrics=`` (a ``repro_torch.obs.MetricsHub``,
+    duck-typed so core stays obs-free), the recorder is a thin adapter:
+    every added record is also forwarded to the hub keyed by this
+    recorder's stream/rung tags plus the record's ``batch_size`` meta, so
+    legacy recorders and the span tracer share one aggregation path."""
+
+    def __init__(self, metrics: Any = None, stream: str = "", rung: str = "") -> None:
         self.records: list[StageRecord] = []
         self._welford: dict[str, Welford] = defaultdict(Welford)
+        self._metrics = metrics
+        self._stream = stream
+        self._rung = rung
 
     def add(self, record: StageRecord) -> None:
         self.records.append(record)
         for k, v in record.stages.items():
             self._welford[k].update(v)
         self._welford["end_to_end"].update(record.end_to_end)
+        if self._metrics is not None:
+            bs = int(record.meta.get("batch_size", 0))
+            for k, v in record.stages.items():
+                self._metrics.observe(self._stream, k, v, rung=self._rung, batch_size=bs)
+            self._metrics.observe(self._stream, "end_to_end", record.end_to_end,
+                                  rung=self._rung, batch_size=bs)
 
     def stage_series(self, stage: str) -> np.ndarray:
         return np.asarray([r.stages.get(stage, 0.0) for r in self.records])
@@ -129,6 +167,10 @@ class TimelineRecorder:
         """Table VI: corr(stage latency, end-to-end latency)."""
         return pearson(self.stage_series(stage), self.end_to_end_series())
 
+    def correlation_meta(self, key: str, stage: str = POST) -> float:
+        """Fig. 5: corr(#detected objects / proposals, post-processing)."""
+        return pearson(self.meta_series(key), self.stage_series(stage))
+
     def breakdown_table(self) -> list[dict]:
         rows = []
         for st in self.stages():
@@ -144,6 +186,15 @@ class TimelineRecorder:
             )
         return rows
 
+    def dominant_stage(self) -> str:
+        """The paper's inference-dominated vs post-processing-dominated
+        classification: the stage whose latency correlates most with
+        end-to-end latency (Table VI argmax)."""
+        table = self.breakdown_table()
+        if not table:
+            raise ValueError("no records")
+        return max(table, key=lambda r: r["corr_e2e"])["stage"]
+
 
 class StageTimer:
     """Context-manager based per-job timer::
@@ -155,11 +206,20 @@ class StageTimer:
             out = step(x)
             fence(out)     # the device's work counts in this stage
         rec.add(timer.finish())
+
+    With ``tracer=`` (a ``repro_torch.obs.SpanTracer``, duck-typed) every
+    closed interval is also forwarded as a span carrying ``tags``
+    (stream/tick/rung/batch_size/track) and the stage's default axis, so
+    stage timing lands on the unified timeline without a second clock
+    read: there is exactly one recording path.
     """
 
-    def __init__(self, clock: Callable[[], float] = time.perf_counter) -> None:
+    def __init__(self, clock: Callable[[], float] = time.perf_counter, tracer: Any = None,
+                 tags: Mapping[str, Any] | None = None) -> None:
         self._clock = clock
         self._record = StageRecord()
+        self._tracer = tracer
+        self._tags = dict(tags or {})
 
     @contextlib.contextmanager
     def stage(self, name: str) -> Iterator[None]:
@@ -167,9 +227,11 @@ class StageTimer:
         try:
             yield
         finally:
-            self._record.stages[name] = (
-                self._record.stages.get(name, 0.0) + self._clock() - t0
-            )
+            t1 = self._clock()
+            self._record.stages[name] = self._record.stages.get(name, 0.0) + t1 - t0
+            if self._tracer is not None:
+                self._tracer.record(name, t0, t1, axis=STAGE_AXES.get(name, "end_to_end"),
+                                    **self._tags)
 
     def note(self, key: str, value: float) -> None:
         self._record.meta[key] = float(value)
@@ -187,3 +249,50 @@ def timed_stage(timer: StageTimer, name: str, *values: Any) -> Iterator[None]:
     with timer.stage(name):
         yield
         fence(values)
+
+
+def instrument(fn: Callable[..., Any], name: str, timer: StageTimer) -> Callable[..., Any]:
+    """Wrap ``fn`` so every call is recorded as stage ``name`` with a fence
+    on its outputs."""
+
+    def wrapped(*args, **kwargs):
+        with timer.stage(name):
+            out = fn(*args, **kwargs)
+            fence(out)
+        return out
+
+    wrapped.__name__ = f"timed_{name}"
+    return wrapped
+
+
+def run_pipeline(
+    stages: Sequence[tuple[str, Callable[[Any], Any]]],
+    inputs: Iterator[Any],
+    recorder: TimelineRecorder,
+    meta_fn: Callable[[Any], Mapping[str, float]] | None = None,
+    warmup: int = 1,
+) -> list[Any]:
+    """Drive a (name, fn) pipeline over an input stream recording the full
+    per-stage timeline of every job — the paper's profiling harness.  Each
+    stage ends in a fence on its output.
+
+    ``warmup`` jobs are executed but not recorded (lazy CUDA and cuDNN
+    set-up on the first call would otherwise appear as a giant outlier;
+    the paper similarly discards cold-start frames).
+    """
+    outputs: list[Any] = []
+    for i, item in enumerate(inputs):
+        timer = StageTimer()
+        value = item
+        for name, fn in stages:
+            with timer.stage(name):
+                value = fn(value)
+                fence(value)
+        if meta_fn is not None:
+            for k, v in meta_fn(value).items():
+                timer.note(k, v)
+        rec = timer.finish()
+        if i >= warmup:
+            recorder.add(rec)
+        outputs.append(value)
+    return outputs

@@ -155,8 +155,9 @@ def backbone_apply(params, image: torch.Tensor, depth: int = 3) -> torch.Tensor:
 
 
 def _pool(img: torch.Tensor, size: int, mode: str = "avg") -> torch.Tensor:
-    """(H, W, 3) → (H//size, W//size) pooled luma (border cropped to the
-    tile grid, so any input shape is valid).
+    """(..., H, W, 3) → (..., H//size, W//size) pooled luma, each slot of the
+    leading dims on its own (border cropped to the tile grid, so any input
+    shape is valid).
 
     The means are sums in a fixed order, written out as elementwise adds:
     the luma is (r + g + b) · (1/3), as XLA computes the reference's
@@ -167,12 +168,12 @@ def _pool(img: torch.Tensor, size: int, mode: str = "avg") -> torch.Tensor:
     order that depends on the device and the layout: it moves scores by up
     to 4e-6 from the reference's and can reorder near-equal cells."""
     luma = (img[..., 0] + img[..., 1] + img[..., 2]) * (1.0 / 3.0)
-    h, w = luma.shape
+    *lead, h, w = luma.shape
     gh, gw = h // size, w // size
-    tiles = luma[: gh * size, : gw * size].reshape(gh, size, gw, size)
+    tiles = luma[..., : gh * size, : gw * size].reshape(*lead, gh, size, gw, size)
     if mode != "avg":
-        return tiles.amax((1, 3))
-    v = tiles.permute(0, 2, 1, 3).reshape(gh, gw, size * size)
+        return tiles.amax((-3, -1))
+    v = tiles.transpose(-3, -2).reshape(*lead, gh, gw, size * size)
     while v.shape[-1] > 1:              # size is a power of two
         half = v.shape[-1] // 2
         v = v[..., :half] + v[..., half:]
@@ -212,42 +213,45 @@ def dynamic_nms(boxes: np.ndarray, scores: np.ndarray, iou_thr: float = 0.5) -> 
 
 
 def top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """The ``k`` largest of a 1-D tensor and their indices, the lower index
-    first among equal values, as ``lax.top_k`` orders them.  ``torch.topk``
-    promises no order among ties, and ties are the rule here (every cell
-    wholly inside one flat-shaded object pools to the same value), so this
-    is the first ``k`` of a stable sort."""
-    if k > x.shape[0]:
-        raise ValueError(f"top_k: k = {k} is larger than the {x.shape[0]} values")
-    values, idx = torch.sort(x, descending=True, stable=True)
-    return values[:k], idx[:k]
+    """The ``k`` largest along the last dim and their indices, the lower
+    index first among equal values, as ``lax.top_k`` orders them.
+    ``torch.topk`` promises no order among ties, and ties are the rule here
+    (every cell wholly inside one flat-shaded object pools to the same
+    value), so this is the first ``k`` of a stable sort."""
+    if k > x.shape[-1]:
+        raise ValueError(f"top_k: k = {k} is larger than the {x.shape[-1]} values")
+    values, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return values[..., :k], idx[..., :k]
 
 
 def static_nms(boxes: torch.Tensor, scores: torch.Tensor, k: int, iou_thr: float = 0.5):
     """Fixed-shape device NMS: top-k candidates, then a greedy suppression
     pass of fixed length — identical result on the top-k set, ZERO
-    data-dependent time (the framework's mitigation).  The pass runs on the
-    device without a host sync: two launches per candidate."""
-    n = boxes.shape[0]
+    data-dependent time (the framework's mitigation).  ``boxes`` (..., n, 4)
+    and ``scores`` (..., n): leading dims are slots, each suppressed on its
+    own.  The pass runs on the device without a host sync: two launches per
+    candidate, whatever the number of slots."""
+    n = boxes.shape[-2]
     k = min(k, n)
     top_scores, idx = top_k(scores, k)
-    top_boxes = boxes[idx]
+    top_boxes = torch.gather(boxes, -2, idx[..., None].expand(*idx.shape, 4))
 
-    y0, x0, y1, x1 = top_boxes.unbind(1)
+    y0, x0, y1, x1 = top_boxes.unbind(-1)
     area = (y1 - y0).clamp_min(0) * (x1 - x0).clamp_min(0)
-    iy0 = torch.maximum(y0[:, None], y0[None, :])
-    ix0 = torch.maximum(x0[:, None], x0[None, :])
-    iy1 = torch.minimum(y1[:, None], y1[None, :])
-    ix1 = torch.minimum(x1[:, None], x1[None, :])
+    iy0 = torch.maximum(y0[..., :, None], y0[..., None, :])
+    ix0 = torch.maximum(x0[..., :, None], x0[..., None, :])
+    iy1 = torch.minimum(y1[..., :, None], y1[..., None, :])
+    ix1 = torch.minimum(x1[..., :, None], x1[..., None, :])
     inter = (iy1 - iy0).clamp_min(0) * (ix1 - ix0).clamp_min(0)
-    iou = inter / (area[:, None] + area[None, :] - inter).clamp_min(1e-9)
+    iou = inter / (area[..., :, None] + area[..., None, :] - inter).clamp_min(1e-9)
 
-    # sup[i, j]: box i, if kept, suppresses the later box j
+    # sup[..., i, j]: box i, if kept, suppresses the later box j
     order = torch.arange(k, device=boxes.device)
     sup = (iou > iou_thr) & (order[None, :] > order[:, None])
     keep = top_scores > -math.inf
     for i in range(k):
-        keep = keep > (sup[i] & keep[i])      # keep & ~(sup[i] & keep[i])
+        # keep & ~(sup[i] & keep[i])
+        keep = keep > (sup[..., i, :] & keep[..., i, None])
     return top_boxes, top_scores, keep, idx
 
 
@@ -256,9 +260,11 @@ def static_nms(boxes: torch.Tensor, scores: torch.Tensor, k: int, iou_thr: float
 # --------------------------------------------------------------------------
 
 def _unit_luma(image: torch.Tensor) -> torch.Tensor:
-    """De-normalize: pipelines standardize the image; recover 0-1 luma."""
-    img = image - image.min()
-    return img / img.max().clamp_min(1e-6)
+    """De-normalize: pipelines standardize the image; recover 0-1 luma.
+    ``image`` (..., H, W, 3): the min and max are each slot's own."""
+    dims = (-3, -2, -1)
+    img = image - image.amin(dims, keepdim=True)
+    return img / img.amax(dims, keepdim=True).clamp_min(1e-6)
 
 
 @dataclasses.dataclass
@@ -305,27 +311,32 @@ class OneStageDetector:
         return init_detector_params(self.specs(), generator, device)
 
     def infer(self, params, image: torch.Tensor):
-        """Device path: features → grid preds → static top-k+NMS. Returns
-        fixed-shape (boxes (k,4), scores (k,), keep (k,))."""
-        feat = backbone_apply(params["backbone"], image[None], depth=self.depth)[0]
-        preds = feat @ params["head"]                 # hwc,co->hwo
+        """Device path: features → grid preds → static top-k+NMS.  ``image``
+        (H, W, 3) returns fixed-shape (boxes (k,4), scores (k,), keep (k,));
+        a batch (B, H, W, 3) returns them with a leading B, each slot on its
+        own (one image is the batch of one)."""
+        if image.ndim == 3:
+            return tuple(t[0] for t in self.infer(params, image[None]))
+        feat = backbone_apply(params["backbone"], image, depth=self.depth)
+        preds = feat @ params["head"]                 # bhwc,co->bhwo
         img = _unit_luma(image)
         obj2d = torch.sigmoid(12.0 * (_pool(img, self.cell, "avg") - self.obj_thr))
-        gh, gw = obj2d.shape
+        b, gh, gw = obj2d.shape
         f = self.cell // 8
         if f > 1:       # coarsen the head to the objectness grid
-            preds = preds[: gh * f, : gw * f]
-            preds = preds.reshape(gh, f, gw, f, 4).mean((1, 3))
+            preds = preds[:, : gh * f, : gw * f]
+            preds = preds.reshape(b, gh, f, gw, f, 4).mean((2, 4))
         else:
-            preds = preds[:gh, :gw]
-        obj = obj2d.reshape(-1)
+            preds = preds[:, :gh, :gw]
+        obj = obj2d.reshape(b, -1)
+        preds = preds.reshape(b, gh * gw, 4)
         gy, gx = torch.meshgrid(torch.arange(gh, device=image.device),
                                 torch.arange(gw, device=image.device), indexing="ij")
         cell = float(self.cell)
-        cy = (gy.reshape(-1) + 0.5) * cell + preds[..., 0].reshape(-1)
-        cx = (gx.reshape(-1) + 0.5) * cell + preds[..., 1].reshape(-1)
-        bh = 1.8 * cell * torch.exp(preds[..., 2].reshape(-1).clamp(-1, 1))
-        bw = 2.4 * cell * torch.exp(preds[..., 3].reshape(-1).clamp(-1, 1))
+        cy = (gy.reshape(-1) + 0.5) * cell + preds[..., 0]
+        cx = (gx.reshape(-1) + 0.5) * cell + preds[..., 1]
+        bh = 1.8 * cell * torch.exp(preds[..., 2].clamp(-1, 1))
+        bw = 2.4 * cell * torch.exp(preds[..., 3].clamp(-1, 1))
         boxes = torch.stack([cy - bh / 2, cx - bw / 2, cy + bh / 2, cx + bw / 2], -1)
         tb, ts, keep, _ = static_nms(boxes, obj, self.top_k)
         keep = keep & (ts > self.score_thr)
@@ -374,11 +385,15 @@ class TwoStageDetector:
         brightness above the scene floor (objects are bright filled
         rectangles; lanes are thin and dilute under 8×8 pooling; rain fog
         pulls cells toward gray and below threshold).  The conv features
-        feed the stage-2 refinement.
+        feed the stage-2 refinement.  ``image`` (H, W, 3) or a batch
+        (B, H, W, 3), whose outputs lead with B.
         """
+        if image.ndim == 3:
+            feat, obj = self.infer_device(params, image[None])
+            return feat[0], obj[0]
         img = _unit_luma(image)
         obj = torch.sigmoid(12.0 * (_pool(img, 8, "avg") - 0.55))
-        feat = backbone_apply(params["backbone"], image[None])[0]
+        feat = backbone_apply(params["backbone"], image)
         return feat, obj
 
     def post_host(self, params, feat: np.ndarray, obj: np.ndarray):

@@ -42,7 +42,8 @@ class LaneDetector:
 
         Lane evidence = bright AND thin: maxpool − avgpool is large for
         2-px-wide bright lines, small for filled object blobs and flat
-        background; rain fog compresses the band-pass response.
+        background; rain fog compresses the band-pass response.  ``image``
+        (H, W, 3) gives (h, w); a batch (B, H, W, 3) gives (B, h, w).
         """
         img = _unit_luma(image)
         band = _pool(img, 8, "max") - _pool(img, 8, "avg")
@@ -86,24 +87,26 @@ class LaneDetector:
     def static_fit_device(self, prob: torch.Tensor, k: int = 256, n_lanes: int = 4):
         """Static-shape alternative (the framework's mitigation): top-k
         pixels, soft-assign to n_lanes anchors, batched least squares —
-        fixed time regardless of scene content.  The ``n_lanes`` 3 × 3
-        systems are solved in one batched call that skips the host check of
-        its result (``torch.linalg.solve`` would read its status back to
-        the host: a hidden sync inside the inference stage)."""
-        h, w = prob.shape
-        top, idx = top_k(prob.reshape(-1), k)
+        fixed time regardless of scene content.  ``prob`` (h, w) gives fits
+        (n_lanes, 3) and a pixel count; a batch (B, h, w) gives them with a
+        leading B, each slot on its own.  The (B, n_lanes) 3 × 3 systems are
+        solved in one batched call that skips the host check of its result
+        (``torch.linalg.solve`` would read its status back to the host: a
+        hidden sync inside the inference stage)."""
+        *lead, h, w = prob.shape
+        top, idx = top_k(prob.reshape(*lead, h * w), k)
         ys = (idx // w).float()
-        xs = (idx % w).float()
+        xs = (idx % w).float()                                                  # (..., k)
         valid = top > self.pixel_thr
         lanes = torch.arange(n_lanes, device=prob.device)
         anchors = (lanes + 1.0) * (w / (n_lanes + 1.0))
         # the first of equally near anchors, as jnp.argmin takes it
-        assign = torch.argmin((xs[:, None] - anchors[None, :]).abs(), dim=1)
-        wgt = ((assign[None, :] == lanes[:, None]) & valid[None, :]).float()   # (lanes, k)
+        assign = torch.argmin((xs[..., :, None] - anchors).abs(), dim=-1)
+        wgt = ((assign[..., None, :] == lanes[:, None]) & valid[..., None, :]).float()  # (..., lanes, k)
         # weighted quadratic fit via normal equations (fixed shape)
-        a = torch.stack([ys**2, ys, torch.ones_like(ys)], dim=1)                # (k, 3)
-        aw_t = (a[None] * wgt[:, :, None]).transpose(1, 2)                     # (lanes, 3, k)
+        a = torch.stack([ys**2, ys, torch.ones_like(ys)], dim=-1)[..., None, :, :]  # (..., 1, k, 3)
+        aw_t = (a * wgt[..., :, :, None]).transpose(-1, -2)                   # (..., lanes, 3, k)
         ata = aw_t @ a + 1e-3 * torch.eye(3, device=prob.device)
-        atb = aw_t @ xs
-        fits, _ = torch.linalg.solve_ex(ata, atb[..., None], check_errors=False)
-        return fits[..., 0], valid.sum()
+        atb = aw_t @ xs[..., None, :, None]                                     # (..., lanes, 3, 1)
+        fits, _ = torch.linalg.solve_ex(ata, atb, check_errors=False)
+        return fits[..., 0], valid.sum(-1)

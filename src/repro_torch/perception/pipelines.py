@@ -31,6 +31,7 @@ from typing import Any, Callable, Dict, Iterable, Mapping, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..core.timing import StageTimer, TimelineRecorder, fence, to_host
 from .data import H, W, Scene, SceneConfig, generate_scene
@@ -51,6 +52,7 @@ __all__ = [
     "run_lane_static",
     "preprocess",
     "preprocess_device",
+    "gather_index",
 ]
 
 
@@ -92,27 +94,47 @@ def preprocess(image: np.ndarray, scale: float = 1.0, pad: bool = True) -> np.nd
     return img.astype(np.float32)
 
 
-def preprocess_device(image: torch.Tensor, scale: float = 1.0, pad: bool = True) -> torch.Tensor:
-    """``preprocess`` as a device computation, stage for stage: the λ
-    gather indices are computed from the input shape exactly as the host
-    version computes them, so the two paths agree numerically.  The std is
-    the population std (``correction=0``), as NumPy's and ``jnp.std`` are."""
+def gather_index(shape: tuple[int, int], scale: float, pad: bool,
+                 device: str | torch.device) -> Optional[tuple[torch.Tensor, torch.Tensor]]:
+    """The λ resize's row and column gather indices for an (H, W) image, on
+    ``device``, computed exactly as ``preprocess`` computes them; ``None`` at
+    λ = 1.  Made once per (shape, scale, pad, device) and kept: a
+    host-to-device copy inside the step would be illegal under CUDA-graph
+    capture."""
+    if scale == 1.0:
+        return None
+    h, w = int(shape[0]), int(shape[1])
+    nh, nw = max(int(h * scale), 8), max(int(w * scale), 8)
+    if not pad:
+        nh, nw = max(nh // 8 * 8, 8), max(nw // 8 * 8, 8)
+    ys = torch.from_numpy((np.arange(nh) * (h / nh)).astype(np.int64)).to(device)
+    xs = torch.from_numpy((np.arange(nw) * (w / nw)).astype(np.int64)).to(device)
+    return ys, xs
+
+
+def preprocess_device(image: torch.Tensor, scale: float = 1.0, pad: bool = True,
+                      index: Optional[tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
+    """``preprocess`` as a device computation, stage for stage, on an
+    (..., H, W, 3) image: leading dims are slots, each resized and
+    standardized on its own (the mean and std are each slot's).  The std is
+    the population std (``correction=0``), as NumPy's and ``jnp.std`` are.
+    ``index`` is ``gather_index`` for this shape, scale and pad, made ahead
+    of time; without it the indices are made here."""
     img = image
     if scale != 1.0:
-        h, w = int(img.shape[0]), int(img.shape[1])
-        nh, nw = max(int(h * scale), 8), max(int(w * scale), 8)
-        if not pad:
-            nh, nw = max(nh // 8 * 8, 8), max(nw // 8 * 8, 8)
-        ys = torch.from_numpy((np.arange(nh) * (h / nh)).astype(np.int64)).to(image.device)
-        xs = torch.from_numpy((np.arange(nw) * (w / nw)).astype(np.int64)).to(image.device)
-        img = img[ys][:, xs]
+        h, w = int(img.shape[-3]), int(img.shape[-2])
+        ys, xs = index if index is not None else gather_index((h, w), scale, pad, image.device)
+        img = img.index_select(-3, ys).index_select(-2, xs)
         if pad:
-            out = torch.zeros(image.shape, dtype=torch.float32, device=image.device)
-            ch, cw = min(h, nh), min(w, nw)
-            out[:ch, :cw] = img[:ch, :cw]
-            img = out
+            # crop/pad back to the model's fixed input: zeros after the
+            # scaled image, as the host version's fresh zero frame
+            ch, cw = min(h, ys.numel()), min(w, xs.numel())
+            img = F.pad(img[..., :ch, :cw, :], (0, 0, 0, w - cw, 0, h - ch))
     img = torch.flip(img, dims=(-1,))
-    img = (img - img.mean()) / (img.std(correction=0) + 1e-6)
+    dims = (-3, -2, -1)
+    mean = img.mean(dims, keepdim=True)
+    std = img.std(dims, correction=0, keepdim=True)
+    img = (img - mean) / (std + 1e-6)
     return img.float()
 
 
@@ -142,7 +164,12 @@ class BuiltPipeline:
     multi-camera engine: it takes the fetched batch outputs plus an
     active-slot mask and returns a per-slot ``FrameOutput`` list (``None``
     for inactive slots).  Factories that cannot vectorize their post stage
-    leave it ``None``."""
+    leave it ``None``.
+
+    ``infer`` takes one image (H, W, 3) or a batch (B, H, W, 3) and returns
+    the same tree with a leading B for a batch: serial and batched serving
+    share one device path.  ``device_step`` is the batched engine's fused
+    step, device pre-processing then ``infer``, over raw frames."""
 
     name: str
     scale: float
@@ -151,6 +178,21 @@ class BuiltPipeline:
     device: torch.device
     pad: bool = True                         # False: truly smaller λ input
     post_batch: Optional[Callable[[Any, np.ndarray], list]] = None
+    # λ gather indices on the device, per raw (H, W): made at build time
+    # for the canonical frame, and once for any other shape
+    _index: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
+
+    def pre_index(self, shape: tuple[int, int]):
+        key = (int(shape[0]), int(shape[1]))
+        if key not in self._index:
+            self._index[key] = gather_index(key, self.scale, self.pad, self.device)
+        return self._index[key]
+
+    def device_step(self, raw: torch.Tensor):
+        """Pre-processing on the device, then inference, over raw frames
+        (B, H, W, 3): the batched engine's step."""
+        index = self.pre_index(raw.shape[-3:-1])
+        return self.infer(preprocess_device(raw, self.scale, self.pad, index))
 
 
 PIPELINES: Dict[str, Callable[..., BuiltPipeline]] = {}
@@ -170,8 +212,10 @@ def build_pipeline(name: str, scale: float = 1.0, generator: Optional[torch.Gene
         raise KeyError(
             f"unknown pipeline {name!r}; registered: {sorted(PIPELINES)}"
         )
-    return PIPELINES[name](scale=scale, generator=generator, pad=pad, device=device,
-                           params=params, **det_kw)
+    built = PIPELINES[name](scale=scale, generator=generator, pad=pad, device=device,
+                            params=params, **det_kw)
+    built.pre_index((H, W))
+    return built
 
 
 def _weights(det, generator, dev: torch.device, params) -> dict:

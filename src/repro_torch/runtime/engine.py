@@ -24,6 +24,7 @@ __all__ = ["ServeConfig", "Engine", "make_serve_step", "make_prefill_step"]
 class ServeConfig:
     batch: int
     context: int
+    temperature: float = 0.0     # 0 = greedy; unused, as in the reference
     warmup_steps: int = 1
 
 

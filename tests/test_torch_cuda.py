@@ -337,3 +337,121 @@ def test_importing_perception_creates_no_cuda_context(dev):
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          env=dict(os.environ, PYTHONPATH=str(repo / "src")), timeout=120)
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+
+
+# --------------------------------------------------------------- batched --
+# The batched engine's step is one CUDA graph per engine (repro_torch.batched):
+# captured once, replayed every tick, never run eagerly on the card.
+
+def _scene_images(n, seed0=60):
+    from repro_torch.perception import SceneConfig, generate_scene
+
+    return [generate_scene(SceneConfig(("city", "road", "residential")[i % 3], seed=seed0 + i),
+                           i + 1).image for i in range(n)]
+
+
+@pytest.mark.cuda
+def test_batched_step_is_captured_once_through_churn(dev, tf32_default):
+    from repro_torch.batched import BatchedPerceptionEngine
+
+    eng = BatchedPerceptionEngine("early_exit", capacity=4, device=dev)
+    img = _scene_images(1)[0]
+    eng.compile()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng.join("a")
+        eng.join("b")
+        eng.tick({"a": img, "b": img})
+        eng.join("c")
+        eng.tick({"a": img, "b": img, "c": img})
+        eng.leave("b")
+        eng.tick({"a": img, "c": img})
+        eng.leave("a")
+        eng.leave("c")
+        eng.join("d")
+        _, outs = eng.tick({"d": img})
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert (eng.trace_count, eng.replay_count, eng.ticks) == (1, 4, 4)
+    assert set(outs) == {"d"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,scale,pad", [("two_stage", 1.0, True), ("one_stage", 0.75, False),
+                                            ("lane_static", 1.0, True)])
+def test_batched_depth_k_is_depth_1_bit_for_bit_on_card(dev, tf32_default, name, scale, pad):
+    from repro_torch.batched import BatchedPerceptionEngine
+
+    frames = _scene_images(12)
+    results = {}
+    for depth in (1, 2, 3):
+        eng = BatchedPerceptionEngine(name, capacity=3, scale=scale, pad=pad, depth=depth,
+                                      device=dev)
+        for s in range(3):
+            eng.join(f"cam{s}")
+        seq = []
+        for t in range(4):
+            _, outs = eng.tick({f"cam{s}": frames[3 * t + s] for s in range(3)})
+            seq += [outs[k] for k in sorted(outs)]
+        for _, outs, _ in eng.flush():
+            seq += [outs[k] for k in sorted(outs)]
+        results[depth] = seq
+        assert eng.trace_count == 1 and eng.replay_count == 4
+    for depth in (2, 3):
+        assert len(results[depth]) == len(results[1]) == 12
+        for a, b in zip(results[depth], results[1]):
+            assert (a.num_objects, a.num_proposals) == (b.num_objects, b.num_proposals)
+            assert np.array_equal(a.boxes, b.boxes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [1, 2])
+def test_staging_ring_is_never_overwritten_early(dev, tf32_default, depth):
+    """2 x depth submits of distinct frames with no drain in between: the
+    staging ring wraps while its copies may still be pending, and the
+    output ring grows past depth; every drained result must still be its
+    own frame's, as the serial pipeline gives it."""
+    from repro_torch.batched import PipelinedExecutor
+    from repro_torch.perception import build_pipeline, run_frame
+    from repro_torch.perception.data import Scene
+
+    built = build_pipeline("one_stage", device=dev)
+    frames = _scene_images(2 * depth * 2, seed0=80)
+    ex = PipelinedExecutor(built.device_step, 2, frames[0].shape, depth=depth, device=dev)
+    for t in range(2 * depth):
+        ex.submit({0: frames[2 * t], 1: frames[2 * t + 1]}, payload=t)
+    drained = ex.flush()
+    assert [d.payload for d in drained] == list(range(2 * depth))
+    for t, d in enumerate(drained):
+        host = [np.array(a) for a in d.host]
+        for slot in range(2):
+            boxes, _, keep = (a[slot] for a in host)
+            scene = Scene(image=frames[2 * t + slot], boxes=np.zeros((0, 4), np.float32),
+                          lane_pixels=np.zeros((0, 2), np.int64), scenario="city", rain=0.0)
+            _, want = run_frame(built, scene)
+            assert int(keep.sum()) == want.num_objects
+            np.testing.assert_allclose(boxes[keep], want.boxes, atol=1e-3, rtol=0)
+    assert ex.step_captures == 1 and ex.step_replays == 2 * depth
+
+
+@pytest.mark.cuda
+def test_capture_failure_raises_and_runs_nothing_eagerly(dev):
+    """A step with a host-to-device copy from pageable memory inside cannot
+    be captured: the executor raises and never runs the step on its own."""
+    from repro_torch.batched import PipelinedExecutor
+    from repro_torch.batched.executor import WARMUP_RUNS
+
+    calls = []
+
+    def step(raw):
+        calls.append(torch.cuda.is_current_stream_capturing())
+        return raw.sum(dim=(1, 2, 3)) + torch.from_numpy(np.ones(2, np.float32)).to(raw.device)
+
+    ex = PipelinedExecutor(step, 2, (4, 4, 3), device=dev)
+    with pytest.raises(RuntimeError, match="could not be captured"):
+        ex.submit({0: np.ones((4, 4, 3), np.float32)})
+    assert ex.step_captures == 0 and ex.step_replays == 0 and ex.pending == 0
+    # the warm-up runs before the capture, then the capture attempt: no run after
+    assert calls == [False] * WARMUP_RUNS + [True]
+    torch.cuda.synchronize()
+    assert float(torch.ones(2, device=dev).sum()) == 2.0    # the context still works

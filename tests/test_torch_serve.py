@@ -228,6 +228,17 @@ def test_engine_rejects_bad_prompts():
         eng.generate({}, np.zeros((2, 0), np.int32), 1)
 
 
+def test_serve_config_fields_match_the_reference():
+    """Same field names, order and defaults, so a positional third argument
+    means ``temperature`` on both sides (it is unused on both)."""
+    fields = [(f.name, f.default) for f in dataclasses.fields(ServeConfig)]
+    assert fields == [(f.name, f.default) for f in dataclasses.fields(JaxServeConfig)]
+    got, want = ServeConfig(2, 32, 0.0), JaxServeConfig(2, 32, 0.0)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want) == {
+        "batch": 2, "context": 32, "temperature": 0.0, "warmup_steps": 1}
+    assert ServeConfig(batch=2, context=8, temperature=0.7).temperature == 0.7
+
+
 def test_unported_family_raises():
     with pytest.raises(NotImplementedError, match="later slice"):
         Model(get_config("qwen3-4b").replace(family="moe", num_experts=4))
