@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py
 
-Three serving paths at full width, four hand-written kernels, and the
-perception frame path and batched multi-camera perception (which run none
-of them): qwen3-4b
+Three serving paths at full width, four hand-written kernels, the
+perception frame path, batched multi-camera perception and scenario
+replay (which run none of them), and multi-tenant decode serving
+(decode_attention in every shared step): qwen3-4b
 (dense: flash_attention, decode_attention), rwkv6-3b (ssm: rwkv6_wkv) and
 zamba2-2.7b (hybrid: mamba2_ssd, and flash/decode attention at head_dim 80
 in the shared block).  bf16 flash runs the wgmma/TMA kernel, f32 flash the
@@ -89,13 +90,48 @@ Phases (each raises on failure; none is caught):
              step for SCHED_TICKS ticks at depths 1 and 2 (bucket sizes,
              miss rate and quality per group, the floor and top rungs' step
              at capacity 8).  The kernels' launch counters must stay at
-             zero over the phase.
+             zero over the phase;
+7. scenarios — scenario replay (repro_torch.scenarios), which runs none of
+             the four kernels: the two golden episodes (urban_rush_hour,
+             rain_onset_clear) replayed through one scheduler at
+             GOLDEN_CAPACITY on the card and through another on the CPU,
+             with the port's seed-7 weights; the reports must agree on
+             every count, rung histogram, fusion count and modeled latency,
+             mean_quality within QUALITY_TOL; each card episode's tick loop
+             runs under torch.cuda.set_sync_debug_mode("error") and is
+             timed; each rung engine is captured once across both
+             episodes.  Then the obs contract of repro_torch.obs on the
+             card (trace schema, no dropped span, the report byte-identical
+             with tracing on and off, the hardware axis's share of the
+             contention variance), and a one-shard fleet run as
+             launch/serve.py --fleet makes it (FLEET_STREAMS streams,
+             FLEET_TICKS ticks: frames per virtual second, wall seconds).
+             Printed as information: the card reports' violations of
+             tests/golden (those fixtures come from the reference's
+             weights);
+8. multi_tenant — the multi-tenant runtime (repro_torch.runtime): the smoke
+             qwen3-4b and rwkv6-3b engines in f32 on the card against the
+             CPU (one queued workload, AlwaysAdmit: the same tokens, slots
+             and ramp steps per tenant); qwen3-4b at full width in bf16,
+             capacity MT_CAPACITY, context MT_CONTEXT, MT_STREAMS Poisson
+             streams at MT_RATE Hz through the broker (prompt MT_PROMPT,
+             MT_NEW new tokens), AdmissionController and the mean deadline
+             policy, with the launch counters reset just before the drain
+             and read just after: decode_attention must launch steps x 36
+             times and nothing else, the step is built once, and every
+             tenant ends finished or shed; the per-tenant table, step
+             mean, CV and p99, tokens/s and the device's busy share of one
+             step (torch.profiler); then rwkv6-3b at full width, capacity
+             1: a tenant that follows another in the slot generates what
+             it generates in a fresh engine.
 
 The build phase prints each kernel's registers, static shared memory and
 spill bytes from the compiler's -Xptxas -v report, and the scan kernels'
 blocks per SM from the occupancy API.  Prints the card's name
 and power limit, one ``{"kernels": [...]}`` line (each row also names the
-kernel's design), and as the last line ``{"ok": true, "device": {...}}``.
+kernel's design and splits ``launches`` by path: the three archs'
+prefill and Engine.generate, and the multi-tenant drain), and as the last
+line ``{"ok": true, "device": {...}}``.
 Exits non-zero, with no result, when there is no CUDA device or no
 ``src/repro_torch`` beside it.
 """
@@ -300,6 +336,10 @@ def phase_kernels(dev):
         cases += [((B, h, k, d, CONTEXT), w, f)
                   for (h, k, d) in ((H, KV, D), (ZH, ZKV, ZD))
                   for w, f in ((None, CONTEXT), (256, CONTEXT), (None, PROMPT + NEW_TOKENS))]
+        # the multi-tenant drain's shape (phase 8): MT_CAPACITY slots, the
+        # shared positions filled as far as a drain takes them
+        cases += [((MT_CAPACITY, H, KV, D, MT_CONTEXT), None, f)
+                  for f in (MT_PROMPT + MT_NEW, 4 * (MT_PROMPT + MT_NEW), MT_CONTEXT)]
         for (b, h, k, d, c), window, fill in cases:
             q = randn(gen, (b, h, d), dtype, dev)
             kc = randn(gen, (b, c, k, d), dtype, dev)
@@ -595,9 +635,10 @@ def time_flash(K, R, gen, dev, h, kv, d):
     return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by)
 
 
-def time_decode(K, R, gen, dev, h, kv, d):
+def time_decode(K, R, gen, dev, h, kv, d, B=B):
     """Cycles over caches larger than the 50 MB L2 together, as the layers
-    (or sites) of a decode step each read their own cache."""
+    (or sites) of a decode step each read their own cache.  ``B`` is the
+    batch: Engine.generate's, or the multi-tenant engine's capacity."""
     dt = torch.bfloat16
     n_copies = 4
     qd = randn(gen, (B, h, d), dt, dev)
@@ -700,6 +741,7 @@ def phase_times(dev):
            "decode_attention": time_decode(K, R, gen, dev, H, KV, D)}
     time_flash(K, R, gen, dev, ZH, ZKV, ZD)
     time_decode(K, R, gen, dev, ZH, ZKV, ZD)
+    time_decode(K, R, gen, dev, H, KV, D, B=MT_CAPACITY)      # the multi-tenant step's shape
     res.update(time_scans(K, R, gen, dev))
     return res
 
@@ -1215,6 +1257,289 @@ def phase_batched(dev):
         f"{time.perf_counter() - t0:.1f}s")
 
 
+# ---- phase 7: scenario replay (repro_torch.scenarios) and the obs CLI
+GOLDEN_DIR = Path(__file__).resolve().parent / "tests" / "golden"
+FLEET_STREAMS, FLEET_TICKS = 8, 40      # as launch/serve.py --fleet's defaults
+# card against CPU: every count, rung histogram and modeled latency equal,
+# mean_quality within QUALITY_TOL
+REPLAY_TOL = dict(rel=0.0, abs_ms=0.0, rate=0.0, quality=QUALITY_TOL, count_frac=0.0, count_abs=0)
+
+
+class TickLoopGuard:
+    """The replayer's ``sentinel``: wall time of the episode's tick loop
+    alone (the warm-up with its captures happens before it is entered),
+    run under ``torch.cuda.set_sync_debug_mode("error")`` so any implicit
+    host synchronisation in a tick raises."""
+
+    def __init__(self):
+        self.seconds = 0.0
+
+    def __enter__(self):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        self.seconds = time.perf_counter() - self._t0
+        return False
+
+
+def phase_scenarios(dev):
+    """Golden-episode replay on the card against the CPU, one capture per
+    engine across episodes, the obs contract on the card, the card's
+    report against tests/golden, and a one-shard fleet run (module
+    docstring, phase 7)."""
+    import argparse
+
+    from repro_torch import kernels as K
+    from repro_torch.launch.serve import serve_fleet
+    from repro_torch.obs.__main__ import main as obs_main
+    from repro_torch.scenarios import Tolerance, compare_reports, golden_replay
+    from repro_torch.scenarios.golden import GOLDEN_EPISODES, golden_path
+
+    prev_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True        # torch's default, as phases 5 and 6
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        reports, loops, scheds = {}, {}, {}
+        for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+            sched = None
+            for name in GOLDEN_EPISODES:
+                guard = TickLoopGuard() if where == "card" else None
+                rep, sched = golden_replay(name, scheduler=sched, sentinel=guard,
+                                           device=None if sched else d)
+                reports[(where, name)] = rep
+                if guard is not None:
+                    loops[name] = guard.seconds
+            scheds[where] = sched
+        for name in GOLDEN_EPISODES:
+            card, cpu = reports[("card", name)], reports[("cpu", name)]
+            problems = compare_reports(card.to_dict(), cpu.to_dict(), Tolerance(**REPLAY_TOL))
+            if problems:
+                raise AssertionError(f"scenarios: {name} card replay differs from the CPU's: "
+                                     + "; ".join(problems[:5]))
+            dq = max((abs(a - b) for a, b in _quality_pairs(card.to_dict(), cpu.to_dict())),
+                     default=0.0)
+            tot = card.totals()
+            want = json.loads(golden_path(GOLDEN_DIR, name).read_text())
+            n_golden = len(compare_reports(card.to_dict(), want))
+            log(f"[scenarios] {name}: card equals CPU on {tot['frames']} frames "
+                f"({len(card.segments)} segments, rungs {tot['rung_hist']}, misses "
+                f"{tot['misses']}, clock {card.clock_s:.6f} s virtual); max |mean_quality "
+                f"card - cpu| {dq:.3e} (bound {QUALITY_TOL}); tick loop {loops[name]:.3f} s wall "
+                f"for {card.n_ticks} ticks ({loops[name] / card.n_ticks * 1e3:.3f} ms a tick) "
+                f"under set_sync_debug_mode('error'); {n_golden} violation(s) of "
+                f"tests/golden/{name}.json with the port's seed-7 weights (information)")
+        caps = {n: e.executor.step_captures for n, e in scheds["card"].engines.items()}
+        if any(c != 1 for c in caps.values()):
+            raise AssertionError(f"scenarios: the reused scheduler captured again: {caps}")
+        log(f"[scenarios] one scheduler across {len(GOLDEN_EPISODES)} episodes: step_captures "
+            f"per engine {caps}, replays "
+            f"{ {n: e.executor.step_replays for n, e in scheds['card'].engines.items()} }")
+
+        # ---- the obs contract on the card
+        if obs_main(["--episode", "urban_rush_hour", "--device", str(dev)]) != 0:
+            raise AssertionError("scenarios: the obs contract failed on the card")
+
+        # ---- one-shard fleet, as launch/serve.py --fleet runs it
+        doc = serve_fleet(argparse.Namespace(batch=4, streams=FLEET_STREAMS, ticks=FLEET_TICKS,
+                                             obs=False, slo_ms=None, json_out=None,
+                                             trace_out=None, device=str(dev)))
+        if doc["frames"] != FLEET_STREAMS * FLEET_TICKS or any(
+                c > 1 for c in doc["trace_counts"].values()):
+            raise AssertionError(f"fleet: {doc['frames']} frames, captures {doc['trace_counts']}")
+        log(f"[fleet] {FLEET_STREAMS} streams x {FLEET_TICKS} ticks, one shard: "
+            f"{doc['frames_per_vs']:.3f} frames per virtual second, {doc['wall_s']:.3f} s wall "
+            f"({doc['frames'] / doc['wall_s']:.1f} frames per wall second)")
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev_tf32
+        torch.cuda.set_sync_debug_mode("default")
+    counts = K.launch_counts()
+    if any(counts.values()):
+        raise AssertionError(f"scenarios: the replay path launched kernels {counts}")
+    log(f"[scenarios] kernel launch counters over the phase: {counts}; phase "
+        f"{time.perf_counter() - t0:.1f}s")
+
+
+def _quality_pairs(got: dict, want: dict):
+    """(got, want) for every non-null mean_quality leaf of two reports."""
+    if isinstance(want, dict):
+        for k, w in want.items():
+            if k == "mean_quality" and w is not None:
+                yield got[k], w
+            else:
+                yield from _quality_pairs(got[k], w)
+    elif isinstance(want, list):
+        for g, w in zip(got, want):
+            yield from _quality_pairs(g, w)
+
+
+# ---- phase 8: multi-tenant continuous-batching decode (repro_torch.runtime)
+MT_CAPACITY, MT_CONTEXT, MT_STREAMS, MT_RATE = 8, 1024, 16, 100.0
+MT_PROMPT, MT_NEW = 64, 32
+MT_PROFILE_STEPS = 4
+CARVE_PROMPT, CARVE_NEW = 16, 16        # rwkv6-3b slot reuse at capacity 1
+
+
+def _drain_tokens(eng, requests):
+    """Queue every request, then drain: the seating order does not depend
+    on measured latency.  Returns per-tenant (slot, tokens, ramp steps)."""
+    from repro_torch.runtime import RequestQueue
+
+    q = RequestQueue()
+    for r in requests:
+        q.push(r)
+    eng.compile()
+    eng.drain(q)
+    return {t.req.tenant: (t.slot, list(map(int, t.generated)), t.ramp_steps)
+            for t in eng.finished}
+
+
+def _step_busy(eng, model, n_steps):
+    """Device busy share of one shared step at full occupancy
+    (torch.profiler): the engine is seated with long requests, warmed two
+    steps, then ``n_steps`` steps are profiled."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.runtime import StreamRequest
+
+    rng = np.random.default_rng(9)
+    for i in range(eng.n_free):
+        eng.join(StreamRequest(f"busy-{i}", rng.integers(0, model.cfg.vocab_size, 2),
+                               max_new_tokens=10_000))
+    for _ in range(2):
+        eng.step()
+    walls = []
+    for _ in range(n_steps):
+        walls.append(eng.step())
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_steps):
+            eng.step()
+    busy_us = kernels = 0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CPU and _device_us(e) > 0:
+            busy_us += _device_us(e)
+            kernels += e.count
+    busy_ms = busy_us / 1e3 / n_steps
+    wall_ms = statistics.median(walls) * 1e3
+    return busy_ms, wall_ms, kernels / n_steps
+
+
+def phase_multi_tenant(dev):
+    """qwen3-4b multi-tenant serving at full width with its decode_attention
+    launches counted, the rwkv6-3b slot carve-out at full width, and the
+    smoke engines on the card against the CPU (module docstring, phase 8).
+    Returns the decode_attention launches of the main path."""
+    from repro_torch import kernels as K
+    from repro_torch.bus import Broker, CopyTransport, SimClock
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.runtime import (AdmissionController, AlwaysAdmit, MultiTenantConfig,
+                                     MultiTenantEngine, RequestQueue, StreamRequest,
+                                     poisson_workload)
+
+    t0 = time.perf_counter()
+    # ---- smoke, f32: the same queued workload on the card and the CPU
+    for arch in ("qwen3-4b", "rwkv6-3b"):
+        small = Model(get_config(arch, smoke=True))
+        p_cpu = small.init(seed=1, device="cpu")
+        work = poisson_workload(7, MT_RATE, small.cfg.vocab_size, prompt_len=8,
+                                max_new_tokens=12, seed=2)
+        got = {}
+        for where, d, params in (("cpu", torch.device("cpu"), p_cpu),
+                                 ("card", dev, to_device(p_cpu, dev))):
+            eng = MultiTenantEngine(small, params, MultiTenantConfig(3, 64),
+                                    admission=AlwaysAdmit(), device=d)
+            got[where] = _drain_tokens(eng, work)
+        if got["card"] != got["cpu"]:
+            raise AssertionError(f"multi-tenant smoke {arch}: card tokens differ from the CPU's")
+        log(f"[multi_tenant] smoke {arch} f32: {len(got['cpu'])} tenants, capacity 3, the same "
+            f"slots, ramp steps and {sum(len(v[1]) for v in got['cpu'].values())} generated "
+            f"tokens on the card as on the CPU")
+
+    # ---- qwen3-4b at full width, bf16: Poisson arrivals through the broker
+    cfg = get_config("qwen3-4b")
+    model = Model(cfg)
+    params = model.init(seed=0, device=dev)
+    clock = SimClock()
+    broker = Broker(transport=CopyTransport(), seed=0)
+    queue = RequestQueue()
+    broker.subscribe("requests", callback=lambda env: queue.push(env.payload), queue_size=0)
+    for req in poisson_workload(MT_STREAMS, MT_RATE, cfg.vocab_size, prompt_len=MT_PROMPT,
+                                max_new_tokens=MT_NEW, seed=0):
+        broker.publish("requests", req, size_bytes=4 * req.prompt.size, now=req.arrival_s)
+    eng = MultiTenantEngine(model, params, MultiTenantConfig(MT_CAPACITY, MT_CONTEXT),
+                            admission=AdmissionController(confidence=0.95), device=dev)
+    eng.compile()
+    torch.cuda.synchronize()
+    # ---- the main path, with the launch counters read around it
+    K.reset_launch_counts()
+    t1 = time.perf_counter()
+    eng.drain(queue, clock=clock, source=broker)
+    wall = time.perf_counter() - t1
+    counts = K.launch_counts()
+    # ----
+    agg = eng.aggregate_report()
+    want = {name: 0 for name in KERNELS}
+    want["decode_attention"] = agg["steps"] * cfg.num_layers
+    if counts != want:
+        raise AssertionError(f"multi-tenant: launches {counts}, expected {want}")
+    if agg["traces"] != 1:
+        raise AssertionError(f"multi-tenant: the step was built {agg['traces']} times")
+    rows = eng.per_tenant_report()
+    if len(rows) != MT_STREAMS or any(r["status"] not in ("finished", "shed") for r in rows):
+        raise AssertionError(f"multi-tenant: tenants not all finished or shed: {rows}")
+    tokens = sum(r["tokens"] for r in rows)
+    log(f"[multi_tenant] qwen3-4b full width bf16, capacity {MT_CAPACITY}, context {MT_CONTEXT}, "
+        f"{MT_STREAMS} Poisson streams at {MT_RATE:g} Hz (prompt {MT_PROMPT}, {MT_NEW} new "
+        f"tokens), AdmissionController, mean deadline: {agg['steps']} steps, "
+        f"{agg['streams']} served, {agg['shed_streams']} shed, traces {agg['traces']}; "
+        f"launches {counts} = steps x {cfg.num_layers}")
+    log(f"[multi_tenant] step mean {agg['step_mean_s'] * 1e3:.3f} ms cv {agg['step_cv']:.3f} p99 "
+        f"{agg['step_p99_s'] * 1e3:.3f} ms; {tokens} tokens in {wall:.3f} s wall of the drain "
+        f"({tokens / wall:.1f} tokens/s, prompt feeding not counted); {clock.time():.3f} s "
+        f"simulated; jobs {agg['jobs']}, miss rate {agg['miss_rate']:.3f}")
+    log(f"[multi_tenant] {'tenant':>10s} {'status':>9s} {'jobs':>5s} {'mean_ms':>8s} {'cv':>6s} "
+        f"{'p99_ms':>8s} {'miss%':>6s}")
+    for r in rows:
+        log(f"[multi_tenant] {r['tenant']:>10s} {r['status']:>9s} {r['jobs']:>5d} "
+            f"{r['mean_s'] * 1e3:8.3f} {r['cv']:6.3f} {r['p99_s'] * 1e3:8.3f} "
+            f"{r['miss_rate'] * 100:6.2f}")
+    busy_ms, wall_ms, kernels = _step_busy(eng, model, MT_PROFILE_STEPS)
+    log(f"[multi_tenant] one step at {MT_CAPACITY} tenants: device busy {busy_ms:.3f} ms of "
+        f"{wall_ms:.3f} ms wall ({busy_ms / wall_ms:.3f} busy, {1 - busy_ms / wall_ms:.3f} "
+        f"idle), {kernels:.1f} device kernels and copies (torch.profiler)")
+    del eng, params, model
+    torch.cuda.empty_cache()
+
+    # ---- rwkv6-3b at full width, capacity 1: a tenant that follows another
+    # in the slot generates what it generates in a fresh engine
+    model = Model(get_config("rwkv6-3b"))
+    params = model.init(seed=0, device=dev)
+    rng = np.random.default_rng(5)
+    first, second = (StreamRequest(name, rng.integers(0, model.cfg.vocab_size, CARVE_PROMPT),
+                                   max_new_tokens=CARVE_NEW) for name in ("first", "second"))
+    reused = _drain_tokens(MultiTenantEngine(model, params, MultiTenantConfig(1, MT_CONTEXT),
+                                             device=dev), [first, second])["second"]
+    fresh = _drain_tokens(MultiTenantEngine(model, params, MultiTenantConfig(1, MT_CONTEXT),
+                                            device=dev), [second])["second"]
+    if reused != fresh:
+        raise AssertionError(f"multi-tenant rwkv6-3b: slot reuse changed the tokens: "
+                             f"{reused[1]} vs {fresh[1]}")
+    log(f"[multi_tenant] rwkv6-3b full width bf16, capacity 1: the second tenant's "
+        f"{len(fresh[1])} tokens after another tenant in the slot equal a fresh engine's "
+        f"({fresh[1][:8]}...)")
+    del params, model
+    torch.cuda.empty_cache()
+    log(f"[multi_tenant] phase {time.perf_counter() - t0:.1f}s")
+    return counts["decode_attention"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
@@ -1237,10 +1562,12 @@ def main() -> int:
     phase_build()
     errs = phase_kernels(dev)
     launches = dict.fromkeys(KERNELS, 0)
+    by_path = {name: {} for name in KERNELS}
     for arch in PATHS:
         model, params, counts, rep = phase_model(dev, arch)
         for name in KERNELS:
             launches[name] += counts[name]
+            by_path[name][arch] = counts[name]
         pre = prefill_ms(model, params, dev)
         log(f"[times] {arch} Model.prefill {B} x {S_PREFILL} tokens: "
             f"{', '.join(f'{t:.3f}' for t in pre)} ms")
@@ -1249,6 +1576,11 @@ def main() -> int:
         torch.cuda.empty_cache()
     phase_perception(dev)
     phase_batched(dev)
+    phase_scenarios(dev)
+    mt_decode = phase_multi_tenant(dev)
+    launches["decode_attention"] += mt_decode
+    for name in KERNELS:
+        by_path[name]["multi_tenant"] = mt_decode if name == "decode_attention" else 0
     times = phase_times(dev)
 
     rows = []
@@ -1260,7 +1592,7 @@ def main() -> int:
                      "launches": launches[name], "max_abs_err": errs[name],
                      "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-                     "design": DESIGNS[name]})
+                     "design": DESIGNS[name], "launches_by_path": by_path[name]})
     if any(not math.isfinite(r["ms"]) for r in rows):
         raise AssertionError("non-finite kernel time")
     log(f"[done] all phases passed in {time.perf_counter() - t_all:.1f}s")

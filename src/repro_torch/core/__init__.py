@@ -1,7 +1,7 @@
 """Latency statistics, per-stage timing, variance attribution, deadline
 policies and online latency predictors."""
-from .deadline import DeadlinePolicy, KalmanDeadline, MeanDeadline, PercentileDeadline, \
-    WorstObserved
+from .deadline import POLICIES, DeadlinePolicy, DeadlineReport, DynamicDeadline, \
+    KalmanDeadline, MeanDeadline, PercentileDeadline, WorstObserved, evaluate
 from .predictor import FeaturePredictor, GaussianPredictor, KalmanPredictor, Prediction, \
     rolling_eval
 from .stats import LatencySummary, Welford, summarize
@@ -11,6 +11,10 @@ from .variance import VarianceDecomposition, classify, decompose, variance_reduc
 
 __all__ = [
     "DeadlinePolicy",
+    "DeadlineReport",
+    "DynamicDeadline",
+    "POLICIES",
+    "evaluate",
     "KalmanDeadline",
     "MeanDeadline",
     "PercentileDeadline",

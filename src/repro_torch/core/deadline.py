@@ -1,19 +1,28 @@
-"""Deadline policies (paper Insight 4, §III-E).
+"""Deadline policies and their evaluation (paper Insight 4, §III-E).
 
 The paper's observation: real-time schedulers set deadlines from the *worst
 observed* execution time, which wastes enormous reserved budget (LaneNet:
 deadline 340ms while 95% of jobs finish < 160ms).  Mean-based deadlines
-waste less but miss more.  A policy consumes a latency stream online
-(``observe``) and exposes the current ``deadline()``.
+waste less but miss more.  We make deadline selection a first-class policy
+object evaluated on recorded traces, including the two adaptive estimators
+the paper cites: ALERT's Kalman filter [49] and D3's dynamic deadlines [21].
 
-The four policies the serving launcher offers, copied from the reference's
-``repro/core/deadline.py`` (the port imports nothing of the reference);
-``DynamicDeadline`` and the trace evaluator come with a later slice.
+A policy consumes a latency stream online (``observe``) and exposes the
+current ``deadline()``.  ``evaluate`` replays a trace and reports the two
+costs the paper trades off:
+
+* miss rate     — fraction of jobs exceeding the then-current deadline,
+* waste         — mean reserved-but-unused time, E[max(deadline - t, 0)].
+
+Copied from the reference's ``repro/core/deadline.py`` (the port imports
+nothing of the reference).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from collections import deque
+from typing import Iterable, Sequence
 
 import numpy as np
 
@@ -25,6 +34,10 @@ __all__ = [
     "MeanDeadline",
     "PercentileDeadline",
     "KalmanDeadline",
+    "DynamicDeadline",
+    "DeadlineReport",
+    "evaluate",
+    "POLICIES",
 ]
 
 
@@ -147,3 +160,92 @@ class KalmanDeadline(DeadlinePolicy):
     def reset(self) -> None:
         self._x = None
         self._p = 1.0
+
+
+class DynamicDeadline(DeadlinePolicy):
+    """D3 [21] style: the deadline is not a property of the task but of the
+    *situation* — here modeled as an exponentially-weighted recent mean
+    scaled by a criticality factor supplied per-job via ``set_criticality``
+    (1.0 = nominal; <1 tightens the deadline when the scene is critical)."""
+
+    name = "dynamic"
+
+    def __init__(self, alpha: float = 0.1, headroom: float = 1.5) -> None:
+        self.alpha = alpha
+        self.headroom = headroom
+        self._ema: float | None = None
+        self._criticality = 1.0
+
+    def set_criticality(self, c: float) -> None:
+        self._criticality = float(c)
+
+    def observe(self, latency: float) -> None:
+        z = float(latency)
+        self._ema = z if self._ema is None else (1 - self.alpha) * self._ema + self.alpha * z
+
+    def deadline(self) -> float:
+        if self._ema is None:
+            return math.inf
+        return self._ema * self.headroom * self._criticality
+
+    def reset(self) -> None:
+        self._ema = None
+        self._criticality = 1.0
+
+
+@dataclasses.dataclass(frozen=True)
+class DeadlineReport:
+    policy: str
+    miss_rate: float
+    mean_waste: float          # E[max(deadline - latency, 0)] over met jobs
+    mean_deadline: float
+    p99_overshoot: float       # p99 of latency - deadline over missed jobs (0 if none)
+
+    def as_row(self) -> dict:
+        return dataclasses.asdict(self)
+
+
+def evaluate(
+    policy: DeadlinePolicy,
+    trace: Sequence[float] | Iterable[float],
+    warmup: int = 8,
+) -> DeadlineReport:
+    """Replay a latency trace through a policy.
+
+    The first ``warmup`` observations seed the policy without being scored
+    (a fresh policy has no basis for a deadline — the paper likewise sets
+    deadlines from prior profiling).
+    """
+    xs = [float(x) for x in trace]
+    misses: list[float] = []
+    wastes: list[float] = []
+    deadlines: list[float] = []
+    for i, x in enumerate(xs):
+        if i >= warmup:
+            d = policy.deadline()
+            deadlines.append(d)
+            if x > d:
+                misses.append(x - d)
+            else:
+                wastes.append(d - x)
+        policy.observe(x)
+    n_scored = max(len(xs) - warmup, 0)
+    return DeadlineReport(
+        policy=policy.name,
+        miss_rate=(len(misses) / n_scored) if n_scored else float("nan"),
+        mean_waste=float(np.mean(wastes)) if wastes else 0.0,
+        mean_deadline=float(np.mean(deadlines)) if deadlines else float("nan"),
+        p99_overshoot=float(np.percentile(misses, 99)) if misses else 0.0,
+    )
+
+
+def POLICIES() -> list[DeadlinePolicy]:
+    """Fresh instances of every built-in policy (benchmark convenience)."""
+    return [
+        WorstObserved(),
+        MeanDeadline(),
+        PercentileDeadline(q=95.0),
+        PercentileDeadline(q=99.0),
+        KalmanDeadline(),
+        DynamicDeadline(),
+    ]

@@ -16,6 +16,8 @@ the value, at most 2**-8 of it (rtol 4e-3).  The scan kernels take and
 return f32 and are held against the step recurrences at the reference
 sweep's 2e-4 (``test_kernels.py:96-180``).  TF32 off.
 """
+import contextlib
+
 import numpy as np
 import pytest
 
@@ -455,3 +457,82 @@ def test_capture_failure_raises_and_runs_nothing_eagerly(dev):
     assert calls == [False] * WARMUP_RUNS + [True]
     torch.cuda.synchronize()
     assert float(torch.ones(2, device=dev).sum()) == 2.0    # the context still works
+
+
+# ------------------------------------------------------- scenario replay --
+# Replay runs the batched perception graphs (none of the kernels above).
+# On the card it is held against its own CPU replay on the same seed-7
+# weights (tests/test_torch_scenarios.py holds the CPU replay against JAX):
+# every count, rung histogram and modeled latency equal, mean_quality
+# within 5e-4 (the bound a 1e-3 px box difference puts on an IoU of boxes
+# 8 px or larger).
+
+def _exact_but_quality():
+    from repro_torch.scenarios import Tolerance
+
+    return Tolerance(rel=0.0, abs_ms=0.0, rate=0.0, quality=5e-4, count_frac=0.0, count_abs=0)
+
+
+@pytest.mark.cuda
+def test_scenario_replay_on_card_equals_cpu(dev, tf32_default):
+    from repro_torch.scenarios import compare_reports, golden_replay
+    from repro_torch.scenarios.golden import GOLDEN_EPISODES
+
+    @contextlib.contextmanager
+    def no_sync():
+        """The tick loop (after the warm-up's captures) under sync checks."""
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    reports, scheds = {}, {}
+    for d in (dev, "cpu"):
+        sched = None
+        for name in GOLDEN_EPISODES:
+            rep, sched = golden_replay(name, scheduler=sched, device=None if sched else d,
+                                       sentinel=no_sync() if d is dev else None)
+            reports[(str(d), name)] = rep.to_dict()
+        scheds[str(d)] = sched
+    for name in GOLDEN_EPISODES:
+        got, want = reports[(str(dev), name)], reports[("cpu", name)]
+        assert compare_reports(got, want, _exact_but_quality()) == []
+        assert got["totals"] == want["totals"] and got["clock_s"] == want["clock_s"]
+    # one capture per rung engine across both episodes
+    assert [e.executor.step_captures for e in scheds[str(dev)].engines.values()] == [1, 1, 1]
+
+
+# ----------------------------------------------------- multi-tenant serving --
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-4b", "rwkv6-3b"])
+def test_multi_tenant_smoke_tokens_on_card_equal_cpu(dev, arch):
+    """The same queued AlwaysAdmit workload, f32 smoke weights: every
+    tenant's generated tokens, slots and ramp steps equal on the card and
+    the CPU; qwen3-4b launches decode_attention once per layer a step."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.runtime import (AlwaysAdmit, MultiTenantConfig, MultiTenantEngine,
+                                     RequestQueue, poisson_workload)
+
+    model = Model(get_config(arch, smoke=True))
+    p_cpu = model.init(seed=1, device="cpu")
+    out = {}
+    for d, params in (("cpu", p_cpu), (dev, _to(p_cpu, dev))):
+        eng = MultiTenantEngine(model, params, MultiTenantConfig(3, 64), admission=AlwaysAdmit(),
+                                device=d)
+        q = RequestQueue()
+        for r in poisson_workload(7, 100.0, model.cfg.vocab_size, prompt_len=8,
+                                  max_new_tokens=12, seed=2):
+            q.push(r)
+        eng.compile()
+        K.reset_launch_counts()
+        steps = eng.drain(q)
+        counts = K.launch_counts()
+        out[str(d)] = (steps, [(t.req.tenant, t.slot, t.generated, t.ramp_steps)
+                               for t in eng.finished])
+        assert eng.trace_count == 1
+    assert out[str(dev)] == out["cpu"]
+    attn = model.n_attn_sites()
+    assert counts["decode_attention"] == out["cpu"][0] * attn
