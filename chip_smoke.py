@@ -3,13 +3,18 @@
 
     python3 chip_smoke.py
 
-Three serving paths at full width, four hand-written kernels, the
+Eight serving paths at full width, four hand-written kernels, the
 perception frame path, batched multi-camera perception and scenario
 replay (which run none of them), and multi-tenant decode serving
 (decode_attention in every shared step): qwen3-4b
-(dense: flash_attention, decode_attention), rwkv6-3b (ssm: rwkv6_wkv) and
+(dense: flash_attention, decode_attention), rwkv6-3b (ssm: rwkv6_wkv),
 zamba2-2.7b (hybrid: mamba2_ssd, and flash/decode attention at head_dim 80
-in the shared block).  bf16 flash runs the wgmma/TMA kernel, f32 flash the
+in the shared block), olmoe-1b-7b (moe, 64 experts top-8: the moe, vlm and
+audio slice's main path), internvl2-1b (vlm: 256 patch embeddings then
+text; head_dim 64, GQA group 7), hubert-xlarge (audio encoder: non-causal
+flash at head_dim 80, no decode), mixtral-8x22b (moe, 8 experts top-2,
+depth cut to 2 of 56 layers; a 4096 window over an 8192 prefill) and
+granite-20b (MQA, group 48); qwen2-7b and yi-6b at smoke size only.  bf16 flash runs the wgmma/TMA kernel, f32 flash the
 FMA kernel; decode is one launch per call; each scan call launches two
 kernels (the shared scores, then the scan) on the tensor cores in split
 TF32, and counts as one call.
@@ -22,7 +27,10 @@ Phases (each raises on failure; none is caught):
              the card.  Attention: the reference's test sweep shapes
              (tests/test_kernels.py, ring-buffer wraparound included) and
              the full-width qwen3-4b (head_dim 128) and zamba2-2.7b
-             (head_dim 80) shapes, at float32 and bfloat16, each held
+             (head_dim 80) shapes, and the new paths' full-width shapes
+             (FLASH_FULL, DECODE_FULL: olmoe, internvl2's group of 7,
+             hubert's non-causal head_dim 80, mixtral's 4096 window over
+             8192, granite's MQA), at float32 and bfloat16, each held
              against its plain version run in float32 on the same inputs
              (tolerances at TOL).  Scans: the reference's sweeps
              (tests/test_kernels.py:96-180, logw = -25 included), ragged
@@ -33,19 +41,32 @@ Phases (each raises on failure; none is caught):
              head_block 8; f32 at the reference's 2e-4, the full-width
              errors printed.  TF32 off (the scans' own split TF32 is
              written in their kernels);
-3. model   — for each arch: the port's CUDA path against its CPU path on
-             the smoke model (f32, 1e-3: cuBLAS and CPU sum in different
-             orders); then the arch's main path at full width in bf16 with
-             seeded random weights: Model.prefill on 4 x 1024 tokens and
-             Engine.generate answering 4 requests (context 1024, prompt 64,
-             32 new tokens), with the kernels' launch counters reset just
-             before and read just after, and each counter held to the
-             launches that path must make (PATHS); then prefill against
-             token-by-token decode on one prompt (128 tokens; 256 for
-             zamba2, whose prefill needs whole 256-row SSD chunks);
-4. times   — per arch: Model.prefill wall time and the device time by
-             kernel for a prefill and for decode steps (torch.profiler)
-             with the device's busy share; each kernel, its plain version
+3. model   — for each arch of PATHS: the port's CUDA path against its CPU
+             path on the smoke model (f32, 1e-3: cuBLAS and CPU sum in
+             different orders); then the arch's main path at full width in
+             bf16 with seeded random weights: Model.prefill on 4 x 1024
+             tokens and Engine.generate answering 4 requests (context 1024,
+             prompt 64, 32 new tokens), with the kernels' launch counters
+             reset just before and read just after, and each counter held
+             to the launches that path must make (PATHS).  The new paths:
+             internvl2-1b prefills 256 patch embeddings (width 1024) and
+             768 tokens and generates text only; hubert-xlarge runs
+             ``forward`` on 4 x 1024 frames (width 512), no decode;
+             mixtral-8x22b (2 layers) prefills 1 x 8192 and granite-20b
+             1 x 1024, each then Engine.generate at batch 1, prompt 4, 4
+             new tokens.  For the MoE archs the full-width prefill's
+             drop_fraction (a forward of the same batch).  Then prefill
+             against token-by-token decode on one prompt (128 tokens; 256
+             for zamba2, whose prefill needs whole 256-row SSD chunks; MoE
+             on a drop-free copy of the config, capacity_factor =
+             num_experts, since a prefill group drops its latest tokens by
+             design and a decode group never does; not the VLM, whose
+             decode is text-only, nor the encoder).  qwen2-7b and yi-6b:
+             the smoke CUDA-against-CPU check only;
+4. times   — per arch: Model.prefill wall time (forward for the encoder)
+             and, for the first four paths, the device time by kernel for a
+             prefill and for decode steps (torch.profiler) with the
+             device's busy share; each kernel, its plain version
              and, for attention, the PyTorch library call
              (scaled_dot_product_attention, with |sdpa - kernel|) at the
              full-width shapes, device time only (calls captured in a CUDA
@@ -129,8 +150,8 @@ The build phase prints each kernel's registers, static shared memory and
 spill bytes from the compiler's -Xptxas -v report, and the scan kernels'
 blocks per SM from the occupancy API.  Prints the card's name
 and power limit, one ``{"kernels": [...]}`` line (each row also names the
-kernel's design and splits ``launches`` by path: the three archs'
-prefill and Engine.generate, and the multi-tenant drain), and as the last
+kernel's design and splits ``launches`` by path: each arch's prefill and
+Engine.generate, and the multi-tenant drain), and as the last
 line ``{"ok": true, "device": {...}}``.
 Exits non-zero, with no result, when there is no CUDA device or no
 ``src/repro_torch`` beside it.
@@ -185,12 +206,43 @@ RWKV_CHUNK, MAMBA_CHUNK, MAMBA_HB = 64, 256, 8
 # Each path's launches: per prefill, and per decode step of Engine.generate
 # (one per layer or per site of the shared attention block), and the
 # length of its prefill-versus-decode check.
+# Keys beside those: the path's shapes where they differ from SHAPE, the
+# VLM's patch count (of the prefill's length), a depth cut (layers), and
+# whether phase_profile traces it.  agree=0 skips the check: the VLM's
+# decode is text-only (its prefill starts with the patches) and the audio
+# encoder has no decode.
+SHAPE = dict(batch=B, seq=S_PREFILL, context=CONTEXT, prompt=PROMPT, new=NEW_TOKENS)
 PATHS = {
     "qwen3-4b": dict(prefill={"flash_attention": 36}, step={"decode_attention": 36}, agree=128),
     "rwkv6-3b": dict(prefill={"rwkv6_wkv": 32}, step={}, agree=128),
     "zamba2-2.7b": dict(prefill={"mamba2_ssd": 54, "flash_attention": 9},
                         step={"decode_attention": 9}, agree=256),
+    # the moe, vlm and audio families (the slice's main path is olmoe-1b-7b)
+    "olmoe-1b-7b": dict(prefill={"flash_attention": 16}, step={"decode_attention": 16},
+                        agree=128),
+    "internvl2-1b": dict(prefill={"flash_attention": 24}, step={"decode_attention": 24},
+                         agree=0, patches=256, profile=False),
+    "hubert-xlarge": dict(prefill={"flash_attention": 48}, step={}, agree=0, profile=False),
+    "mixtral-8x22b": dict(prefill={"flash_attention": 2}, step={"decode_attention": 2},
+                          agree=128, layers=2, batch=1, seq=8192, prompt=4, new=4,
+                          profile=False),
+    "granite-20b": dict(prefill={"flash_attention": 52}, step={"decode_attention": 52},
+                        agree=128, batch=1, prompt=4, new=4, profile=False),
 }
+# archs whose blocks are another path's (qwen3-4b's with qkv_bias): their
+# smoke models only, CUDA path against CPU path
+SMOKE_ONLY = ("qwen2-7b", "yi-6b")
+# the attention kernels at the new paths' full-width shapes:
+# flash (b, s, h, kv, d, causal, window) and decode (b, h, kv, d, cache, window)
+FLASH_FULL = [(B, S_PREFILL, 16, 16, 128, True, None),      # olmoe-1b-7b
+              (B, S_PREFILL, 14, 2, 64, True, None),        # internvl2-1b, G = 7
+              (B, S_PREFILL, 16, 16, 80, False, None),      # hubert-xlarge, non-causal
+              (1, 8192, 48, 8, 128, True, 4096),            # mixtral-8x22b, window 4096
+              (1, S_PREFILL, 48, 1, 128, True, None)]       # granite-20b, MQA
+DECODE_FULL = [(B, 16, 16, 128, CONTEXT, None),             # olmoe-1b-7b
+               (B, 14, 2, 64, CONTEXT, None),               # internvl2-1b, G = 7 (GB 1)
+               (1, 48, 8, 128, CONTEXT, 4096),              # mixtral-8x22b
+               (1, 48, 1, 128, CONTEXT, None)]              # granite-20b, G = 48
 
 
 KERNELS = ("flash_attention", "decode_attention", "rwkv6_wkv", "mamba2_ssd")
@@ -355,6 +407,34 @@ def phase_kernels(dev):
                     f"max |err| {err:.3e}")
                 key = ("decode_attention", dtype)
                 full[key] = max(full.get(key, 0.0), err)
+        # the moe, vlm and audio paths' full-width shapes, with their masks
+        for (b, s, h, k, d, causal, window) in FLASH_FULL:
+            q = randn(gen, (b, s, h, d), dtype, dev)
+            kk = randn(gen, (b, s, k, d), dtype, dev)
+            v = randn(gen, (b, s, k, d), dtype, dev)
+            got = K.flash_attention(q, kk, v, causal=causal, window=window)
+            err = max_err(got, R.flash_attention_ref(*f32(q, kk, v), causal, window), dtype)
+            n += 1
+            log(f"[kernels] flash_attention full width q {tuple(q.shape)} kv {tuple(kk.shape)} "
+                f"{str(dtype)[6:]} causal {causal} window {window}: max |err| {err:.3e}")
+            full[("flash_attention", dtype)] = max(full[("flash_attention", dtype)], err)
+            del q, kk, v, got
+        for (b, h, k, d, c, window) in DECODE_FULL:
+            for fill in (c, PROMPT + NEW_TOKENS):
+                q = randn(gen, (b, h, d), dtype, dev)
+                kc = randn(gen, (b, c, k, d), dtype, dev)
+                vc = randn(gen, (b, c, k, d), dtype, dev)
+                pos = torch.where(torch.arange(c) < fill, torch.arange(c), -1)
+                pos = pos.to(torch.int32).to(dev)
+                npos = torch.tensor(fill - 1, dtype=torch.int32, device=dev)
+                err = max_err(K.decode_attention(q, kc, vc, pos, npos, window=window),
+                              R.decode_attention_ref(*f32(q, kc, vc), pos, npos, window), dtype)
+                n += 1
+                log(f"[kernels] decode_attention full width q {tuple(q.shape)} cache "
+                    f"{tuple(kc.shape)} {str(dtype)[6:]} window {window} fill {fill}: "
+                    f"max |err| {err:.3e}")
+                full[("decode_attention", dtype)] = max(full[("decode_attention", dtype)], err)
+        torch.cuda.empty_cache()
         # ring buffer that has wrapped: slot i < 10 holds position i + c
         c = 64
         q = randn(gen, (1, 2, 16), dtype, dev)
@@ -450,98 +530,186 @@ def expected_counts(arch: str, steps: int) -> dict:
             for name in KERNELS}
 
 
-def phase_model(dev, arch: str):
-    """The smoke model's CUDA path against its CPU path, then the arch's
-    main path at full width with its launches counted, then prefill
-    against token-by-token decode."""
-    from repro_torch import kernels as K
+def path_shape(arch: str) -> dict:
+    """batch, seq (prefill length), context, prompt and new tokens of a path."""
+    return {k: PATHS[arch].get(k, v) for k, v in SHAPE.items()}
+
+
+def make_batch(cfg, b: int, s: int, rng, patches: int = 0) -> dict:
+    """Seeded inputs of the arch's family on the CPU: tokens; for vlm
+    ``patches`` patch embeddings and s - patches tokens; for audio frames."""
+    if cfg.family == "audio":
+        return {"frames": torch.from_numpy(
+            rng.standard_normal((b, s, cfg.frontend_dim)).astype(np.float32))}
+    batch = {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (b, s - patches)).astype(np.int32))}
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.from_numpy(
+            rng.standard_normal((b, patches, cfg.frontend_dim)).astype(np.float32))
+    return batch
+
+
+def run_prefill(model, params, batch: dict) -> torch.Tensor:
+    """The path's prefill: ``Model.prefill``, or the encoder's ``forward``."""
+    if model.cfg.encoder_only:
+        return model.forward(params, batch)[0]
+    return model.prefill(params, batch)
+
+
+def phase_smoke(dev, arch: str):
+    """The smoke model's CUDA path (kernels) against its CPU path (plain
+    versions), which the CPU tests hold against the JAX reference: prefill
+    (forward for the encoder) and 16 decode steps, f32, 1e-3 (cuBLAS and the
+    CPU sum in different orders)."""
     from repro_torch.configs import get_config
     from repro_torch.models import Model
-    from repro_torch.runtime import Engine, ServeConfig
 
-    # small model: the CUDA path (kernels) against the CPU path (plain
-    # versions), which the CPU tests hold against the JAX reference
     small = Model(get_config(arch, smoke=True))
+    cfg = small.cfg
     p_cpu = small.init(seed=1, device="cpu")
     p_gpu = to_device(p_cpu, dev)
-    toks = torch.from_numpy(np.random.default_rng(1).integers(0, 512, (2, 64)))
+    batch = make_batch(cfg, 2, 64, np.random.default_rng(1), cfg.frontend_tokens)
+    toks = batch.get("tokens")
     with torch.inference_mode():
-        want = small.prefill(p_cpu, {"tokens": toks})
-        got = small.prefill(p_gpu, {"tokens": toks.to(dev)}).cpu()
+        want = run_prefill(small, p_cpu, batch)
+        got = run_prefill(small, p_gpu, to_device(batch, dev)).cpu()
         err = (got - want).abs().max().item()
         if not err <= 1e-3:
             raise AssertionError(f"{arch} small model: CUDA prefill vs CPU prefill max |err| "
                                  f"{err:.3e}")
-        st_c = small.init_decode_state(2, 16, device="cpu")
-        st_g = small.init_decode_state(2, 16, device=dev)
-        for t in range(16):
-            lc, st_c = small.decode_step(p_cpu, st_c, toks[:, t])
-            lg, st_g = small.decode_step(p_gpu, st_g, toks[:, t].to(dev))
-        err_d = (lg.cpu() - lc).abs().max().item()
-        if not err_d <= 1e-3:
-            raise AssertionError(f"{arch} small model: CUDA decode vs CPU decode max |err| "
-                                 f"{err_d:.3e}")
-    log(f"[model] smoke {arch} f32, CUDA vs CPU path: prefill max |err| {err:.3e}, "
-        f"16-step decode max |err| {err_d:.3e} (tolerance 1e-3)")
+        msg = f"prefill max |err| {err:.3e}"
+        if cfg.supports_decode:
+            st_c = small.init_decode_state(2, 16, device="cpu")
+            st_g = small.init_decode_state(2, 16, device=dev)
+            for t in range(16):
+                lc, st_c = small.decode_step(p_cpu, st_c, toks[:, t])
+                lg, st_g = small.decode_step(p_gpu, st_g, toks[:, t].to(dev))
+            err_d = (lg.cpu() - lc).abs().max().item()
+            if not err_d <= 1e-3:
+                raise AssertionError(f"{arch} small model: CUDA decode vs CPU decode max |err| "
+                                     f"{err_d:.3e}")
+            msg += f", 16-step decode max |err| {err_d:.3e}"
+    log(f"[model] smoke {arch} f32, CUDA vs CPU path: {msg} (tolerance 1e-3)")
 
+
+def phase_model(dev, arch: str):
+    """The smoke model's CUDA path against its CPU path, then the arch's
+    main path at full width with its launches counted, then prefill
+    against token-by-token decode.  Returns (model, params, counts, the
+    engine's report or None, the prefill batch on the card)."""
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.models.moe import moe_block
+    from repro_torch.models.transformer import _layer
+    from repro_torch.runtime import Engine, ServeConfig
+
+    phase_smoke(dev, arch)
+    path, shp = PATHS[arch], path_shape(arch)
+    b = shp["batch"]
     cfg = get_config(arch)
+    if "layers" in path:
+        cfg = cfg.replace(num_layers=path["layers"])
     model = Model(cfg)
     t0 = time.perf_counter()
     params = model.init(seed=0, device=dev)
     torch.cuda.synchronize()
-    log(f"[model] {cfg.name} full width, bf16: {model.num_params() / 1e9:.3f}B params "
-        f"initialised on the card in {time.perf_counter() - t0:.3f}s")
+    cut = f", depth cut to {cfg.num_layers} layers" if "layers" in path else ""
+    log(f"[model] {cfg.name} full width{cut}, bf16: {model.num_params() / 1e9:.3f}B params "
+        f"initialised on the card in {time.perf_counter() - t0:.3f}s "
+        f"({torch.cuda.memory_allocated() / 1e9:.1f} GB allocated)")
     rng = np.random.default_rng(0)
-    prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S_PREFILL)).astype(np.int32))
+    batch = to_device(make_batch(cfg, b, shp["seq"], rng, path.get("patches", 0)), dev)
+    what = ", ".join(f"{k} {tuple(v.shape)}" for k, v in batch.items())
 
     # ---- the main path, with the launch counters read around it
     K.reset_launch_counts()
     with torch.inference_mode():
         t0 = time.perf_counter()
-        logits = model.prefill(params, {"tokens": prompts.to(dev)})
+        logits = run_prefill(model, params, batch)
         torch.cuda.synchronize()
         t_prefill = time.perf_counter() - t0
     after_prefill = K.launch_counts()
-    engine = Engine(model, ServeConfig(batch=B, context=CONTEXT), device=dev)
-    out, rec = engine.generate(params, prompts[:, :PROMPT].numpy(), max_new_tokens=NEW_TOKENS)
+    out = rec = engine = None
+    steps = 0
+    if cfg.supports_decode:
+        engine = Engine(model, ServeConfig(batch=b, context=shp["context"]), device=dev)
+        prompt = batch["tokens"][:, :shp["prompt"]].cpu().numpy()
+        out, rec = engine.generate(params, prompt, max_new_tokens=shp["new"])
+        steps = shp["prompt"] + shp["new"]
     counts = K.launch_counts()
     # ----
-    if logits.shape != (B, cfg.vocab_size) or not torch.isfinite(logits).all():
+    want_shape = (b, shp["seq"], cfg.vocab_size) if cfg.encoder_only else (b, cfg.vocab_size)
+    if logits.shape != want_shape or not torch.isfinite(logits).all():
         raise AssertionError(f"{arch} prefill logits {tuple(logits.shape)} not finite/shaped")
-    if out.shape != (B, NEW_TOKENS) or out.min() < 0 or out.max() >= cfg.vocab_size:
+    if out is not None and (out.shape != (b, shp["new"]) or out.min() < 0
+                            or out.max() >= cfg.vocab_size):
         raise AssertionError(f"{arch} generated tokens {out.shape} out of range")
-    steps = PROMPT + NEW_TOKENS
     for name, seen, want_counts in (("prefill", after_prefill, expected_counts(arch, 0)),
                                     ("main path", counts, expected_counts(arch, steps))):
         if seen != want_counts:
             raise AssertionError(f"{arch}: launches after the {name} {seen}, expected "
                                  f"{want_counts}")
     log(f"[model] {arch} launches on the main path: {counts} (per prefill "
-        f"{PATHS[arch]['prefill']}; per decode step {PATHS[arch]['step']} over {steps} steps)")
-    log(f"[model] {arch} first prefill ({B} x {S_PREFILL} tokens) {t_prefill * 1e3:.3f} ms; "
-        f"generated {out.shape}, first row {out[0, :8].tolist()}")
-    rep = engine.report()
-    for row in rec.breakdown_table():
-        log(f"[model]   {row['stage']:>16s}: mean {row['mean'] * 1e3:8.3f} ms  cv {row['cv']:.3f}")
-    log(f"[model] {arch} decode step mean {rep['mean_s'] * 1e3:.3f} ms cv {rep['cv']:.3f} p99 "
-        f"{rep['p99_s'] * 1e3:.3f} ms -> {B / rep['mean_s']:.1f} tokens/s (batch {B})")
+        f"{path['prefill']}; per decode step {path['step']} over {steps} steps)")
+    log(f"[model] {arch} first {'forward' if cfg.encoder_only else 'prefill'} ({what}) "
+        f"{t_prefill * 1e3:.3f} ms" + (f"; generated {out.shape}, first row "
+                                       f"{out[0, :8].tolist()}" if out is not None else
+                                       "; encoder-only: no decode"))
+    rep = None
+    if engine is not None:
+        rep = engine.report()
+        for row in rec.breakdown_table():
+            log(f"[model]   {row['stage']:>16s}: mean {row['mean'] * 1e3:8.3f} ms  "
+                f"cv {row['cv']:.3f}")
+        log(f"[model] {arch} decode step mean {rep['mean_s'] * 1e3:.3f} ms cv {rep['cv']:.3f} "
+            f"p99 {rep['p99_s'] * 1e3:.3f} ms -> {b / rep['mean_s']:.1f} tokens/s (batch {b}, "
+            f"context {shp['context']}, {rep['jobs']} scored steps)")
+    if cfg.family == "moe":
+        # the expert load this prefill met: a forward of the same batch
+        with torch.inference_mode():
+            _, aux = model.forward(params, batch)
+        log(f"[model] {arch} full-width prefill ({what}, groups of "
+            f"{cfg.moe_group_size}, capacity factor {cfg.capacity_factor}): drop_fraction "
+            f"{aux['drop_fraction'].item():.6f}, load_balance_loss "
+            f"{aux['load_balance_loss'].item():.6f}, router_z_loss "
+            f"{aux['router_z_loss'].item():.6f} (means over {cfg.num_layers} layers)")
+        # layer 0's router on i.i.d. normal inputs of the same shape: what it
+        # drops when no two tokens of a group are alike
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        x_iid = torch.randn((b, shp["seq"], cfg.d_model), generator=gen, device=dev)
+        with torch.inference_mode():
+            _, aux0 = moe_block(_layer(params["layers"]["moe"], 0), x_iid.to(torch.bfloat16), cfg)
+        log(f"[model] {arch} layer 0 on i.i.d. normal inputs {tuple(x_iid.shape)}: drop_fraction "
+            f"{aux0['drop_fraction'].item():.6f}")
+        del x_iid
 
-    # ---- prefill vs token-by-token decode over one prompt
-    agree_len = PATHS[arch]["agree"]
-    agree = prompts[:, :agree_len].to(dev)
-    with torch.inference_mode():
-        pre = model.prefill(params, {"tokens": agree}).float()
-        state = model.init_decode_state(B, agree_len, device=dev)
-        for t in range(agree_len):
-            dec, state = model.decode_step(params, state, agree[:, t])
-    rel = ((dec - pre).abs().max() / pre.abs().max()).item()
-    same = (dec.argmax(-1) == pre.argmax(-1)).float().mean().item()
-    log(f"[model] {arch} prefill vs {agree_len}-step decode, last position: max |diff| / max "
-        f"|logit| = {rel:.3e} (tolerance 5e-2: bf16 activations rounded in differently shaped "
-        f"products over {cfg.num_layers} layers); argmax agreement {same:.2f}")
-    if not rel <= 5e-2:
-        raise AssertionError(f"{arch}: prefill and decode disagree")
-    return model, params, counts, rep
+    # ---- prefill vs token-by-token decode over one prompt; MoE on a
+    # drop-free copy (capacity_factor = num_experts): a prefill group drops
+    # its latest tokens by design, a decode group never does
+    agree_len = path["agree"]
+    if agree_len:
+        agree_model = model
+        if cfg.family == "moe":
+            agree_model = Model(cfg.replace(capacity_factor=float(cfg.num_experts)))
+        agree = batch["tokens"][:, :agree_len]
+        with torch.inference_mode():
+            pre = agree_model.prefill(params, {"tokens": agree}).float()
+            state = agree_model.init_decode_state(b, agree_len, device=dev)
+            for t in range(agree_len):
+                dec, state = agree_model.decode_step(params, state, agree[:, t])
+        rel = ((dec - pre).abs().max() / pre.abs().max()).item()
+        same = (dec.argmax(-1) == pre.argmax(-1)).float().mean().item()
+        drop_free = " (drop-free capacity)" if agree_model is not model else ""
+        log(f"[model] {arch} prefill vs {agree_len}-step decode{drop_free}, last position: max "
+            f"|diff| / max |logit| = {rel:.3e} (tolerance 5e-2: bf16 activations rounded in "
+            f"differently shaped products over {cfg.num_layers} layers); argmax agreement "
+            f"{same:.2f}")
+        if not rel <= 5e-2:
+            raise AssertionError(f"{arch}: prefill and decode disagree")
+        del state
+    return model, params, counts, rep, batch
 
 
 def _device_us(evt) -> float:
@@ -587,15 +755,14 @@ def phase_profile(model, params, dev, step_s: float, prefill_s: float):
                 log(f"[profile]   {us / 1e3:9.3f} ms  x{count:<5d} {key[:90]}")
 
 
-def prefill_ms(model, params, dev, iters=3):
-    toks = torch.from_numpy(np.random.default_rng(2).integers(
-        0, model.cfg.vocab_size, (B, S_PREFILL)).astype(np.int32)).to(dev)
+def prefill_ms(model, params, batch, iters=3):
+    """Wall ms of ``iters`` prefills (forwards for the encoder) of ``batch``."""
     times = []
     with torch.inference_mode():
         for _ in range(iters):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            model.prefill(params, {"tokens": toks})
+            run_prefill(model, params, batch)
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
     return times
@@ -1564,16 +1731,20 @@ def main() -> int:
     launches = dict.fromkeys(KERNELS, 0)
     by_path = {name: {} for name in KERNELS}
     for arch in PATHS:
-        model, params, counts, rep = phase_model(dev, arch)
+        model, params, counts, rep, batch = phase_model(dev, arch)
         for name in KERNELS:
             launches[name] += counts[name]
             by_path[name][arch] = counts[name]
-        pre = prefill_ms(model, params, dev)
-        log(f"[times] {arch} Model.prefill {B} x {S_PREFILL} tokens: "
-            f"{', '.join(f'{t:.3f}' for t in pre)} ms")
-        phase_profile(model, params, dev, rep["mean_s"], min(pre) / 1e3)
-        del model, params
+        pre = prefill_ms(model, params, batch)
+        what = ", ".join(f"{k} {tuple(v.shape)}" for k, v in batch.items())
+        log(f"[times] {arch} Model.{'forward' if model.cfg.encoder_only else 'prefill'} "
+            f"({what}): {', '.join(f'{t:.3f}' for t in pre)} ms")
+        if PATHS[arch].get("profile", True):
+            phase_profile(model, params, dev, rep["mean_s"], min(pre) / 1e3)
+        del model, params, batch
         torch.cuda.empty_cache()
+    for arch in SMOKE_ONLY:
+        phase_smoke(dev, arch)
     phase_perception(dev)
     phase_batched(dev)
     phase_scenarios(dev)

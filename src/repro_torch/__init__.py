@@ -1,6 +1,7 @@
 """PyTorch/CUDA port of the serving slices of ``repro`` (prefill + decode of
-the dense, RWKV6 and Zamba2-hybrid families), with hand-written Hopper
-kernels for the four kernels on those paths: flash and decode attention,
+every model family: dense, moe, vlm, the audio encoder, RWKV6 and the
+Zamba2 hybrid), with hand-written Hopper kernels for the four kernels on
+those paths: flash and decode attention,
 the RWKV6 WKV scan and the Mamba2 SSD scan; and of the perception path:
 single-stream pipelines and the anytime ladder (``perception``,
 ``anytime``), batched multi-camera serving (``batched``) and the

@@ -1,4 +1,4 @@
-"""Architecture configs + registry (the ported archs only)."""
+"""Architecture configs (one module per arch) + registry."""
 from .base import ModelConfig, reduced_for_smoke
 from .registry import ARCHS, get_config
 

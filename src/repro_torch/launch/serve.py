@@ -7,7 +7,8 @@ Single stream::
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b \
         --batch 4 --context 1024 --prompt-len 64 --tokens 32
 
-(``--arch`` takes every ported arch: qwen3-4b, rwkv6-3b, zamba2-2.7b.)
+(``--arch`` takes every arch of the registry; hubert-xlarge is
+encoder-only and exits before building the model, as in the reference.)
 
 Multi-tenant load generator (``--streams N``): N tenants arrive as a
 Poisson process on the bus broker's simulated clock, are admitted into
@@ -336,6 +337,8 @@ def main(argv=None) -> None:
         ap.error("--anytime needs at least one --degrade-factors entry")
 
     cfg = get_config(args.arch, smoke=args.smoke)
+    if not cfg.supports_decode:
+        raise SystemExit(f"{cfg.name} is encoder-only: no decode step")
     model = Model(cfg)
     params = model.init(seed=0, device=args.device)
     print(f"arch={cfg.name} params={model.num_params()/1e6:.1f}M device={args.device}")

@@ -56,7 +56,10 @@ def _fan_in(shape: tuple[int, ...]) -> int:
 def _init_leaf(spec: ParamSpec, gen: torch.Generator, dtype: torch.dtype,
                device: torch.device) -> torch.Tensor:
     """The reference's distributions (``repro/models/params.py::_init_leaf``);
-    the samples differ, since torch cannot reproduce JAX's threefry."""
+    the samples differ, since torch cannot reproduce JAX's threefry.  A
+    layer-stacked leaf is drawn one layer at a time, so the f32 draw in
+    flight is one layer's (at granite-20b's width the stacked MLP ``up``
+    drawn whole would be a 31 GB f32 temporary beside the weights)."""
     if spec.init == "zeros":
         return torch.zeros(spec.shape, dtype=dtype, device=device)
     if spec.init == "ones":
@@ -67,8 +70,14 @@ def _init_leaf(spec: ParamSpec, gen: torch.Generator, dtype: torch.dtype,
         std = spec.scale / math.sqrt(_fan_in(spec.shape))
     else:
         raise ValueError(f"unknown init {spec.init!r}")
-    x = torch.randn(spec.shape, generator=gen, dtype=torch.float32, device=device)
-    return x.mul_(std).to(dtype)
+    if spec.axes[:1] != ("layer",):
+        x = torch.randn(spec.shape, generator=gen, dtype=torch.float32, device=device)
+        return x.mul_(std).to(dtype)
+    out = torch.empty(spec.shape, dtype=dtype, device=device)
+    for layer in out:
+        x = torch.randn(layer.shape, generator=gen, dtype=torch.float32, device=device)
+        layer.copy_(x.mul_(std))
+    return out
 
 
 def init_params(specs: Mapping[str, Any], gen: torch.Generator,

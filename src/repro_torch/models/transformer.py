@@ -1,6 +1,7 @@
-"""Model stacks of the ported families (``repro/models/transformer.py``):
-dense, ssm (RWKV6) and hybrid (Zamba2), with the reference's functional
-API::
+"""Model stacks of every family (``repro/models/transformer.py``): dense,
+moe, vlm, audio (one transformer layer stack, with the MoE sublayer in
+place of the MLP for moe), ssm (RWKV6) and hybrid (Zamba2), with the
+reference's functional API::
 
     init(seed, device)              → params (nested dict, layer-stacked)
     forward(params, batch)          → (logits, aux)           [prefill]
@@ -12,8 +13,10 @@ The reference's ``lax.scan`` over stacked layer weights is a Python loop
 over the stacked axis.  The hybrid stack is stacked twice, (sites,
 attn_every, ...): each site runs ``attn_every`` Mamba2 layers, then the one
 *shared* transformer block (one set of weights at every site, a KV cache
-per site).  Decode states are updated in place.  MoE, VLM and audio and
-``loss`` come with later slices of the port.
+per site).  Decode states are updated in place.  The VLM prefills
+``[projected patches; text]`` and decodes text only; the audio encoder
+takes frame embeddings plus a sinusoidal table and has no decode step.
+``loss`` comes with the training slice of the port.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ import dataclasses
 from typing import Any, NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from . import layers as L
@@ -33,14 +37,15 @@ from .attention import (
     init_kv_cache,
 )
 from .mamba2 import SSMState, init_ssm_state, mamba2_block, mamba2_decode_step, mamba2_specs
+from .moe import moe_block, moe_specs
 from .params import ParamSpec, count_params, count_params_from_specs, init_params, \
     resolve_dtype, stack_specs
 from .rwkv6 import RWKVState, init_rwkv_state, rwkv6_block, rwkv6_decode_step, rwkv6_specs
 
 __all__ = ["Model", "DecodeState"]
 
-
-PORTED_FAMILIES = ("dense", "ssm", "hybrid")
+# the families whose layers are one attention block and one MLP / MoE
+TRANSFORMER_FAMILIES = ("dense", "moe", "vlm", "audio")
 
 
 class DecodeState(NamedTuple):
@@ -63,12 +68,31 @@ def _decode_window(cfg: ModelConfig, capacity: int) -> Optional[int]:
 
 
 def _dense_layer_specs(cfg: ModelConfig) -> dict:
-    return {
+    specs = {
         "ln1": L.rmsnorm_spec(cfg.d_model),
         "ln2": L.rmsnorm_spec(cfg.d_model),
         "attn": attention_specs(cfg),
-        "mlp": L.mlp_specs(cfg),
     }
+    if cfg.family == "moe":
+        specs["moe"] = moe_specs(cfg)
+    else:
+        specs["mlp"] = L.mlp_specs(cfg)
+    return specs
+
+
+def _ffn(cfg: ModelConfig, lp: dict, h: torch.Tensor) -> tuple[torch.Tensor, dict]:
+    """The layer's second sublayer: the MoE block (with its aux) or the MLP."""
+    if cfg.family == "moe":
+        return moe_block(lp["moe"], h, cfg)
+    return L.mlp(lp["mlp"], h), {}
+
+
+def _sinusoid(s: int, d: int, device: torch.device) -> torch.Tensor:
+    """The audio encoder's f32 position table (S, d): sin then cos."""
+    half = d // 2
+    freqs = 1.0 / (1e4 ** (torch.arange(half, dtype=torch.float32, device=device) / half))
+    ang = torch.arange(s, dtype=torch.float32, device=device)[:, None] * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 def _mamba_layer_specs(cfg: ModelConfig) -> dict:
@@ -86,23 +110,26 @@ def _layer(tree: Any, i: int) -> Any:
 class Model:
     cfg: ModelConfig
 
-    def __post_init__(self) -> None:
-        if self.cfg.family not in PORTED_FAMILIES:
-            raise NotImplementedError(
-                f"{self.cfg.name}: family {self.cfg.family!r} is not ported yet "
-                f"(repro_torch has {', '.join(PORTED_FAMILIES)}; MoE, VLM and audio "
-                "come with later slices)")
-
     # ---------------- specs ----------------
     def specs(self) -> dict:
         cfg = self.cfg
         specs: dict[str, Any] = {
             "final_ln": L.rmsnorm_spec(cfg.d_model),
-            "embed": L.embed_specs(cfg),
             "lm_head": {"table": ParamSpec((cfg.padded_vocab, cfg.d_model),
                                            ("vocab", "embed"), scale=1.0)},
         }
-        if cfg.family == "dense":
+        if cfg.family == "audio":
+            # positions are sinusoidal; HuBERT's conv positional encoding
+            # is part of the stubbed frontend
+            specs["frontend_proj"] = ParamSpec((cfg.frontend_dim, cfg.d_model), (None, "embed"))
+        else:
+            specs["embed"] = L.embed_specs(cfg)
+        if cfg.family == "vlm":
+            specs["projector"] = {
+                "w1": ParamSpec((cfg.frontend_dim, cfg.d_model), (None, "embed")),
+                "w2": ParamSpec((cfg.d_model, cfg.d_model), ("embed", "embed")),
+            }
+        if cfg.family in TRANSFORMER_FAMILIES:
             specs["layers"] = stack_specs(_dense_layer_specs(cfg), cfg.num_layers)
         elif cfg.family == "ssm":
             specs["layers"] = stack_specs(rwkv6_specs(cfg), cfg.num_layers)
@@ -131,6 +158,23 @@ class Model:
         return count_params_from_specs(self.specs())
 
     # ---------------- embedding / head ----------------
+    def _embed_inputs(self, params: dict, batch: dict) -> torch.Tensor:
+        """Hidden states (B, S, d) in the activation dtype: token
+        embeddings; for vlm the projected patch embeddings then the text;
+        for audio the projected frames plus the sinusoidal table."""
+        cfg = self.cfg
+        dtype = resolve_dtype(cfg.dtype)
+        if cfg.family == "audio":
+            x = batch["frames"].to(dtype) @ params["frontend_proj"]
+            return x + _sinusoid(x.shape[1], cfg.d_model, x.device).to(dtype)
+        txt = L.embed(params["embed"], batch["tokens"]).to(dtype)
+        if cfg.family != "vlm":
+            return txt
+        proj = params["projector"]
+        img = batch["patch_embeds"].to(dtype) @ proj["w1"]
+        img = F.gelu(img.float(), approximate="tanh").to(dtype)   # jax.nn.gelu's default
+        return torch.cat([img @ proj["w2"], txt], dim=1)
+
     def _head(self, params: dict, x: torch.Tensor) -> torch.Tensor:
         """Vocab logits (f32, exactly vocab_size columns)."""
         cfg = self.cfg
@@ -139,10 +183,11 @@ class Model:
         return logits[..., : cfg.vocab_size]
 
     # ---------------- forward (prefill) ----------------
-    def _hidden(self, params: dict, batch: dict) -> torch.Tensor:
+    def _hidden(self, params: dict, batch: dict) -> tuple[torch.Tensor, dict]:
+        """Final pre-head hidden states (B, S, d) and the aux dict (for
+        moe, each aux value's mean over the layers)."""
         cfg = self.cfg
-        tokens = batch["tokens"]
-        x = L.embed(params["embed"], tokens).to(resolve_dtype(cfg.dtype))
+        x = self._embed_inputs(params, batch)
         s = x.shape[1]
         positions = torch.arange(s, dtype=torch.int32, device=x.device)
         causal = not cfg.encoder_only
@@ -150,7 +195,7 @@ class Model:
         if cfg.family == "ssm":
             for i in range(cfg.num_layers):
                 x = rwkv6_block(_layer(params["layers"], i), x, cfg)
-            return x
+            return x, {}
         if cfg.family == "hybrid":
             shared = params["shared_attn"]
             for site in range(self.n_attn_sites()):
@@ -163,22 +208,27 @@ class Model:
                 x = x + attention_block(shared["attn"], z, cfg, positions, causal, window)
                 z = L.rmsnorm(shared["ln2"], x, cfg.norm_eps)
                 x = x + L.mlp(shared["mlp"], z)
-            return x
+            return x, {}
+        auxs = []
         for i in range(cfg.num_layers):
             lp = _layer(params["layers"], i)
             h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
             x = x + attention_block(lp["attn"], h, cfg, positions, causal, window)
             h = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
-            x = x + L.mlp(lp["mlp"], h)
-        return x
+            y, aux = _ffn(cfg, lp, h)
+            x = x + y
+            auxs.append(aux)
+        return x, {k: torch.stack([a[k] for a in auxs]).mean() for k in auxs[0]}
 
     def forward(self, params: dict, batch: dict) -> tuple[torch.Tensor, dict]:
-        """Full logits (B, S, vocab_size) and an empty aux dict."""
-        return self._head(params, self._hidden(params, batch)), {}
+        """Full logits (B, S, vocab_size) and the aux dict (empty but for
+        moe: load_balance_loss, router_z_loss, drop_fraction)."""
+        x, aux = self._hidden(params, batch)
+        return self._head(params, x), aux
 
     def prefill(self, params: dict, batch: dict) -> torch.Tensor:
         """Next-token logits for the final position only (B, vocab)."""
-        x = self._hidden(params, batch)
+        x, _ = self._hidden(params, batch)
         return self._head(params, x[:, -1:, :])[:, 0]
 
     # ---------------- decode ----------------
@@ -245,6 +295,6 @@ class Model:
                     lp["attn"], h, cfg, cache.k[i], cache.v[i], cache.positions,
                     cache.next_pos, slot, window)
                 h = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
-                x = x + L.mlp(lp["mlp"], h)
+                x = x + _ffn(cfg, lp, h)[0]
         cache.next_pos.add_(1)
         return self._head(params, x)[:, 0], state

@@ -205,7 +205,9 @@ def test_mamba2_kernel_matches_plain(dev, b, s, h, p, n, chunk):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch,seq", [("qwen3-4b", 64), ("rwkv6-3b", 64), ("zamba2-2.7b", 64)])
+@pytest.mark.parametrize("arch,seq", [("qwen3-4b", 64), ("rwkv6-3b", 64), ("zamba2-2.7b", 64),
+                                      ("olmoe-1b-7b", 64), ("mixtral-8x22b", 64),
+                                      ("granite-20b", 64), ("qwen2-7b", 64), ("yi-6b", 64)])
 def test_model_cuda_path_matches_cpu_path(dev, arch, seq):
     """The small model through the kernels against the same model through
     the plain versions (which tests/test_torch_serve.py and
@@ -536,3 +538,99 @@ def test_multi_tenant_smoke_tokens_on_card_equal_cpu(dev, arch):
     assert out[str(dev)] == out["cpu"]
     attn = model.n_attn_sites()
     assert counts["decode_attention"] == out["cpu"][0] * attn
+
+
+# ------------------------------------------------ moe, vlm and audio paths --
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["internvl2-1b", "hubert-xlarge"])
+def test_frontend_model_cuda_path_matches_cpu_path(dev, arch):
+    """The VLM (patch embeddings, then text) and the audio encoder (frames,
+    non-causal) smoke models through the kernels against the plain
+    versions; 1e-3 as for the token archs."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+
+    model = Model(get_config(arch, smoke=True))
+    cfg = model.cfg
+    p_cpu = model.init(seed=1, device="cpu")
+    rng = np.random.default_rng(2)
+    batch = {}
+    if cfg.family == "audio":
+        batch["frames"] = rng.standard_normal((2, 64, cfg.frontend_dim)).astype(np.float32)
+    else:
+        p = cfg.frontend_tokens
+        batch["tokens"] = rng.integers(0, cfg.vocab_size, (2, 64 - p)).astype(np.int32)
+        batch["patch_embeds"] = rng.standard_normal((2, p, cfg.frontend_dim)).astype(np.float32)
+    batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    with torch.inference_mode():
+        want, _ = model.forward(p_cpu, batch)
+        got, _ = model.forward(_to(p_cpu, dev), _to(batch, dev))
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.cuda
+def test_moe_layer_full_width_on_card_matches_cpu(dev):
+    """One olmoe-1b-7b MoE layer at full width (64 experts top-8, d 2048,
+    d_ff 1024, one group of 512 tokens, capacity 80) in bf16 on the card
+    and on the CPU from the same weights.  Each device rounds a router logit
+    to bf16 once, so the two logits of an expert differ by at most one ulp
+    of the token's largest logit: where a token's 8th and 9th logits differ
+    by more than two such ulps, its experts are equal; a token with equal experts and
+    kept choices has an equal output within 1e-2 of the largest output
+    (bf16 rounding of products summed in different orders)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import moe_block, moe_specs, route
+    from repro_torch.models.params import init_params
+
+    cfg = get_config("olmoe-1b-7b")
+    gen = torch.Generator().manual_seed(0)
+    p_cpu = init_params(moe_specs(cfg), gen, torch.bfloat16, "cpu")
+    x = torch.randn((1, 512, cfg.d_model), generator=gen).to(torch.bfloat16)
+    with torch.inference_mode():
+        want, aux_c = moe_block(p_cpu, x, cfg)
+        got, aux_g = moe_block(_to(p_cpu, dev), x.to(dev), cfg)
+        r_c = route(p_cpu["router"], x, cfg)
+        r_g = route(p_cpu["router"].to(dev), x.to(dev), cfg)
+    k = cfg.num_experts_per_tok
+    srt = r_c.logits.sort(-1, descending=True).values[0]
+    ulp = 2.0 ** (torch.floor(torch.log2(srt.abs().amax(-1))) - 7)
+    clear = (srt[:, k - 1] - srt[:, k]) > 2 * ulp
+    ids_c = r_c.top_ids[0].sort(-1).values
+    ids_g = r_g.top_ids[0].cpu().sort(-1).values
+    same_ids = (ids_c == ids_g).all(-1)
+    assert clear.float().mean() > 0.25
+    assert same_ids[clear].all()
+    same = same_ids & (r_c.keep[0] == r_g.keep[0].cpu()).all(-1) & \
+        (r_c.top_ids[0] == r_g.top_ids[0].cpu()).all(-1)
+    assert same.float().mean() > 0.25
+    err = (got[0].cpu().float() - want[0].float())[same].abs().max().item()
+    assert err <= 1e-2 * want.float().abs().max().item()
+    for name in aux_c:
+        assert torch.isfinite(aux_g[name]).all()
+    assert abs(aux_g["drop_fraction"].item() - aux_c["drop_fraction"].item()) <= 0.01
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,k,d,causal,window", [
+    (4, 1024, 16, 16, 80, False, None),     # hubert-xlarge: non-causal, head_dim 80
+    (1, 8192, 48, 8, 128, True, 4096),      # mixtral-8x22b: a 4096 window over 8192
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_at_new_full_width_shapes(dev, b, s, h, k, d, causal, window, dtype):
+    q, kk, v = _randn(dev, dtype, 8, (b, s, h, d), (b, s, k, d), (b, s, k, d))
+    got = K.flash_attention(q, kk, v, causal=causal, window=window)
+    _close(got, R.flash_attention_ref(*_f32(q, kk, v), causal, window), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fill", [96, 1024])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_kernel_at_internvl2_shape(dev, fill, dtype):
+    """internvl2-1b's decode: 14 query heads over 2 KV heads (a group of 7,
+    so the kernel takes one head a block and reads the cache 7 times)."""
+    b, h, k, d, c = 4, 14, 2, 64, 1024
+    q, kc, vc = _randn(dev, dtype, 9, (b, h, d), (b, c, k, d), (b, c, k, d))
+    pos = torch.where(torch.arange(c) < fill, torch.arange(c), -1).to(torch.int32).to(dev)
+    npos = torch.tensor(fill - 1, dtype=torch.int32, device=dev)
+    _close(K.decode_attention(q, kc, vc, pos, npos),
+           R.decode_attention_ref(*_f32(q, kc, vc), pos, npos), dtype)

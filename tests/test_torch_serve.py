@@ -26,7 +26,7 @@ from repro.models import Model as JaxModel  # noqa: E402
 from repro.models import layers as JL  # noqa: E402
 from repro.runtime import Engine as JaxEngine, ServeConfig as JaxServeConfig  # noqa: E402
 
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import ARCHS, get_config  # noqa: E402
 from repro_torch.kernels import launch_counts  # noqa: E402
 from repro_torch.models import Model, from_numpy  # noqa: E402
 from repro_torch.models import layers as TL  # noqa: E402
@@ -62,10 +62,11 @@ def _tokens(seed, shape, vocab):
 
 
 # ------------------------------------------------------ configs / params ---
-def test_config_matches_reference_field_for_field():
+@pytest.mark.parametrize("arch", list(ARCHS))
+def test_config_matches_reference_field_for_field(arch):
     for smoke in (False, True):
-        assert dataclasses.asdict(get_config("qwen3-4b", smoke=smoke)) == \
-            dataclasses.asdict(jax_get_config("qwen3-4b", smoke=smoke))
+        assert dataclasses.asdict(get_config(arch, smoke=smoke)) == \
+            dataclasses.asdict(jax_get_config(arch, smoke=smoke))
 
 
 def test_specs_and_param_count_match_reference():
@@ -239,9 +240,17 @@ def test_serve_config_fields_match_the_reference():
     assert ServeConfig(batch=2, context=8, temperature=0.7).temperature == 0.7
 
 
-def test_unported_family_raises():
-    with pytest.raises(NotImplementedError, match="later slice"):
-        Model(get_config("qwen3-4b").replace(family="moe", num_experts=4))
+@pytest.mark.parametrize("arch", list(ARCHS))
+def test_every_arch_builds_a_model(arch):
+    cfg = get_config(arch)
+    model = Model(cfg)
+    assert model.cfg is cfg and model.num_params() > 0
+
+
+def test_unknown_family_raises():
+    """As the reference's ``ModelConfig.__post_init__`` does."""
+    with pytest.raises(ValueError, match="unknown family"):
+        get_config("qwen3-4b").replace(family="diffusion")
 
 
 def test_serve_cli_runs_on_cpu(capsys):
