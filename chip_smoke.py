@@ -3,10 +3,12 @@
 
     python3 chip_smoke.py
 
-Eight serving paths at full width, four hand-written kernels, the
-perception frame path, batched multi-camera perception and scenario
-replay (which run none of them), and multi-tenant decode serving
-(decode_attention in every shared step): qwen3-4b
+Eight serving paths at full width, five hand-written kernels (the four
+forwards and the flash attention backward), the perception frame path,
+batched multi-camera perception and scenario replay (which run none of
+them), multi-tenant decode serving (decode_attention in every shared
+step) and training (qwen3-4b at full width and depth: the flash forward
+and backward kernels): qwen3-4b
 (dense: flash_attention, decode_attention), rwkv6-3b (ssm: rwkv6_wkv),
 zamba2-2.7b (hybrid: mamba2_ssd, and flash/decode attention at head_dim 80
 in the shared block), olmoe-1b-7b (moe, 64 experts top-8: the moe, vlm and
@@ -40,7 +42,12 @@ Phases (each raises on failure; none is caught):
              logw = -25, mamba2 at x (4,1024,80,64), N 64, chunk 256,
              head_block 8; f32 at the reference's 2e-4, the full-width
              errors printed.  TF32 off (the scans' own split TF32 is
-             written in their kernels);
+             written in their kernels).  The flash backward kernel
+             (dq, dk, dv) against the f32 formulas of its plain version
+             at TOL, f32 and bf16: FLASH_BWD_SWEEP and the full-width
+             shapes of FLASH_BWD_FULL (qwen3-4b's training shape 2 x 1024,
+             hubert's non-causal head_dim 80, mixtral's 4096 window over
+             8192, internvl2's group of 7);
 3. model   — for each arch of PATHS: the port's CUDA path against its CPU
              path on the smoke model (f32, 1e-3: cuBLAS and CPU sum in
              different orders); then the arch's main path at full width in
@@ -68,15 +75,16 @@ Phases (each raises on failure; none is caught):
              prefill and for decode steps (torch.profiler) with the
              device's busy share; each kernel, its plain version
              and, for attention, the PyTorch library call
-             (scaled_dot_product_attention, with |sdpa - kernel|) at the
-             full-width shapes, device time only (calls captured in a CUDA
+             (scaled_dot_product_attention, with |sdpa - kernel|; for the
+             backward kernel SDPA's backward, timed between CUDA events)
+             at the full-width shapes, device time only (calls captured in a CUDA
              graph, replayed between CUDA events; for attention the median
              of ROUNDS rounds, kernel and SDPA alternating, with the range
              printed; the scans as medians of ROUNDS rounds too); the bound
              from the shapes and the H100's peaks.  No single PyTorch call
              computes either scan, so their library_ms is null;
 5. perception — the perception frame path (repro_torch.perception and
-             repro_torch.anytime), which runs none of the four kernels:
+             repro_torch.anytime), which runs none of the kernels:
              every registered pipeline at lambda = 1 and the five rungs of
              the anytime ladder (unpadded), built on the card and on the
              CPU from the same seed-7 weights, over PERCEPTION_FRAMES frames
@@ -93,7 +101,7 @@ Phases (each raises on failure; none is caught):
              the calibrated ladder held against the CPU's.  The kernels'
              launch counters must stay at zero over the phase;
 6. batched — batched multi-camera perception (repro_torch.batched), which
-             runs none of the four kernels either: at capacity
+             runs none of the kernels either: at capacity
              BATCH_CAPACITY, the five ladder rungs (unpadded) and both lane
              pipelines through the engine on the card (one CUDA graph per
              engine) against the serial run_frame on the card and against
@@ -113,7 +121,7 @@ Phases (each raises on failure; none is caught):
              at capacity 8).  The kernels' launch counters must stay at
              zero over the phase;
 7. scenarios — scenario replay (repro_torch.scenarios), which runs none of
-             the four kernels: the two golden episodes (urban_rush_hour,
+             the kernels: the two golden episodes (urban_rush_hour,
              rain_onset_clear) replayed through one scheduler at
              GOLDEN_CAPACITY on the card and through another on the CPU,
              with the port's seed-7 weights; the reports must agree on
@@ -144,7 +152,20 @@ Phases (each raises on failure; none is caught):
              mean, CV and p99, tokens/s and the device's busy share of one
              step (torch.profiler); then rwkv6-3b at full width, capacity
              1: a tenant that follows another in the slot generates what
-             it generates in a fresh engine.
+             it generates in a fresh engine;
+9. train   — the training path (repro_torch.train, as launch/train.py
+             drives it): qwen3-4b at full width and depth in bf16, remat
+             on, TRAIN_STEPS AdamW steps of TRAIN_B x TRAIN_S tokens through
+             Trainer.fit, with the launch counters reset just before fit
+             and read just after: flash_attention 2 x 36 and
+             flash_attention_bwd 36 a step, nothing else; the first step's
+             loss against a no-grad Model.loss of the same batch, every
+             loss finite and the last below the first; step mean, CV, p99,
+             tokens/s, the device's busy share of one step
+             (torch.profiler), peak memory; then on smoke models a
+             checkpoint round trip on the card and rwkv6-3b and
+             zamba2-2.7b raising NotImplementedError under grad (their
+             scans have no backward kernel yet) without a launch.
 
 The build phase prints each kernel's registers, static shared memory and
 spill bytes from the compiler's -Xptxas -v report, and the scan kernels'
@@ -152,7 +173,7 @@ blocks per SM from the occupancy API.  Prints the card's name
 and power limit, one ``{"kernels": [...]}`` line (each row also names the
 kernel's design and splits ``launches`` by path: each arch's prefill and
 Engine.generate, and the multi-tenant drain), and as the last
-line ``{"ok": true, "device": {...}}``.
+line ``{"ok": true, "device": {...}}``.  (Phase 4, times, runs last.)
 Exits non-zero, with no result, when there is no CUDA device or no
 ``src/repro_torch`` beside it.
 """
@@ -244,14 +265,34 @@ DECODE_FULL = [(B, 16, 16, 128, CONTEXT, None),             # olmoe-1b-7b
                (1, 48, 8, 128, CONTEXT, 4096),              # mixtral-8x22b
                (1, 48, 1, 128, CONTEXT, None)]              # granite-20b, G = 48
 
+# the training path (phase 9): qwen3-4b at full width and depth, batch 2 x
+# 1024, TRAIN_STEPS AdamW steps (the CLI's warmup, min(20, steps // 5 + 1))
+TRAIN_ARCH, TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_LR = "qwen3-4b", 2, 1024, 6, 1e-3
+# the flash backward kernel: small shapes (ragged S, every head_dim class,
+# windows with and without causality) and the full-width shapes: the
+# training path's, and the other attention families' (b, s, h, kv, d,
+# causal, window)
+FLASH_BWD_SWEEP = [(1, 128, 4, 4, 32, True, None), (2, 200, 8, 2, 64, True, 96),
+                   (1, 100, 4, 1, 16, False, None), (2, 256, 4, 2, 80, False, 96)]
+FLASH_BWD_FULL = [(TRAIN_B, TRAIN_S, H, KV, D, True, None),   # qwen3-4b training
+                  (B, S_PREFILL, 16, 16, 80, False, None),    # hubert-xlarge, non-causal
+                  (1, 8192, 48, 8, 128, True, 4096),          # mixtral-8x22b, window 4096
+                  (B, S_PREFILL, 14, 2, 64, True, None)]      # internvl2-1b, G = 7
 
-KERNELS = ("flash_attention", "decode_attention", "rwkv6_wkv", "mamba2_ssd")
-SOURCES = {"flash_attention": ("flash_attention.cu", "flash_attention.py:85"),
-           "decode_attention": ("decode_attention.cu", "decode_attention.py:75"),
-           "rwkv6_wkv": ("rwkv6_scan.cu", "rwkv6_scan.py:109"),
-           "mamba2_ssd": ("mamba2_ssd.cu", "mamba2_ssd.py:66")}
+KERNELS = ("flash_attention", "flash_attention_bwd", "decode_attention", "rwkv6_wkv",
+           "mamba2_ssd")
+# each kernel's source, and what it replaces: a TPU kernel, or for the
+# backward the gradient JAX takes of its jnp attention (the TPU package
+# has no Pallas backward)
+SOURCES = {"flash_attention": ("flash_attention.cu", "kernels/flash_attention.py:85"),
+           "flash_attention_bwd": ("flash_attention_bwd.cu", "models/attention.py:100"),
+           "decode_attention": ("decode_attention.cu", "kernels/decode_attention.py:75"),
+           "rwkv6_wkv": ("rwkv6_scan.cu", "kernels/rwkv6_scan.py:109"),
+           "mamba2_ssd": ("mamba2_ssd.cu", "kernels/mamba2_ssd.py:66")}
 # Each kernel's design
 DESIGNS = {"flash_attention": {"bfloat16": "wgmma+tma", "float32": "fma"},
+           "flash_attention_bwd": "f32 fma, three passes (lse+delta, dK/dV per KV tile over "
+                                  "the group, dQ), no atomics",
            "decode_attention": "cp.async ring + cluster merge",
            "rwkv6_wkv": "scores pre-pass + mma.sync split tf32, 16-row sub-blocks, "
                         "cp.async double buffer",
@@ -449,8 +490,50 @@ def phase_kernels(dev):
     log(f"[kernels] {n} comparisons within tolerance (f32 2e-5; bf16 atol 2e-5 rtol 4e-3 "
         f"against the plain version in f32; TF32 off)")
     errs = {name: full[(name, torch.bfloat16)] for name in ("flash_attention", "decode_attention")}
+    errs["flash_attention_bwd"] = phase_bwd_kernel(dev, gen)
     errs.update(phase_scan_kernels(dev, gen))
     return errs
+
+
+def phase_bwd_kernel(dev, gen) -> float:
+    """The flash backward kernel against its plain version (the f32
+    formulas of ref.flash_attention_bwd_ref) on the same inputs: o is the
+    forward kernel's output, dO standard normal; at TOL, as the forward
+    (both compute in f32 from the same inputs; bf16 rounds dq, dk and dv
+    once).  Returns the largest full-width bf16 error."""
+    from repro_torch import kernels as K
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda
+
+    worst, n = 0.0, 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in FLASH_BWD_SWEEP + FLASH_BWD_FULL:
+            b, s, h, k, d, causal, window = shape
+            q, kk, v, do = (randn(gen, shp, dtype, dev)
+                            for shp in ((b, s, h, d), (b, s, k, d), (b, s, k, d), (b, s, h, d)))
+            o = K.flash_attention(q, kk, v, causal=causal, window=window)
+            got = flash_attention_bwd_cuda(q, kk, v, o, do, causal, window)
+            want = R.flash_attention_bwd_ref(*f32(q, kk, v, o, do), causal, window)
+            errs = []
+            for name, g, w in zip(("dq", "dk", "dv"), got, want):
+                try:
+                    errs.append(max_err(g, w, dtype))
+                except AssertionError as e:
+                    raise AssertionError(f"flash_attention_bwd {name} at {shape} "
+                                         f"{str(dtype)[6:]}: {e}") from None
+            n += 1
+            if shape in FLASH_BWD_FULL:
+                log(f"[kernels] flash_attention_bwd full width q {tuple(q.shape)} kv "
+                    f"{tuple(kk.shape)} {str(dtype)[6:]} causal {causal} window {window}: max "
+                    f"|err| dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e}")
+                if dtype == torch.bfloat16:
+                    worst = max(worst, *errs)
+            del q, kk, v, do, o, got, want
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"[kernels] flash_attention_bwd: {n} comparisons of dq, dk and dv within tolerance "
+        f"(against the f32 formulas on the same inputs)")
+    return worst
 
 
 def rwkv6_inputs(gen, shape, decay_strength, dev):
@@ -601,7 +684,7 @@ def phase_model(dev, arch: str):
     from repro_torch.configs import get_config
     from repro_torch.models import Model
     from repro_torch.models.moe import moe_block
-    from repro_torch.models.transformer import _layer
+    from repro_torch.models.transformer import _unstack
     from repro_torch.runtime import Engine, ServeConfig
 
     phase_smoke(dev, arch)
@@ -680,7 +763,8 @@ def phase_model(dev, arch: str):
         gen.manual_seed(0)
         x_iid = torch.randn((b, shp["seq"], cfg.d_model), generator=gen, device=dev)
         with torch.inference_mode():
-            _, aux0 = moe_block(_layer(params["layers"]["moe"], 0), x_iid.to(torch.bfloat16), cfg)
+            layer0 = _unstack(params["layers"]["moe"])[0]
+            _, aux0 = moe_block(layer0, x_iid.to(torch.bfloat16), cfg)
         log(f"[model] {arch} layer 0 on i.i.d. normal inputs {tuple(x_iid.shape)}: drop_fraction "
             f"{aux0['drop_fraction'].item():.6f}")
         del x_iid
@@ -845,6 +929,60 @@ def time_decode(K, R, gen, dev, h, kv, d, B=B):
     return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by)
 
 
+def event_ms(fn, iters: int) -> float:
+    """Mean device milliseconds per call of ``fn`` between CUDA events
+    (after two warm-up calls), for work that is not captured in a graph."""
+    for _ in range(2):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def time_flash_bwd(K, R, gen, dev):
+    """The backward kernel at the training path's shape, against the
+    plain version and the backward of scaled_dot_product_attention (its
+    autograd, timed here only), in alternating rounds between CUDA events
+    (the library's backward is not captured in a graph, so neither is the
+    kernel: three launches against milliseconds of work).  Bound: the five
+    products of the causal half at the bf16 tensor-core rate, against
+    q, k, v, o and dO read once and dq, dk, dv written once."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda
+
+    dt = torch.bfloat16
+    b, s, h, kv, d = TRAIN_B, TRAIN_S, H, KV, D
+    q, do = randn(gen, (b, s, h, d), dt, dev), randn(gen, (b, s, h, d), dt, dev)
+    k, v = randn(gen, (b, s, kv, d), dt, dev), randn(gen, (b, s, kv, d), dt, dev)
+    o = K.flash_attention(q, k, v)
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+    ot = sdpa(qt, kt, vt, is_causal=True)
+    dot = do.transpose(1, 2).contiguous()
+    kernel = lambda: flash_attention_bwd_cuda(q, k, v, o, do, True, None)  # noqa: E731
+    library = lambda: torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True)  # noqa: E731
+    ks, ls = [], []
+    for _ in range(ROUNDS):
+        ks.append(event_ms(kernel, 10))
+        ls.append(event_ms(library, 10))
+    ms, lib = statistics.median(ks), statistics.median(ls)
+    plain = event_ms(lambda: R.flash_attention_bwd_ref(q, k, v, o, do, True, None), 2)
+    lib_err = max((x.transpose(1, 2).float() - y.float()).abs().max().item()
+                  for x, y in zip(library(), kernel()))
+    pairs = s * (s + 1) // 2
+    b_ms, b_by = bound((4 * q.numel() + 4 * k.numel()) * q.element_size(),
+                       5 * 2.0 * b * h * pairs * d, dt)
+    log(f"[times] flash_attention_bwd q {tuple(q.shape)} kv {tuple(k.shape)} bf16 causal: kernel "
+        f"{ms:.4f} ms, plain {plain:.4f} ms, sdpa backward {lib:.4f} ms (|sdpa - kernel| "
+        f"{lib_err:.2e}), bound {b_ms:.4f} ms ({b_by}: {5 * 2.0 * b * h * pairs * d:.3e} FLOP "
+        f"at 989 TFLOP/s); {b_ms / ms:.3f} of bound")
+    log(f"[times]   {ROUNDS} rounds: kernel {spread(ks)}; sdpa backward {spread(ls)}")
+    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by)
+
+
 def kernel_rounds(fn, iters: int) -> list[float]:
     """``ROUNDS`` timings of ``fn`` (one CUDA graph, replayed each round)."""
     graph = capture(fn, iters)
@@ -905,6 +1043,7 @@ def phase_times(dev):
     gen = torch.Generator(device=dev)
     gen.manual_seed(7)
     res = {"flash_attention": time_flash(K, R, gen, dev, H, KV, D),
+           "flash_attention_bwd": time_flash_bwd(K, R, gen, dev),
            "decode_attention": time_decode(K, R, gen, dev, H, KV, D)}
     time_flash(K, R, gen, dev, ZH, ZKV, ZD)
     time_decode(K, R, gen, dev, ZH, ZKV, ZD)
@@ -1116,7 +1255,7 @@ def phase_perception(dev):
     if any(counts.values()):
         raise AssertionError(f"perception: the perception path launched kernels {counts}")
     log(f"[perception] kernel launch counters over the phase: {counts} (the path runs none "
-        f"of the four kernels); phase {time.perf_counter() - t0:.1f}s")
+        f"of the kernels); phase {time.perf_counter() - t0:.1f}s")
 
 
 # ---- phase 6: batched multi-camera perception (repro_torch.batched)
@@ -1707,6 +1846,158 @@ def phase_multi_tenant(dev):
     return counts["decode_attention"]
 
 
+def _train_step_busy(model, params, opt_state, batch, opt_cfg, wall_s: float):
+    """The device's busy share of one train step: its kernels' summed
+    device time (torch.profiler) over the unprofiled step's wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.train import make_train_step
+
+    step = make_train_step(model, opt_cfg)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(params, opt_state, batch)
+        torch.cuda.synchronize()
+    rows = [(e.key, _device_us(e), e.count) for e in prof.key_averages()
+            if e.device_type != DeviceType.CPU and _device_us(e) > 0]
+    rows.sort(key=lambda r: -r[1])
+    busy_ms = sum(r[1] for r in rows) / 1e3
+    log(f"[train] one step under the profiler: device busy {busy_ms:.3f} ms of "
+        f"{wall_s * 1e3:.3f} ms wall ({busy_ms / (wall_s * 1e3):.3f} busy, "
+        f"{1 - busy_ms / (wall_s * 1e3):.3f} idle); {sum(r[2] for r in rows)} kernels")
+    for key, us, count in rows[:10]:
+        log(f"[train]   {us / 1e3:9.3f} ms  x{count:<5d} {key[:90]}")
+    return busy_ms / (wall_s * 1e3)
+
+
+def phase_train(dev, smi: str) -> dict:
+    """The training path (repro_torch.train): TRAIN_ARCH at full width and
+    depth in bf16, Trainer.init and Trainer.fit over synthetic_batches
+    through a PrefetchIterator (the path of launch/train.py), remat on, the
+    kernels' launch counters reset just before fit and read just after:
+    the flash forward 2L a step (the forward and remat's recomputation),
+    the backward kernel L, nothing else.  Checks: the first step's loss
+    against a no-grad Model.loss of the same batch (bf16 band: 4e-3
+    relative), every loss finite and the last below the first.  Prints the
+    step time (mean, CV, p99), tokens/s, the device's busy share of a step,
+    peak memory and the loss per step.  Then on smoke models: a checkpoint
+    round trip on the card (a trained state saved, loaded, equal bit for
+    bit), and the scans' refusal to train on the card (rwkv6-3b and
+    zamba2-2.7b raise NotImplementedError and launch nothing).  Returns the
+    path's launch counts."""
+    import tempfile
+
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.train import (AdamWConfig, DataConfig, PrefetchIterator, TrainConfig,
+                                   Trainer, load_checkpoint, make_batch_np, save_checkpoint,
+                                   synthetic_batches)
+    from repro_torch.train.data import to_device
+    from repro_torch.train.optimizer import _walk
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(TRAIN_ARCH)
+    model = Model(cfg)
+    L = cfg.num_layers
+    opt = AdamWConfig(lr=TRAIN_LR, warmup_steps=min(20, TRAIN_STEPS // 5 + 1),
+                      total_steps=TRAIN_STEPS)
+    trainer = Trainer(model, dev, TrainConfig(opt=opt, log_every=1))
+    params, opt_state = trainer.init(0)
+    torch.cuda.synchronize()
+    log(f"[train] {cfg.name} full width and depth ({L} layers, remat {cfg.remat}, loss_chunk "
+        f"{cfg.loss_chunk}), bf16 weights and f32 AdamW moments: {model.num_params() / 1e9:.3f}B "
+        f"params; {torch.cuda.memory_allocated() / 1e9:.1f} GB allocated after init "
+        f"({time.perf_counter() - t0:.1f}s); card {smi}")
+    data = DataConfig(batch=TRAIN_B, seq_len=TRAIN_S)
+    with torch.no_grad():
+        ref_loss, _ = model.loss(params, to_device(make_batch_np(cfg, data, 0), dev))
+    ref_loss = ref_loss.item()
+
+    losses = []
+    batches = PrefetchIterator(synthetic_batches(cfg, data))
+    # ---- the main path, with the launch counters read around it
+    K.reset_launch_counts()
+    t1 = time.perf_counter()
+    params, opt_state = trainer.fit(params, opt_state, batches, TRAIN_STEPS,
+                                    log=lambda i, m: losses.append(m))
+    fit_s = time.perf_counter() - t1
+    counts = K.launch_counts()
+    # ----
+    peak = torch.cuda.max_memory_allocated()
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(flash_attention=TRAIN_STEPS * 2 * L, flash_attention_bwd=TRAIN_STEPS * L)
+    if counts != want:
+        raise AssertionError(f"train: launches {counts}, expected {want}")
+    loss = [m["loss"] for m in losses]
+    for i, m in enumerate(losses):
+        log(f"[train] step {i} loss={m['loss']:.6f} ce={m['ce']:.6f} lr={m['lr']:.3e} "
+            f"gnorm={m['grad_norm']:.4f}")
+    if not all(math.isfinite(x) for x in loss) or not loss[-1] < loss[0]:
+        raise AssertionError(f"train: losses {loss} not finite or not decreasing")
+    if not abs(loss[0] - ref_loss) <= 4e-3 * abs(ref_loss):
+        raise AssertionError(f"train: first step's loss {loss[0]} vs no-grad Model.loss "
+                             f"{ref_loss}")
+    s = trainer.latency_summary()
+    toks = TRAIN_B * TRAIN_S
+    log(f"[train] launches on the main path over {TRAIN_STEPS} steps: {counts} (a step: "
+        f"flash_attention {2 * L} = forward + remat recompute, flash_attention_bwd {L})")
+    log(f"[train] first step's loss {loss[0]:.6f} vs no-grad Model.loss of the same batch "
+        f"{ref_loss:.6f} (|diff| {abs(loss[0] - ref_loss):.2e}; band 4e-3 relative)")
+    log(f"[train] train_step ({TRAIN_B} x {TRAIN_S} tokens, {s.n} steps after the first): "
+        f"mean {s.mean * 1e3:.3f} ms cv {s.cv:.4f} p99 {s.p99 * 1e3:.3f} ms -> "
+        f"{toks / s.mean:.1f} tokens/s; fit {fit_s:.3f}s; peak memory "
+        f"{peak / 1e9:.3f} GB (torch.cuda.max_memory_allocated); card {smi}")
+    batch = to_device(make_batch_np(cfg, data, TRAIN_STEPS), dev)
+    busy = _train_step_busy(model, params, opt_state, batch, opt, s.mean)
+    del params, opt_state, trainer, batch
+    torch.cuda.empty_cache()
+
+    # ---- smoke: a checkpoint round trip on the card
+    small = Model(get_config(TRAIN_ARCH, smoke=True))
+    tr = Trainer(small, dev, TrainConfig(opt=AdamWConfig(lr=1e-3, warmup_steps=1,
+                                                         total_steps=4)))
+    p_s, o_s = tr.init(1)
+    p_s, o_s = tr.fit(p_s, o_s, synthetic_batches(small.cfg, DataConfig(2, 64)), 2)
+    tree = {"params": p_s, "opt": o_s}
+    with tempfile.TemporaryDirectory() as d:
+        where = save_checkpoint(d, 2, tree)
+        template = {"params": small.init(2, device=dev), "opt": o_s._replace(step=o_s.step * 0)}
+        back = load_checkpoint(d, template)
+    flat = dict(_walk({"params": tree["params"], "mu": o_s.mu, "nu": o_s.nu}))
+    flat_back = dict(_walk({"params": back["params"], "mu": back["opt"].mu,
+                            "nu": back["opt"].nu}))
+    same = all(flat_back[k].device == flat[k].device and torch.equal(flat_back[k], flat[k].detach())
+               for k in flat) and int(back["opt"].step) == 2
+    if not same:
+        raise AssertionError("train: the checkpoint loaded on the card differs from the saved state")
+    log(f"[train] smoke checkpoint round trip on the card: {len(flat)} leaves and the step "
+        f"equal bit for bit ({Path(where).name})")
+
+    # ---- smoke: the scans refuse to train on the card, launching nothing
+    for arch in ("rwkv6-3b", "zamba2-2.7b"):
+        m = Model(get_config(arch, smoke=True))
+        p = m.init(1, device=dev)
+        for _, leaf in _walk(p):
+            leaf.requires_grad_()
+        K.reset_launch_counts()
+        try:
+            m.loss(p, to_device(make_batch_np(m.cfg, DataConfig(2, 64), 0), dev))
+        except NotImplementedError as e:
+            msg = str(e)
+        else:
+            raise AssertionError(f"train: {arch} trained on the card without a scan backward")
+        scans = {k: v for k, v in K.launch_counts().items() if k in ("rwkv6_wkv", "mamba2_ssd")}
+        if any(scans.values()):
+            raise AssertionError(f"train: {arch} launched {scans} before raising")
+        log(f"[train] {arch} smoke under grad on the card raises NotImplementedError "
+            f"({msg[:70]}...); scan launches {scans}")
+    torch.cuda.empty_cache()
+    log(f"[train] phase {time.perf_counter() - t0:.1f}s")
+    return dict(counts=counts, busy=busy, peak_gb=peak / 1e9)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
@@ -1752,6 +2043,10 @@ def main() -> int:
     launches["decode_attention"] += mt_decode
     for name in KERNELS:
         by_path[name]["multi_tenant"] = mt_decode if name == "decode_attention" else 0
+    train = phase_train(dev, smi)
+    for name in KERNELS:
+        launches[name] += train["counts"][name]
+        by_path[name]["train"] = train["counts"][name]
     times = phase_times(dev)
 
     rows = []
@@ -1759,7 +2054,7 @@ def main() -> int:
         t = times[name]
         rows.append({"name": name, "route": "cuda",
                      "source": f"src/repro_torch/kernels/csrc/{source}",
-                     "replaces": f"src/repro/kernels/{replaces}",
+                     "replaces": f"src/repro/{replaces}",
                      "launches": launches[name], "max_abs_err": errs[name],
                      "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"], "library_ms": t["library_ms"],

@@ -2,7 +2,9 @@
 every model family: dense, moe, vlm, the audio encoder, RWKV6 and the
 Zamba2 hybrid), with hand-written Hopper kernels for the four kernels on
 those paths: flash and decode attention,
-the RWKV6 WKV scan and the Mamba2 SSD scan; and of the perception path:
+the RWKV6 WKV scan and the Mamba2 SSD scan; of training (``train``:
+AdamW, the loop, data and checkpoints, with a hand-written backward
+kernel for flash attention); and of the perception path:
 single-stream pipelines and the anytime ladder (``perception``,
 ``anytime``), batched multi-camera serving (``batched``) and the
 observability layer (``obs``).

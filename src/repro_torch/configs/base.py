@@ -8,10 +8,12 @@ ported archs in ``src/repro_torch/configs/<id>.py`` instantiate it with the
 reference's numbers.
 
 Fields that only the reference's JAX execution reads (``attn_impl``,
-``remat``, ``scan_unroll``, ``loss_chunk``, ``causal_chunk_skip``,
-``attn_chunk_*``) are kept for that parity and read by nothing here: the
-port's attention always goes through ``repro_torch.kernels`` (the
-hand-written kernel on a CUDA tensor, its plain version on a CPU tensor).
+``scan_unroll``, ``causal_chunk_skip``, ``attn_chunk_*``) are kept for
+that parity and read by nothing here: the port's attention always goes
+through ``repro_torch.kernels`` (the hand-written kernel on a CUDA tensor,
+its plain version on a CPU tensor).  ``remat`` and ``loss_chunk`` are read
+by ``Model.loss`` (per-layer checkpointing under grad, the cross-entropy's
+sequence chunks).
 """
 from __future__ import annotations
 

@@ -5,6 +5,14 @@ A CUDA tensor launches the hand-written kernel, or the call raises; a CPU
 tensor takes the kernel's plain PyTorch version in ``ref.py``.  There is
 no other switch.  Each kernel wrapper counts its launches, so a run can
 show that its main path went through the kernels.
+
+Gradients: on the CPU every op is its plain version, differentiated by
+autograd.  On a CUDA tensor under grad with an input that requires grad,
+``flash_attention`` applies ``FlashAttention`` (the forward kernel, and the
+backward kernel for its gradient); the three other kernels have no
+backward kernel yet and raise ``NotImplementedError`` there, since their
+ctypes launches would hand autograd an output cut from its inputs.
+Without grad every op makes its plain launch.
 """
 from __future__ import annotations
 
@@ -14,7 +22,7 @@ import torch
 
 from . import ref as _ref
 from .decode_attention import decode_attention_cuda
-from .flash_attention import flash_attention_cuda
+from .flash_attention import FlashAttention, flash_attention_bwd_cuda, flash_attention_cuda
 from .mamba2_ssd import check_mamba2_inputs, mamba2_ssd_cuda
 from .rwkv6_scan import check_rwkv6_inputs, rwkv6_wkv_cuda
 
@@ -23,6 +31,7 @@ __all__ = ["flash_attention", "decode_attention", "rwkv6_wkv", "mamba2_ssd",
 
 _WRAPPERS = {
     "flash_attention": flash_attention_cuda,
+    "flash_attention_bwd": flash_attention_bwd_cuda,
     "decode_attention": decode_attention_cuda,
     "rwkv6_wkv": rwkv6_wkv_cuda,
     "mamba2_ssd": mamba2_ssd_cuda,
@@ -37,11 +46,26 @@ def _on_cuda(t: torch.Tensor) -> bool:
     raise ValueError(f"attention kernels run on cuda or cpu tensors, not {t.device}")
 
 
+def _needs_grad(*ts: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def _no_backward(name: str, *ts: torch.Tensor) -> None:
+    """Raise for a CUDA op under grad whose kernel has no backward yet."""
+    if _needs_grad(*ts):
+        raise NotImplementedError(
+            f"{name} has no backward kernel yet: its gradient on the card waits for "
+            f"ROADMAP.md Queue 1 step 6b (backward kernels for the WKV and SSD scans; "
+            f"decode runs without grad); on the CPU its plain version is differentiable")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True,
                     window: Optional[int] = None) -> torch.Tensor:
     """q (B,S,H,D), k/v (B,S,K,D) → (B,S,H,D) in q's dtype."""
     if _on_cuda(q):
+        if _needs_grad(q, k, v):
+            return FlashAttention.apply(q, k, v, causal, window)
         return flash_attention_cuda(q, k, v, causal=causal, window=window)
     return _ref.flash_attention_ref(q, k, v, causal, window)
 
@@ -52,6 +76,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     """q (B,H,D) over caches (B,C,K,D), masked by ``positions`` (C,) and
     ``next_pos`` () → (B,H,D) in q's dtype."""
     if _on_cuda(q):
+        _no_backward("decode_attention", q, k_cache, v_cache)
         return decode_attention_cuda(q, k_cache, v_cache, positions, next_pos,
                                      window=window)
     return _ref.decode_attention_ref(q, k_cache, v_cache, positions, next_pos, window)
@@ -63,6 +88,7 @@ def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Ten
     (H,K) → y (B,S,H,K) float32.  ``chunk`` is checked on every device."""
     check_rwkv6_inputs(r, k, v, logw, u, chunk)
     if _on_cuda(r):
+        _no_backward("rwkv6_wkv", r, k, v, logw, u)
         return rwkv6_wkv_cuda(r, k, v, logw, u, chunk)
     return _ref.rwkv6_wkv_ref(r, k, v, logw, u)
 
@@ -74,6 +100,7 @@ def mamba2_ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, bmat: torch.T
     D-skip term.  ``chunk`` and ``head_block`` are checked on every device."""
     check_mamba2_inputs(x, dt, a, bmat, cmat, chunk, head_block)
     if _on_cuda(x):
+        _no_backward("mamba2_ssd", x, dt, a, bmat, cmat)
         return mamba2_ssd_cuda(x, dt, a, bmat, cmat, chunk, head_block)
     return _ref.mamba2_ssd_ref(x, dt, a, bmat, cmat)
 

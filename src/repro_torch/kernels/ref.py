@@ -8,6 +8,10 @@ and the output is cast to ``q.dtype``.  (The reference's ``dense_attention``
 instead folds the scale into q in q's dtype and casts the probabilities to
 ``v.dtype``; at bf16 the two differ by rounding, at f32 they agree.)
 
+Attention's gradient: ``flash_attention_bwd_ref`` writes out the softmax
+backward in formulas, the plain version of the backward kernel
+``csrc/flash_attention_bwd.cu``.
+
 Scans: the step-by-step recurrences of the reference's ``rwkv6_wkv_ref``
 (through ``rwkv6_recurrent``) and ``mamba2_ssd_ref``, in float32 from a
 zero state, structurally unlike the chunked kernels they check.
@@ -22,7 +26,8 @@ from typing import Optional
 
 import torch
 
-__all__ = ["NEG_INF", "flash_attention_ref", "decode_attention_ref", "attention_mask",
+__all__ = ["NEG_INF", "flash_attention_ref", "flash_attention_bwd_ref", "decode_attention_ref",
+           "attention_mask",
            "rwkv6_recurrent", "rwkv6_wkv_ref", "mamba2_ssd_ref"]
 
 NEG_INF = -1e30
@@ -62,6 +67,43 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s = q.shape[1]
     pos = torch.arange(s, dtype=torch.int32, device=q.device)
     return _dense(q, k, v, attention_mask(pos, pos, causal, window))
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            o: torch.Tensor, do: torch.Tensor, causal: bool = True,
+                            window: Optional[int] = None
+                            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradient of ``flash_attention_ref`` in formulas, in float32:
+    q (B,S,H,D), k/v (B,S,K,D), the forward's output o and its gradient
+    dO (B,S,H,D) → (dq, dk, dv) in the inputs' dtypes.  With
+    ``P = softmax(mask(Q Kᵀ·scale))``: ``dV = Σ_group Pᵀ dO``,
+    ``dP = dO Vᵀ``, ``dS = P ∘ (dP − rowsum(dO ∘ O))``, ``dQ = dS K·scale``,
+    ``dK = Σ_group dSᵀ Q·scale``.  One KV head's group at a time, so the
+    f32 (B, G, S, S) temporaries are a group's (mixtral's 8192-long
+    prefill would need 13 GB for each of them over all heads)."""
+    b, s, h, d = q.shape
+    kh = k.shape[2]
+    g = h // kh
+    scale = 1.0 / math.sqrt(d)
+    pos = torch.arange(s, dtype=torch.int32, device=q.device)
+    allow = attention_mask(pos, pos, causal, window)
+    dqs, dks, dvs = [], [], []
+    for j in range(kh):
+        heads = slice(j * g, (j + 1) * g)
+        qj, oj, doj = (t[:, :, heads].float() for t in (q, o, do))          # (B,S,G,D)
+        kj, vj = k[:, :, j].float(), v[:, :, j].float()                      # (B,S,D)
+        scores = torch.einsum("bqgd,btd->bgqt", qj, kj) * scale
+        p = torch.softmax(scores.masked_fill(~allow, NEG_INF), dim=-1)
+        dvs.append(torch.einsum("bgqt,bqgd->btd", p, doj))
+        dp = torch.einsum("bqgd,btd->bgqt", doj, vj)
+        delta = (doj * oj).sum(-1).transpose(1, 2)[..., None]               # (B,G,S,1)
+        ds = p * (dp - delta)
+        del scores, p, dp
+        dqs.append(torch.einsum("bgqt,btd->bqgd", ds, kj) * scale)
+        dks.append(torch.einsum("bgqt,bqgd->btd", ds, qj) * scale)
+    dq = torch.cat(dqs, dim=2)
+    dk, dv = torch.stack(dks, dim=2), torch.stack(dvs, dim=2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def decode_attention_ref(q: torch.Tensor,           # (B, H, D)

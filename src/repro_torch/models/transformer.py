@@ -6,6 +6,7 @@ reference's functional API::
     init(seed, device)              → params (nested dict, layer-stacked)
     forward(params, batch)          → (logits, aux)           [prefill]
     prefill(params, batch)          → last-position logits (B, vocab)
+    loss(params, batch)             → (scalar, metrics)        [training]
     init_decode_state(batch, ctx)   → DecodeState
     decode_step(params, state, tok) → (logits, DecodeState)   [serving]
 
@@ -16,7 +17,13 @@ attn_every, ...): each site runs ``attn_every`` Mamba2 layers, then the one
 per site).  Decode states are updated in place.  The VLM prefills
 ``[projected patches; text]`` and decodes text only; the audio encoder
 takes frame embeddings plus a sinusoidal table and has no decode step.
-``loss`` comes with the training slice of the port.
+
+Training: under grad, with ``cfg.remat``, each layer (each site of the
+hybrid) runs under ``torch.utils.checkpoint`` and is recomputed in the
+backward, as the reference wraps its scan bodies in ``jax.checkpoint``; the
+stacked weights are split into layers with one ``unbind`` per leaf, whose
+gradient is one ``stack``.  ``loss`` takes the cross-entropy in sequence
+chunks, each checkpointed, so the (B, S, V) f32 logits are never all live.
 """
 from __future__ import annotations
 
@@ -25,6 +32,7 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from . import layers as L
@@ -99,11 +107,24 @@ def _mamba_layer_specs(cfg: ModelConfig) -> dict:
     return {"ln": L.rmsnorm_spec(cfg.d_model), "mixer": mamba2_specs(cfg)}
 
 
-def _layer(tree: Any, i: int) -> Any:
-    """Layer ``i`` of a layer-stacked param tree (views, no copies)."""
+def _unstack(tree: Any) -> list:
+    """The layers of a layer-stacked param tree (its leaves' first axis),
+    as views.  One ``unbind`` per leaf: its gradient is one ``stack``,
+    where indexing each layer would add a zero-filled stacked gradient per
+    layer."""
     if isinstance(tree, dict):
-        return {k: _layer(v, i) for k, v in tree.items()}
-    return tree[i]
+        per = {k: _unstack(v) for k, v in tree.items()}
+        n = len(next(iter(per.values())))
+        return [{k: per[k][i] for k in per} for i in range(n)]
+    return list(torch.unbind(tree, 0))
+
+
+def _remat(cfg: ModelConfig, fn, *args):
+    """``fn(*args)``, checkpointed (recomputed in the backward) when
+    ``cfg.remat`` and grad is on."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 @dataclasses.dataclass
@@ -193,30 +214,35 @@ class Model:
         causal = not cfg.encoder_only
         window = cfg.effective_window(s)
         if cfg.family == "ssm":
-            for i in range(cfg.num_layers):
-                x = rwkv6_block(_layer(params["layers"], i), x, cfg)
+            for lp in _unstack(params["layers"]):
+                x = _remat(cfg, rwkv6_block, lp, x, cfg)
             return x, {}
         if cfg.family == "hybrid":
             shared = params["shared_attn"]
-            for site in range(self.n_attn_sites()):
-                site_params = _layer(params["layers"], site)
-                for j in range(cfg.attn_every):
-                    lp = _layer(site_params, j)
+
+            def site(site_params: dict, x: torch.Tensor) -> torch.Tensor:
+                for lp in _unstack(site_params):
                     z = L.rmsnorm(lp["ln"], x, cfg.norm_eps)
                     x = x + mamba2_block(lp["mixer"], z, cfg)
                 z = L.rmsnorm(shared["ln"], x, cfg.norm_eps)
                 x = x + attention_block(shared["attn"], z, cfg, positions, causal, window)
                 z = L.rmsnorm(shared["ln2"], x, cfg.norm_eps)
-                x = x + L.mlp(shared["mlp"], z)
+                return x + L.mlp(shared["mlp"], z)
+
+            for site_params in _unstack(params["layers"]):
+                x = _remat(cfg, site, site_params, x)
             return x, {}
-        auxs = []
-        for i in range(cfg.num_layers):
-            lp = _layer(params["layers"], i)
+
+        def layer(lp: dict, x: torch.Tensor) -> tuple[torch.Tensor, dict]:
             h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
             x = x + attention_block(lp["attn"], h, cfg, positions, causal, window)
             h = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
             y, aux = _ffn(cfg, lp, h)
-            x = x + y
+            return x + y, aux
+
+        auxs = []
+        for lp in _unstack(params["layers"]):
+            x, aux = _remat(cfg, layer, lp, x)
             auxs.append(aux)
         return x, {k: torch.stack([a[k] for a in auxs]).mean() for k in auxs[0]}
 
@@ -230,6 +256,70 @@ class Model:
         """Next-token logits for the final position only (B, vocab)."""
         x, _ = self._hidden(params, batch)
         return self._head(params, x[:, -1:, :])[:, 0]
+
+    # ---------------- loss ----------------
+    def _chunk_nll(self, params: dict, h: torch.Tensor, t: torch.Tensor,
+                   m: torch.Tensor) -> torch.Tensor:
+        """Masked NLL summed over one chunk: f32 logits, their logsumexp and
+        the picked logit.  The port's ``_head`` returns exactly vocab_size
+        columns, where the reference's chunked CE keeps the padded width
+        with the padding at -1e9 (``sliced=False``): exp(-1e9 - max) is 0
+        in f32, so those columns add nothing to the logsumexp and the
+        value is the same."""
+        logits = self._head(params, h)
+        lse = torch.logsumexp(logits, dim=-1)
+        picked = logits.gather(-1, t.long()[..., None])[..., 0]
+        return ((lse - picked) * m).sum()
+
+    def _chunked_ce(self, params: dict, hidden: torch.Tensor, targets: torch.Tensor,
+                    mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Cross-entropy over (B, S) targets from (B, S, d) hidden states in
+        sequence chunks of ``cfg.loss_chunk`` (shrunk to a divisor of S, as
+        the reference), each checkpointed under grad, so the full
+        (B, S, V) f32 logits are never live; the masked mean is
+        ``tot / max(cnt, 1)``."""
+        cfg = self.cfg
+        s = hidden.shape[1]
+        chunk = cfg.loss_chunk if cfg.loss_chunk and s > cfg.loss_chunk else s
+        while s % chunk:
+            chunk -= 1
+        if mask is None:
+            mask = torch.ones(targets.shape, dtype=torch.float32, device=targets.device)
+        tot = cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        for i in range(0, s, chunk):
+            args = (params, hidden[:, i:i + chunk], targets[:, i:i + chunk], mask[:, i:i + chunk])
+            if torch.is_grad_enabled():
+                nll = checkpoint(self._chunk_nll, *args, use_reentrant=False)
+            else:
+                nll = self._chunk_nll(*args)
+            tot = tot + nll
+            cnt = cnt + args[3].sum()
+        return tot / torch.clamp(cnt, min=1.0)
+
+    def loss(self, params: dict, batch: dict) -> tuple[torch.Tensor, dict]:
+        """The training loss and its metrics: next-token CE (for vlm over
+        the text positions only; for the encoder over the masked frames,
+        ``labels >= 0``), plus for moe ``0.01·load_balance_loss +
+        1e-3·router_z_loss`` with the aux in the metrics."""
+        cfg = self.cfg
+        hidden, aux = self._hidden(params, batch)
+        if cfg.encoder_only:
+            labels = batch["labels"]                  # (B, S), -1 = unmasked
+            mask = (labels >= 0).float()
+            ce = self._chunked_ce(params, hidden, labels.clamp_min(0), mask)
+        else:
+            tokens = batch["tokens"]
+            if cfg.family == "vlm":
+                # predict text tokens only; hidden covers [img; txt]
+                hidden = hidden[:, batch["patch_embeds"].shape[1]:]
+            ce = self._chunked_ce(params, hidden[:, :-1], tokens[:, 1:])
+        total = ce
+        metrics = {"ce": ce}
+        if "load_balance_loss" in aux:
+            total = total + 0.01 * aux["load_balance_loss"] + 1e-3 * aux["router_z_loss"]
+            metrics.update(aux)
+        metrics["loss"] = total
+        return total, metrics
 
     # ---------------- decode ----------------
     def n_attn_sites(self) -> int:
@@ -263,9 +353,8 @@ class Model:
         x = L.embed(params["embed"], tokens[:, None]).to(resolve_dtype(cfg.dtype))
         if cfg.family == "ssm":
             st = state.rwkv
-            for i in range(cfg.num_layers):
-                x = rwkv6_decode_step(_layer(params["layers"], i), x, cfg,
-                                      st.s[i], st.shift_t[i], st.shift_c[i])
+            for i, lp in enumerate(_unstack(params["layers"])):
+                x = rwkv6_decode_step(lp, x, cfg, st.s[i], st.shift_t[i], st.shift_c[i])
             return self._head(params, x)[:, 0], state
 
         cache = state.kv
@@ -274,10 +363,8 @@ class Model:
         cache.positions.index_copy_(0, slot, cache.next_pos.reshape(1))
         if cfg.family == "hybrid":
             ssm, shared = state.ssm, params["shared_attn"]
-            for site in range(self.n_attn_sites()):
-                site_params = _layer(params["layers"], site)
-                for j in range(cfg.attn_every):
-                    lp = _layer(site_params, j)
+            for site, site_params in enumerate(_unstack(params["layers"])):
+                for j, lp in enumerate(_unstack(site_params)):
                     i = site * cfg.attn_every + j
                     z = L.rmsnorm(lp["ln"], x, cfg.norm_eps)
                     x = x + mamba2_decode_step(lp["mixer"], z, cfg, ssm.h[i], ssm.conv[i])
@@ -288,8 +375,7 @@ class Model:
                 z = L.rmsnorm(shared["ln2"], x, cfg.norm_eps)
                 x = x + L.mlp(shared["mlp"], z)
         else:
-            for i in range(cfg.num_layers):
-                lp = _layer(params["layers"], i)
+            for i, lp in enumerate(_unstack(params["layers"])):
                 h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
                 x = x + decode_attention_block(
                     lp["attn"], h, cfg, cache.k[i], cache.v[i], cache.positions,

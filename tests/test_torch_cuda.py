@@ -634,3 +634,124 @@ def test_decode_kernel_at_internvl2_shape(dev, fill, dtype):
     npos = torch.tensor(fill - 1, dtype=torch.int32, device=dev)
     _close(K.decode_attention(q, kc, vc, pos, npos),
            R.decode_attention_ref(*_f32(q, kc, vc), pos, npos), dtype)
+
+
+# -------------------------------------------------------------- training --
+# The flash backward kernel against its plain version (f32 formulas) on the
+# same inputs: o is the forward kernel's output and dO standard normal, in
+# the working dtype.  Tolerance: the f32 band above (summation order) and,
+# for bf16, the same band plus the one rounding of dq, dk and dv to bf16
+# (TOL, as the forward's: both compute in f32 from the same bf16 inputs).
+FLASH_BWD_SHAPES = [(1, 128, 4, 4, 32, True, None), (2, 200, 8, 2, 64, True, 96),
+                    (1, 100, 4, 1, 16, False, None), (2, 256, 4, 2, 80, False, 96),
+                    (2, 1024, 32, 8, 128, True, None),      # qwen3-4b's training shape
+                    (4, 1024, 16, 16, 80, False, None),     # hubert-xlarge, non-causal
+                    (1, 8192, 48, 8, 128, True, 4096),      # mixtral-8x22b's window
+                    (4, 1024, 14, 2, 64, True, None)]       # internvl2-1b, G = 7
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,k,d,causal,window", FLASH_BWD_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_bwd_kernel_matches_plain(dev, b, s, h, k, d, causal, window, dtype):
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda
+
+    q, kk, v, do = _randn(dev, dtype, 10, (b, s, h, d), (b, s, k, d), (b, s, k, d), (b, s, h, d))
+    o = K.flash_attention(q, kk, v, causal=causal, window=window)
+    n0 = flash_attention_bwd_cuda.launches
+    got = flash_attention_bwd_cuda(q, kk, v, o, do, causal, window)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd_cuda.launches == n0 + 1
+    want = R.flash_attention_bwd_ref(*_f32(q, kk, v, o, do), causal, window)
+    for g, w in zip(got, want):
+        assert g.dtype == q.dtype and g.shape == w.shape
+        _close(g, w, dtype)
+
+
+def _leaves(params):
+    from repro_torch.train.optimizer import _walk
+    return [p for _, p in _walk(params)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-4b", "olmoe-1b-7b", "internvl2-1b", "hubert-xlarge"])
+def test_loss_gradients_on_card_match_cpu(dev, arch):
+    """Model.loss and every gradient leaf of the smoke model (f32) through
+    the kernels (flash forward and backward) against the plain versions on
+    the CPU, which tests/test_torch_train.py holds against JAX.  Loss 1e-5
+    relative; gradients 1e-3 of each leaf's largest magnitude and 1e-3
+    relative (cuBLAS and the CPU sum in different orders, as the prefill's
+    1e-3 above)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.train import DataConfig, make_batch_np
+
+    model = Model(get_config(arch, smoke=True))
+    p_cpu = model.init(seed=1, device="cpu")
+    p_gpu = _to(p_cpu, dev)
+    batch = make_batch_np(model.cfg, DataConfig(2, 64), 0)
+    out = {}
+    for d, params in (("cpu", p_cpu), ("gpu", p_gpu)):
+        leaves = [p.requires_grad_() for p in _leaves(params)]
+        K.reset_launch_counts()
+        loss, _ = model.loss(params, {k: torch.from_numpy(v).to(d if d == "cpu" else dev)
+                                      for k, v in batch.items()})
+        grads = torch.autograd.grad(loss, leaves)
+        out[d] = (loss.item(), [g.cpu() for g in grads], K.launch_counts())
+    assert out["cpu"][2]["flash_attention"] == 0
+    assert out["gpu"][2]["flash_attention"] == out["gpu"][2]["flash_attention_bwd"] \
+        == model.cfg.num_layers
+    np.testing.assert_allclose(out["gpu"][0], out["cpu"][0], rtol=1e-5)
+    for g, w in zip(out["gpu"][1], out["cpu"][1]):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-3,
+                                   atol=1e-3 * max(w.abs().max().item(), 1e-30))
+
+
+@pytest.mark.cuda
+def test_kernels_without_a_backward_raise_under_grad(dev):
+    """On the card the scans and decode attention raise under grad rather
+    than hand autograd an output cut from its inputs; without grad they
+    launch as before."""
+    r, k2, v2, w = (x.requires_grad_() for x in _randn(dev, "float32", 11, *[(1, 64, 2, 16)] * 4))
+    logw = -torch.nn.functional.softplus(w)
+    with pytest.raises(NotImplementedError, match="rwkv6_wkv.*backward"):
+        K.rwkv6_wkv(r, k2, v2, logw, torch.zeros(2, 16, device=dev), chunk=16)
+    x, bm, cm = _randn(dev, "float32", 12, (1, 64, 4, 16), (1, 64, 16), (1, 64, 16))
+    dt = torch.full((1, 64, 4), 0.1, device=dev, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="mamba2_ssd.*backward"):
+        K.mamba2_ssd(x, dt, -torch.ones(4, device=dev), bm, cm, chunk=16, head_block=4)
+    q, kc, vc = _randn(dev, "float32", 13, (2, 4, 32), (2, 64, 2, 32), (2, 64, 2, 32))
+    pos = torch.arange(64, dtype=torch.int32, device=dev)
+    npos = torch.tensor(63, dtype=torch.int32, device=dev)
+    with pytest.raises(NotImplementedError, match="decode_attention.*backward"):
+        K.decode_attention(q.requires_grad_(), kc, vc, pos, npos)
+    with torch.no_grad():
+        K.decode_attention(q, kc, vc, pos, npos)
+        K.rwkv6_wkv(r, k2, v2, logw, torch.zeros(2, 16, device=dev), chunk=16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", [True, False])
+def test_flash_launches_per_train_step(dev, remat):
+    """A train step launches the flash forward L times and, with remat,
+    L more in the recomputation; the backward kernel L times."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.train import AdamWConfig, DataConfig, make_batch_np, make_train_step
+    from repro_torch.train.data import to_device
+    from repro_torch.train.optimizer import adamw_init
+
+    model = Model(get_config("qwen3-4b", smoke=True).replace(num_layers=3, remat=remat))
+    params = model.init(seed=2, device=dev)
+    for p in _leaves(params):
+        p.requires_grad_()
+    step = make_train_step(model, AdamWConfig())
+    batch = to_device(make_batch_np(model.cfg, DataConfig(2, 128), 0), dev)
+    K.reset_launch_counts()
+    _, _, metrics = step(params, adamw_init(params), batch)
+    torch.cuda.synchronize()
+    L = model.cfg.num_layers
+    assert K.launch_counts() == {"flash_attention": (2 if remat else 1) * L,
+                                 "flash_attention_bwd": L, "decode_attention": 0,
+                                 "rwkv6_wkv": 0, "mamba2_ssd": 0}
+    assert torch.isfinite(metrics["loss"])

@@ -22,14 +22,16 @@ jnp = pytest.importorskip("jax.numpy")
 
 from repro.kernels.decode_attention import decode_attention_fwd  # noqa: E402
 from repro.kernels.flash_attention import flash_attention_fwd  # noqa: E402
+from repro.kernels.ref import flash_attention_ref as jax_flash_attention_ref  # noqa: E402
+from repro.models.attention import dense_attention  # noqa: E402
 
 from repro_torch import kernels as K  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import ref as R  # noqa: E402
 from repro_torch.kernels.decode_attention import MAX_SPLITS, decode_attention_cuda, \
     num_splits  # noqa: E402
-from repro_torch.kernels.flash_attention import check_attention_inputs, \
-    flash_attention_cuda  # noqa: E402
+from repro_torch.kernels.flash_attention import FlashAttention, check_attention_inputs, \
+    flash_attention_bwd_cuda, flash_attention_cuda  # noqa: E402
 
 F32 = dict(atol=2e-5, rtol=2e-5)
 BF16 = dict(atol=5e-2, rtol=5e-2)
@@ -114,8 +116,8 @@ def test_cpu_dispatch_counts_no_launch():
     K.reset_launch_counts()
     q, kk, v = _randn(1, (1, 64, 2, 32), (1, 64, 1, 32), (1, 64, 1, 32))
     K.flash_attention(*_t(q, kk, v))
-    assert K.launch_counts() == {"flash_attention": 0, "decode_attention": 0,
-                                 "rwkv6_wkv": 0, "mamba2_ssd": 0}
+    assert K.launch_counts() == {"flash_attention": 0, "flash_attention_bwd": 0,
+                                 "decode_attention": 0, "rwkv6_wkv": 0, "mamba2_ssd": 0}
 
 
 # ------------------------------------------------------ wrapper checks ----
@@ -149,6 +151,12 @@ def test_cuda_wrappers_refuse_cpu_tensors():
                               torch.zeros((), dtype=torch.int32))
 
 
+def test_backward_wrapper_refuses_cpu_tensors():
+    q, kk, v = _t(*_randn(2, (1, 64, 2, 32), (1, 64, 1, 32), (1, 64, 1, 32)))
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_bwd_cuda(q, kk, v, q, q)
+
+
 def test_other_devices_are_refused():
     q = torch.zeros(1, 64, 2, 32, device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
@@ -168,6 +176,88 @@ def test_build_library_name_tracks_sources():
     assert a.parent == _build.BUILD_DIR and a.suffix == ".so" and a != b
     with pytest.raises(KeyError):
         _build.build("no_such_kernel")
+
+
+# ------------------------------------------- attention's gradient (CPU) ----
+# The plain backward (the backward kernel's plain version) in formulas,
+# against autograd of the plain forward and against jax.vjp of the
+# reference's attention, at f32: G = H/K of 1, 4 and 7, head_dims 64, 80
+# and 128, causal, windowed (also without causality) and neither.
+# Tolerance 2e-5 absolute and relative, the forward sweep's: the two sides
+# sum the same products in different orders in f32.
+BWD_SHAPES = [(1, 96, 4, 4, 64), (2, 80, 8, 2, 80), (1, 64, 7, 1, 128), (1, 100, 14, 2, 64)]
+BWD_MASKS = [(True, None), (True, 24), (False, None), (False, 24)]
+
+
+def _bwd_inputs(b, s, h, k, d, seed=11):
+    return _randn(seed, (b, s, h, d), (b, s, k, d), (b, s, k, d), (b, s, h, d))
+
+
+@pytest.mark.parametrize("b,s,h,k,d", BWD_SHAPES)
+@pytest.mark.parametrize("causal,window", BWD_MASKS)
+def test_flash_bwd_ref_matches_autograd(b, s, h, k, d, causal, window):
+    q, kk, v, do = _t(*_bwd_inputs(b, s, h, k, d))
+    q, kk, v = (x.requires_grad_() for x in (q, kk, v))
+    out = R.flash_attention_ref(q, kk, v, causal, window)
+    want = torch.autograd.grad(out, (q, kk, v), do)
+    got = R.flash_attention_bwd_ref(q.detach(), kk.detach(), v.detach(), out.detach(), do,
+                                    causal, window)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), w.numpy(), **F32)
+
+
+@pytest.mark.parametrize("b,s,h,k,d", BWD_SHAPES)
+@pytest.mark.parametrize("causal,window", BWD_MASKS)
+@pytest.mark.parametrize("oracle", ["kernels.ref", "dense_attention"])
+def test_flash_bwd_ref_matches_jax_vjp(b, s, h, k, d, causal, window, oracle):
+    import jax
+
+    q, kk, v, do = _bwd_inputs(b, s, h, k, d)
+    pos = jnp.arange(s, dtype=jnp.int32)
+    fn = {"kernels.ref": lambda q, k, v: jax_flash_attention_ref(q, k, v, causal, window),
+          "dense_attention": lambda q, k, v: dense_attention(q, k, v, pos, pos, causal,
+                                                             window)}[oracle]
+    out, vjp = jax.vjp(fn, jnp.asarray(q), jnp.asarray(kk), jnp.asarray(v))
+    want = vjp(jnp.asarray(do))
+    tq, tk, tv, tdo = _t(q, kk, v, do)
+    got = R.flash_attention_bwd_ref(tq, tk, tv, torch.from_numpy(np.array(out)), tdo,
+                                    causal, window)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **F32)
+
+
+@pytest.mark.parametrize("b,s,h,k,d", BWD_SHAPES[:2])
+@pytest.mark.parametrize("causal,window", BWD_MASKS)
+def test_flash_function_on_cpu_gives_autograd_gradients(b, s, h, k, d, causal, window):
+    """FlashAttention's wiring without a card: on CPU tensors its forward
+    and backward are the plain versions, and its gradients are autograd's
+    of the plain forward, through a loss downstream of the output (whose
+    gradient, w, is standard normal as dO is in the tests above).  No
+    kernel launches."""
+    q, kk, v, w = _t(*_bwd_inputs(b, s, h, k, d, seed=12))
+    leaves = [x.clone().requires_grad_() for x in (q, kk, v)]
+    K.reset_launch_counts()
+    got = torch.autograd.grad((FlashAttention.apply(*leaves, causal, window) * w).sum(), leaves)
+    plain = [x.clone().requires_grad_() for x in (q, kk, v)]
+    want = torch.autograd.grad((R.flash_attention_ref(*plain, causal, window) * w).sum(), plain)
+    for g, wt in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), wt.numpy(), **F32)
+    assert not any(K.launch_counts().values())
+
+
+def test_ops_take_the_plain_differentiable_versions_on_cpu():
+    """On CPU tensors under grad the ops are the plain versions, which
+    autograd differentiates; none raises or launches."""
+    q, kk, v = (x.requires_grad_() for x in _t(*_randn(3, (1, 64, 2, 32), (1, 64, 1, 32),
+                                                      (1, 64, 1, 32))))
+    K.reset_launch_counts()
+    out = K.flash_attention(q, kk, v)
+    assert out.grad_fn is not None and "FlashAttention" not in type(out.grad_fn).__name__
+    r, k2, v2, w = (x.requires_grad_() for x in _t(*_randn(4, *[(1, 16, 2, 8)] * 4)))
+    y = K.rwkv6_wkv(r, k2, v2, -torch.nn.functional.softplus(w), torch.zeros(2, 8), chunk=16)
+    assert y.requires_grad
+    assert not any(K.launch_counts().values())
 
 
 # ---------------------------------------- split-KV decode: the algorithm ----
