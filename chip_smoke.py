@@ -43,11 +43,14 @@ Phases (each raises on failure; none is caught):
              head_block 8; f32 at the reference's 2e-4, the full-width
              errors printed.  TF32 off (the scans' own split TF32 is
              written in their kernels).  The flash backward kernel
-             (dq, dk, dv) against the f32 formulas of its plain version
+             (dq, dk, dv), given the forward's output and rows'
+             log-sum-exp, against the f32 formulas of its plain version
              at TOL, f32 and bf16: FLASH_BWD_SWEEP and the full-width
              shapes of FLASH_BWD_FULL (qwen3-4b's training shape 2 x 1024,
              hubert's non-causal head_dim 80, mixtral's 4096 window over
-             8192, internvl2's group of 7);
+             8192, internvl2's group of 7); at each, the forward's lse
+             against ref.flash_attention_lse_ref and its output with and
+             without the lse buffer, bit for bit;
 3. model   — for each arch of PATHS: the port's CUDA path against its CPU
              path on the smoke model (f32, 1e-3: cuBLAS and CPU sum in
              different orders); then the arch's main path at full width in
@@ -76,7 +79,8 @@ Phases (each raises on failure; none is caught):
              device's busy share; each kernel, its plain version
              and, for attention, the PyTorch library call
              (scaled_dot_product_attention, with |sdpa - kernel|; for the
-             backward kernel SDPA's backward, timed between CUDA events)
+             backward kernel SDPA's backward, timed between CUDA events,
+             and each of its three launches from the profiler)
              at the full-width shapes, device time only (calls captured in a CUDA
              graph, replayed between CUDA events; for attention the median
              of ROUNDS rounds, kernel and SDPA alternating, with the range
@@ -291,8 +295,12 @@ SOURCES = {"flash_attention": ("flash_attention.cu", "kernels/flash_attention.py
            "mamba2_ssd": ("mamba2_ssd.cu", "kernels/mamba2_ssd.py:66")}
 # Each kernel's design
 DESIGNS = {"flash_attention": {"bfloat16": "wgmma+tma", "float32": "fma"},
-           "flash_attention_bwd": "f32 fma, three passes (lse+delta, dK/dV per KV tile over "
-                                  "the group, dQ), no atomics",
+           "flash_attention_bwd": {"bfloat16": "delta pass + wgmma/tma dK/dV (64 keys a "
+                                               "block, items dealt to 2 consumers) + wgmma/tma "
+                                               "dQ, lse from the forward, P and dS bf16 hi+lo, "
+                                               "no atomics",
+                                   "float32": "delta pass + fma dK/dV + fma dQ, lse from the "
+                                              "forward"},
            "decode_attention": "cp.async ring + cluster merge",
            "rwkv6_wkv": "scores pre-pass + mma.sync split tf32, 16-row sub-blocks, "
                         "cp.async double buffer",
@@ -300,6 +308,10 @@ DESIGNS = {"flash_attention": {"bfloat16": "wgmma+tma", "float32": "fma"},
 # Kernel times are medians of ROUNDS timings; for attention each kernel
 # round is followed by one of SDPA, so the two see the same state of the card.
 ROUNDS = 5
+# the backward's launches at the training shape, profiled in phase_kernels
+# (the process's first profiler session: after many sessions the profiler
+# records few or none of a call's launches) and reported with its times
+BWD_LAUNCH_MS: dict = {}
 
 
 def log(msg: str) -> None:
@@ -497,23 +509,40 @@ def phase_kernels(dev):
 
 def phase_bwd_kernel(dev, gen) -> float:
     """The flash backward kernel against its plain version (the f32
-    formulas of ref.flash_attention_bwd_ref) on the same inputs: o is the
-    forward kernel's output, dO standard normal; at TOL, as the forward
-    (both compute in f32 from the same inputs; bf16 rounds dq, dk and dv
-    once).  Returns the largest full-width bf16 error."""
-    from repro_torch import kernels as K
+    formulas of ref.flash_attention_bwd_ref) on the same inputs: o and the
+    rows' log-sum-exp are the forward kernel's, dO standard normal; at TOL,
+    as the forward (both compute in f32 from the same inputs; bf16 rounds
+    dq, dk and dv once).  At each shape the forward's lse is held against
+    ref.flash_attention_lse_ref at TOL[float32] (it is f32 in both dtypes)
+    and its output with the lse buffer against its output without it, bit
+    for bit.  Returns the largest full-width bf16 error."""
     from repro_torch.kernels import ref as R
-    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda, \
+        flash_attention_cuda
 
-    worst, n = 0.0, 0
+    worst, lse_worst, n = 0.0, 0.0, 0
     for dtype in (torch.float32, torch.bfloat16):
         for shape in FLASH_BWD_SWEEP + FLASH_BWD_FULL:
             b, s, h, k, d, causal, window = shape
             q, kk, v, do = (randn(gen, shp, dtype, dev)
                             for shp in ((b, s, h, d), (b, s, k, d), (b, s, k, d), (b, s, h, d)))
-            o = K.flash_attention(q, kk, v, causal=causal, window=window)
-            got = flash_attention_bwd_cuda(q, kk, v, o, do, causal, window)
+            lse = torch.empty((b, h, s), dtype=torch.float32, device=dev)
+            o = flash_attention_cuda(q, kk, v, causal=causal, window=window, lse=lse)
+            if not torch.equal(o, flash_attention_cuda(q, kk, v, causal=causal, window=window)):
+                raise AssertionError(f"flash_attention at {shape} {str(dtype)[6:]}: the output "
+                                     f"with the lse buffer differs from the output without it")
+            try:
+                lse_err = max_err(lse, R.flash_attention_lse_ref(*f32(q, kk), causal, window),
+                                  torch.float32)
+            except AssertionError as e:
+                raise AssertionError(f"flash_attention lse at {shape} {str(dtype)[6:]}: {e}") \
+                    from None
+            lse_worst = max(lse_worst, lse_err)
+            got = flash_attention_bwd_cuda(q, kk, v, o, do, lse, causal, window)
             want = R.flash_attention_bwd_ref(*f32(q, kk, v, o, do), causal, window)
+            if shape == FLASH_BWD_FULL[0] and dtype == torch.bfloat16:
+                BWD_LAUNCH_MS.update(bwd_launch_ms(
+                    lambda: flash_attention_bwd_cuda(q, kk, v, o, do, lse, causal, window)))
             errs = []
             for name, g, w in zip(("dq", "dk", "dv"), got, want):
                 try:
@@ -525,14 +554,17 @@ def phase_bwd_kernel(dev, gen) -> float:
             if shape in FLASH_BWD_FULL:
                 log(f"[kernels] flash_attention_bwd full width q {tuple(q.shape)} kv "
                     f"{tuple(kk.shape)} {str(dtype)[6:]} causal {causal} window {window}: max "
-                    f"|err| dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e}")
+                    f"|err| dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e}; forward lse "
+                    f"{lse_err:.3e}")
                 if dtype == torch.bfloat16:
                     worst = max(worst, *errs)
-            del q, kk, v, do, o, got, want
+            del q, kk, v, do, o, lse, got, want
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     log(f"[kernels] flash_attention_bwd: {n} comparisons of dq, dk and dv within tolerance "
-        f"(against the f32 formulas on the same inputs)")
+        f"(against the f32 formulas on the same inputs, the forward's lse passed in); the "
+        f"forward's lse within 2e-5 of its plain version at all {n} (max |err| "
+        f"{lse_worst:.3e}), its output bit for bit the same with and without the lse buffer")
     return worst
 
 
@@ -944,25 +976,53 @@ def event_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def bwd_launch_ms(fn, reps: int = 5) -> dict:
+    """Mean device ms of each kernel that ``fn`` launches, from
+    torch.profiler's CUDA activity over ``reps`` calls: each kernel's
+    summed time over the launches the profiler recorded (printed beside
+    it)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CPU and _device_us(e) > 0:
+            name = next((n for n in ("delta_kernel", "dkdv_wgmma_kernel", "dq_wgmma_kernel",
+                                     "dkdv_kernel", "dq_kernel") if n in e.key), e.key[:60])
+            t, c = out.get(name, (0.0, 0))
+            out[name] = (t + _device_us(e) / 1e3, c + e.count)
+    return {name: dict(ms=t / c, launches=c) for name, (t, c) in out.items()}
+
+
 def time_flash_bwd(K, R, gen, dev):
-    """The backward kernel at the training path's shape, against the
-    plain version and the backward of scaled_dot_product_attention (its
-    autograd, timed here only), in alternating rounds between CUDA events
-    (the library's backward is not captured in a graph, so neither is the
-    kernel: three launches against milliseconds of work).  Bound: the five
-    products of the causal half at the bf16 tensor-core rate, against
-    q, k, v, o and dO read once and dq, dk, dv written once."""
-    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda
+    """The whole backward (its three launches: delta, dK/dV, dQ) at the
+    training path's shape, against the plain version and the backward of
+    scaled_dot_product_attention (its autograd, timed here only), in
+    alternating rounds between CUDA events (the library's backward is not
+    captured in a graph, so neither is the kernel), and each launch's
+    device time from the profiler (BWD_LAUNCH_MS, taken in phase_kernels).
+    Bound: the five products of the causal half at the bf16 tensor-core
+    rate, against q, k, v, o and dO read once and dq, dk, dv written once
+    (the lse the forward hands over is not counted)."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda, \
+        flash_attention_cuda
 
     dt = torch.bfloat16
     b, s, h, kv, d = TRAIN_B, TRAIN_S, H, KV, D
     q, do = randn(gen, (b, s, h, d), dt, dev), randn(gen, (b, s, h, d), dt, dev)
     k, v = randn(gen, (b, s, kv, d), dt, dev), randn(gen, (b, s, kv, d), dt, dev)
-    o = K.flash_attention(q, k, v)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=dev)
+    o = flash_attention_cuda(q, k, v, lse=lse)
     qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
     ot = sdpa(qt, kt, vt, is_causal=True)
     dot = do.transpose(1, 2).contiguous()
-    kernel = lambda: flash_attention_bwd_cuda(q, k, v, o, do, True, None)  # noqa: E731
+    kernel = lambda: flash_attention_bwd_cuda(q, k, v, o, do, lse, True, None)  # noqa: E731
     library = lambda: torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True)  # noqa: E731
     ks, ls = [], []
     for _ in range(ROUNDS):
@@ -980,7 +1040,13 @@ def time_flash_bwd(K, R, gen, dev):
         f"{lib_err:.2e}), bound {b_ms:.4f} ms ({b_by}: {5 * 2.0 * b * h * pairs * d:.3e} FLOP "
         f"at 989 TFLOP/s); {b_ms / ms:.3f} of bound")
     log(f"[times]   {ROUNDS} rounds: kernel {spread(ks)}; sdpa backward {spread(ls)}")
-    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by)
+    launch = dict(BWD_LAUNCH_MS)
+    log("[times]   each launch (profiler in phase_kernels, mean device ms over the launches "
+        "it recorded): "
+        + ", ".join(f"{name} {r['ms']:.4f} ({r['launches']})" for name, r in launch.items())
+        + f"; sum {sum(r['ms'] for r in launch.values()):.4f}")
+    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+                launch_ms=launch)
 
 
 def kernel_rounds(fn, iters: int) -> list[float]:
@@ -2058,7 +2124,8 @@ def main() -> int:
                      "launches": launches[name], "max_abs_err": errs[name],
                      "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-                     "design": DESIGNS[name], "launches_by_path": by_path[name]})
+                     "design": DESIGNS[name], "launches_by_path": by_path[name],
+                     **({"launch_ms": t["launch_ms"]} if "launch_ms" in t else {})})
     if any(not math.isfinite(r["ms"]) for r in rows):
         raise AssertionError("non-finite kernel time")
     log(f"[done] all phases passed in {time.perf_counter() - t_all:.1f}s")

@@ -37,6 +37,13 @@
 // output is staged in the warpgroup's Q rows and TMA-stored (rows past S
 // are dropped).
 //
+// The rows' log-sum-exp, for the backward kernel: when the caller passes an
+// f32 (B,H,S) buffer, each row's lse = log2 sum_t exp2(s_t * log2(e)/sqrt(D))
+// (the log2 domain, which is the bf16 kernel's own: m + log2(l) of its
+// online softmax; the f32 kernel converts its m + log(l) by log2(e) once)
+// is written by one lane of the row.  A null buffer writes nothing, and the
+// output does not depend on it.
+//
 // Problems met, and what the design does:
 // - cuTensorMapEncodeTiled is a driver-API function and the libraries link
 //   only the runtime: it is fetched through cudaGetDriverEntryPointByVersion
@@ -88,7 +95,7 @@ constexpr int flash_smem_bytes() {
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
+                 const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
                  int S, int H, int KH, int causal, int window, float scale) {
   constexpr int DP = D + 1;
   constexpr int PP = BK + 1;
@@ -206,6 +213,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int s = q0 + ty * 4 + i;
     if (s >= S) continue;
     const float denom = fmaxf(l[i], 1e-30f);
+    if (lse != nullptr && tx == 0)
+      lse[((size_t)b * H + h) * S + s] = (m[i] + logf(denom)) * 1.4426950408889634f;
     T* orow = o + ((size_t)(b * S + s) * H + h) * D;
 #pragma unroll
     for (int cc = 0; cc < DC; ++cc) orow[tx + 16 * cc] = from_f32<T>(acc[i][cc] / denom);
@@ -213,7 +222,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S,
            int H, int KH, int causal, int window, cudaStream_t stream) {
   static int smem_done = 0;
   constexpr int smem = flash_smem_bytes<D>();
@@ -222,20 +231,20 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
   const dim3 grid((S + BQ - 1) / BQ, H, B);
   const float scale = (float)(1.0 / sqrt((double)D));
   flash_fwd_kernel<T, D><<<grid, THREADS, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, S, H, KH, causal, window, scale);
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, S, H, KH, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int dispatch_d(const void* q, const void* k, const void* v, void* o, int B,
+int dispatch_d(const void* q, const void* k, const void* v, void* o, float* lse, int B,
                int S, int H, int KH, int D, int causal, int window,
                cudaStream_t stream) {
   switch (D) {
-    case 16: return launch<T, 16>(q, k, v, o, B, S, H, KH, causal, window, stream);
-    case 32: return launch<T, 32>(q, k, v, o, B, S, H, KH, causal, window, stream);
-    case 64: return launch<T, 64>(q, k, v, o, B, S, H, KH, causal, window, stream);
-    case 80: return launch<T, 80>(q, k, v, o, B, S, H, KH, causal, window, stream);
-    case 128: return launch<T, 128>(q, k, v, o, B, S, H, KH, causal, window, stream);
+    case 16: return launch<T, 16>(q, k, v, o, lse, B, S, H, KH, causal, window, stream);
+    case 32: return launch<T, 32>(q, k, v, o, lse, B, S, H, KH, causal, window, stream);
+    case 64: return launch<T, 64>(q, k, v, o, lse, B, S, H, KH, causal, window, stream);
+    case 80: return launch<T, 80>(q, k, v, o, lse, B, S, H, KH, causal, window, stream);
+    case 128: return launch<T, 128>(q, k, v, o, lse, B, S, H, KH, causal, window, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -269,8 +278,8 @@ __global__ void __launch_bounds__(THREADS, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                    const __grid_constant__ CUtensorMap k_map,
                    const __grid_constant__ CUtensorMap v_map,
-                   const __grid_constant__ CUtensorMap o_map, int S, int H, int KH,
-                   int causal, int window, float scale_log2) {
+                   const __grid_constant__ CUtensorMap o_map, float* __restrict__ lse,
+                   int S, int H, int KH, int causal, int window, float scale_log2) {
   using T = Tile<D>;
   constexpr int SWB = T::SWB, E = T::E, NB = T::NB;
   extern __shared__ uint8_t smem_raw[];
@@ -419,8 +428,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       rs1 += s[4 * n + 2] + s[4 * n + 3];
     }
   };
-  // rescale O and l by the corrections, and split p into the A fragments:
-  // k-step kk takes the accumulator's column blocks 2kk and 2kk+1
+  // rescale O and l by the corrections, and split p into the A fragments
   auto rescale_and_split = [&](float c0, float c1, float rs0, float rs1) {
     l0 = l0 * c0 + rs0;   // this thread's columns only; summed over the row's 4 lanes at the end
     l1 = l1 * c1 + rs1;
@@ -431,17 +439,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       o[4 * n + 2] *= c1;
       o[4 * n + 3] *= c1;
     }
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const float x = s[8 * kk + 2 * r], y = s[8 * kk + 2 * r + 1];
-        const __nv_bfloat162 hv = __floats2bfloat162_rn(x, y);
-        const __nv_bfloat162 lv = __floats2bfloat162_rn(x - __low2float(hv), y - __high2float(hv));
-        ph[kk][r] = *reinterpret_cast<const uint32_t*>(&hv);
-        pl[kk][r] = *reinterpret_cast<const uint32_t*>(&lv);
-      }
-    }
+    split_bf16(s, ph, pl);
   };
   auto release = [&](int i) {
     __syncwarp();
@@ -504,6 +502,11 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+  if (lse != nullptr && lane % 4 == 0) {
+    float* lrow = lse + ((size_t)b * H + h) * S;
+    if (r0 < S) lrow[r0] = m0 + log2f(d0);
+    if (r1 < S) lrow[r1] = m1 + log2f(d1);
+  }
   uint8_t* sO = sQ + cw * 64 * SWB;
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
@@ -529,8 +532,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int S, int H, int KH,
-           int causal, int window, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S, int H,
+           int KH, int causal, int window, cudaStream_t stream) {
   using T = Tile<D>;
   static int smem_done = 0;
   cudaError_t err = allow_smem(flash_wgmma_kernel<D>, T::SMEM, smem_done);
@@ -543,19 +546,19 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S, i
     return (int)cudaErrorInvalidValue;
   const dim3 grid(H, B, (S + BQ - 1) / BQ);
   const float scale_log2 = (float)(1.4426950408889634 / sqrt((double)D));
-  flash_wgmma_kernel<D><<<grid, THREADS, T::SMEM, stream>>>(qm, km, vm, om, S, H, KH, causal,
-                                                            window, scale_log2);
+  flash_wgmma_kernel<D><<<grid, THREADS, T::SMEM, stream>>>(qm, km, vm, om, lse, S, H, KH,
+                                                            causal, window, scale_log2);
   return (int)cudaGetLastError();
 }
 
-int dispatch_d(const void* q, const void* k, const void* v, void* o, int B, int S, int H, int KH,
-               int D, int causal, int window, cudaStream_t stream) {
+int dispatch_d(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S,
+               int H, int KH, int D, int causal, int window, cudaStream_t stream) {
   switch (D) {
-    case 16: return launch<16>(q, k, v, o, B, S, H, KH, causal, window, stream);
-    case 32: return launch<32>(q, k, v, o, B, S, H, KH, causal, window, stream);
-    case 64: return launch<64>(q, k, v, o, B, S, H, KH, causal, window, stream);
-    case 80: return launch<80>(q, k, v, o, B, S, H, KH, causal, window, stream);
-    case 128: return launch<128>(q, k, v, o, B, S, H, KH, causal, window, stream);
+    case 16: return launch<16>(q, k, v, o, lse, B, S, H, KH, causal, window, stream);
+    case 32: return launch<32>(q, k, v, o, lse, B, S, H, KH, causal, window, stream);
+    case 64: return launch<64>(q, k, v, o, lse, B, S, H, KH, causal, window, stream);
+    case 80: return launch<80>(q, k, v, o, lse, B, S, H, KH, causal, window, stream);
+    case 128: return launch<128>(q, k, v, o, lse, B, S, H, KH, causal, window, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -565,16 +568,20 @@ int dispatch_d(const void* q, const void* k, const void* v, void* o, int B, int 
 }  // namespace
 }  // namespace repro_torch
 
-// window <= 0 means no window.  Returns cudaGetLastError() after the launch.
+// window <= 0 means no window.  lse is null or an f32 (B,H,S) buffer for
+// the rows' log2-domain log-sum-exp.  Returns cudaGetLastError() after the
+// launch.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
-                                   void* o, int B, int S, int H, int KH, int D,
+                                   void* o, void* lse, int B, int S, int H, int KH, int D,
                                    int causal, int window, int dtype,
                                    void* stream) {
   using namespace repro_torch;
   if (B <= 0 || S <= 0 || KH <= 0 || H % KH) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  float* l = (float*)lse;
   if (dtype == DTYPE_F32)
-    return dispatch_d<float>(q, k, v, o, B, S, H, KH, D, causal, window, st);
-  if (dtype == DTYPE_BF16) return wg::dispatch_d(q, k, v, o, B, S, H, KH, D, causal, window, st);
+    return dispatch_d<float>(q, k, v, o, l, B, S, H, KH, D, causal, window, st);
+  if (dtype == DTYPE_BF16)
+    return wg::dispatch_d(q, k, v, o, l, B, S, H, KH, D, causal, window, st);
   return (int)cudaErrorInvalidValue;
 }

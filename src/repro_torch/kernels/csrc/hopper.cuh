@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the hand-written kernels:
-// shared-memory addresses, mbarriers, TMA tensor maps and copies, 16- and
-// 4-byte cp.async, the warpgroup matrix multiply (wgmma) with its
-// shared-memory descriptor and fence / commit / wait wrappers, and the
-// warp-level TF32 product (mma.sync m16n8k8) in split TF32 for the scans.
+// shared-memory addresses, mbarriers, TMA tensor maps and copies (4-d bf16
+// tiles, 1-d f32 vectors), 16- and 4-byte cp.async, the warpgroup matrix
+// multiply (wgmma) with its shared-memory descriptor and fence / commit /
+// wait wrappers, and the warp-level TF32 product (mma.sync m16n8k8) in
+// split TF32 for the scans.
 //
 // Swizzled tiles.  A TMA box whose inner extent is SWB bytes (32, 64 or
 // 128), loaded with the SWB-byte swizzle, lands in shared memory as rows of
@@ -20,6 +21,7 @@
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -69,6 +71,14 @@ __device__ __forceinline__ void tma_load_4d(const CUtensorMap* map, uint64_t* ba
       " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_1d(const CUtensorMap* map, uint64_t* bar, void* dst,
+                                            int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0)
       : "memory");
 }
 __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void* src, int c0,
@@ -167,6 +177,24 @@ __device__ __forceinline__ void fence_operands(uint32_t (&a)[R][4]) {
   for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
+// x, a 64 x 64 f32 accumulator (this thread's 32), as the A fragments of
+// the next product in bf16 hi = bf16(x) and lo = bf16(x - hi): k-step kk
+// takes the accumulator's column blocks 2kk and 2kk+1
+__device__ __forceinline__ void split_bf16(const float (&x)[32], uint32_t (&hi)[4][4],
+                                           uint32_t (&lo)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float a = x[8 * kk + 2 * r], c = x[8 * kk + 2 * r + 1];
+      const __nv_bfloat162 hv = __floats2bfloat162_rn(a, c);
+      const __nv_bfloat162 lv = __floats2bfloat162_rn(a - __low2float(hv), c - __high2float(hv));
+      hi[kk][r] = *reinterpret_cast<const uint32_t*>(&hv);
+      lo[kk][r] = *reinterpret_cast<const uint32_t*>(&lv);
+    }
+  }
 }
 
 // D(64 x N, f32) (+)= A(64 x 16) B(16 x N), bf16, A and B K-major in shared
@@ -361,6 +389,20 @@ __host__ inline bool encode_bf16_4d(CUtensorMap* map, const void* ptr, int d, in
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swz, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// An f32 vector of n elements, boxes of `box` elements, no swizzle (the
+// box's bytes a multiple of 16).  Elements past n read as zero.
+__host__ inline bool encode_f32_1d(CUtensorMap* map, const void* ptr, long n, int box) {
+  EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[1] = {(cuuint64_t)n};
+  const cuuint64_t strides[1] = {0};   // rank 1: no strides are read
+  const cuuint32_t boxd[1] = {(cuuint32_t)box};
+  const cuuint32_t elem[1] = {1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, const_cast<void*>(ptr), dims, strides, boxd,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace repro_torch

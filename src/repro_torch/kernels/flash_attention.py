@@ -11,12 +11,18 @@ FMA kernel.  Both keep every intermediate on chip and skip KV tiles outside
 the causal/window band; see the source's note.
 
 The gradient: ``FlashAttention`` is a ``torch.autograd.Function`` whose
-forward is that kernel and whose backward is the hand-written kernel of
-``csrc/flash_attention_bwd.cu`` (``flash_attention_bwd_cuda``), which
-recomputes each row's log-sum-exp, so the forward kernel writes nothing
-more than the output.  On CPU tensors the Function runs the plain versions
+forward is that kernel, asked for the rows' log-sum-exp as well, and whose
+backward is the hand-written kernel of ``csrc/flash_attention_bwd.cu``
+(``flash_attention_bwd_cuda``), which takes that log-sum-exp instead of
+recomputing it.  bf16 runs three launches: rowsum(dO∘O), then dK/dV and dQ
+on ``wgmma`` fed by TMA (P and dS split into bf16 hi and lo), no atomics;
+f32 the FMA kernels.  On CPU tensors the Function runs the plain versions
 of both (``ref.flash_attention_ref`` / ``ref.flash_attention_bwd_ref``),
 which tests its wiring without a card.
+
+The log-sum-exp is in the log2 domain: ``lse = log2 Σ_t exp2(s_t)`` with
+``s = q·k · log2(e)/√D``, i.e. the natural log-sum-exp of the scaled
+scores times log2(e) (``ref.flash_attention_lse_ref``), f32 (B,H,S).
 """
 from __future__ import annotations
 
@@ -42,7 +48,7 @@ def _kernel():
     global _fn
     if _fn is None:
         fn = _build.load("flash_attention").flash_attention_fwd
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -82,10 +88,21 @@ def check_attention_inputs(q: torch.Tensor, *kv: torch.Tensor,
         raise ValueError(f"window must be >= 1, got {window}")
 
 
+def _check_lse(lse: torch.Tensor, q: torch.Tensor) -> None:
+    b, s, h, _ = q.shape
+    if (lse.device != q.device or lse.dtype != torch.float32 or lse.shape != (b, h, s)
+            or not lse.is_contiguous()):
+        raise ValueError(f"lse must be a contiguous float32 ({b}, {h}, {s}) tensor on "
+                         f"{q.device}, got {lse.dtype} {tuple(lse.shape)} on {lse.device}")
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         causal: bool = True,
-                         window: Optional[int] = None) -> torch.Tensor:
+                         causal: bool = True, window: Optional[int] = None,
+                         lse: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q (B,S,H,D), k/v (B,S,K,D) CUDA tensors → (B,S,H,D) in q's dtype.
+    ``lse``, when given, is a float32 (B,H,S) buffer that receives each
+    row's log-sum-exp in the log2 domain (see the module's note); without
+    it nothing more is written, and the output is the same either way.
     Launches on the current stream without synchronising."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_cuda needs CUDA tensors, got {q.device}")
@@ -93,12 +110,15 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, s, h, d = q.shape
     if k.shape != v.shape or k.shape[:2] != (b, s):
         raise ValueError(f"q {tuple(q.shape)} vs k {tuple(k.shape)} / v {tuple(v.shape)}")
+    if lse is not None:
+        _check_lse(lse, q)
     out = torch.empty_like(q)
     if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("the bf16 kernel's TMA loads need 16-byte aligned tensors")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                        None if lse is None else lse.data_ptr(),
                         b, s, h, k.shape[2], d, int(causal),
                         -1 if window is None else int(window),
                         DTYPE_CODES[q.dtype], stream)
@@ -112,14 +132,19 @@ flash_attention_cuda.launches = 0
 
 
 def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                             o: torch.Tensor, do: torch.Tensor, causal: bool = True,
-                             window: Optional[int] = None
+                             o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
+                             causal: bool = True, window: Optional[int] = None
                              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The gradient of ``flash_attention_cuda``: q (B,S,H,D), k/v (B,S,K,D),
-    its output o and the output's gradient do (B,S,H,D), CUDA tensors →
-    (dq, dk, dv) in the inputs' dtype.  Three launches on the current
-    stream (the rows' log-sum-exp and rowsum(dO∘O) into f32 scratch, then
-    dK/dV, then dQ), counted as one call; does not synchronise."""
+    its output o, the output's gradient do (B,S,H,D) and the rows'
+    log-sum-exp ``lse`` that the same forward call wrote (float32 (B,H,S),
+    log2 domain), CUDA tensors → (dq, dk, dv) in the inputs' dtype.  The
+    log-sum-exp is required: nothing recomputes it.  Three launches on the
+    current stream (rowsum(dO∘O) into f32 scratch, then dK/dV, then dQ),
+    counted as one call; does not synchronise."""
+    if lse is None:
+        raise ValueError("flash_attention_bwd_cuda needs the forward's lse (pass lse= to "
+                         "flash_attention_cuda)")
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd_cuda needs CUDA tensors, got {q.device}")
     do = do.contiguous()
@@ -128,16 +153,16 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape != v.shape or k.shape[:2] != (b, s) or o.shape != q.shape or do.shape != q.shape:
         raise ValueError(f"q {tuple(q.shape)} vs k {tuple(k.shape)} / v {tuple(v.shape)} / "
                          f"o {tuple(o.shape)} / do {tuple(do.shape)}")
-    if any(t.data_ptr() % 16 for t in (q, k, v, o, do)):
+    _check_lse(lse, q)
+    if any(t.data_ptr() % 16 for t in (q, k, v, o, do, lse)):
         raise ValueError("flash_attention_bwd_cuda needs 16-byte aligned tensors")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     delta = torch.empty_like(lse)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _bwd_kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                            do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                            lse.data_ptr(), delta.data_ptr(), b, s, h, k.shape[2], d,
+                            do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                            dv.data_ptr(), delta.data_ptr(), b, s, h, k.shape[2], d,
                             int(causal), -1 if window is None else int(window),
                             DTYPE_CODES[q.dtype], stream)
     if err:
@@ -151,25 +176,29 @@ flash_attention_bwd_cuda.launches = 0
 
 class FlashAttention(torch.autograd.Function):
     """Flash attention with its gradient: on CUDA tensors the forward and
-    backward kernels, on CPU tensors their plain versions.  Saves q, k, v
-    and the output for the backward."""
+    backward kernels, on CPU tensors their plain versions.  Saves q, k, v,
+    the output and, on the card, the rows' log-sum-exp (f32 (B,H,S)) for
+    the backward."""
 
     @staticmethod
     def forward(ctx, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
                 window: Optional[int]) -> torch.Tensor:
+        lse = None
         if q.device.type == "cuda":
-            out = flash_attention_cuda(q, k, v, causal=causal, window=window)
+            b, s, h, _ = q.shape
+            lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+            out = flash_attention_cuda(q, k, v, causal=causal, window=window, lse=lse)
         else:
             out = _ref.flash_attention_ref(q, k, v, causal, window)
-        ctx.save_for_backward(q, k, v, out)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.window = causal, window
         return out
 
     @staticmethod
     def backward(ctx, do: torch.Tensor):
-        q, k, v, out = ctx.saved_tensors
+        q, k, v, out, lse = ctx.saved_tensors
         if q.device.type == "cuda":
-            dq, dk, dv = flash_attention_bwd_cuda(q, k, v, out, do, ctx.causal, ctx.window)
+            dq, dk, dv = flash_attention_bwd_cuda(q, k, v, out, do, lse, ctx.causal, ctx.window)
         else:
             dq, dk, dv = _ref.flash_attention_bwd_ref(q, k, v, out, do, ctx.causal, ctx.window)
         return dq, dk, dv, None, None

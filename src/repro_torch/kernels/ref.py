@@ -10,7 +10,8 @@ instead folds the scale into q in q's dtype and casts the probabilities to
 
 Attention's gradient: ``flash_attention_bwd_ref`` writes out the softmax
 backward in formulas, the plain version of the backward kernel
-``csrc/flash_attention_bwd.cu``.
+``csrc/flash_attention_bwd.cu``; ``flash_attention_lse_ref`` is the plain
+version of the rows' log-sum-exp that the forward kernel writes for it.
 
 Scans: the step-by-step recurrences of the reference's ``rwkv6_wkv_ref``
 (through ``rwkv6_recurrent``) and ``mamba2_ssd_ref``, in float32 from a
@@ -26,8 +27,8 @@ from typing import Optional
 
 import torch
 
-__all__ = ["NEG_INF", "flash_attention_ref", "flash_attention_bwd_ref", "decode_attention_ref",
-           "attention_mask",
+__all__ = ["NEG_INF", "flash_attention_ref", "flash_attention_lse_ref", "flash_attention_bwd_ref",
+           "decode_attention_ref", "attention_mask",
            "rwkv6_recurrent", "rwkv6_wkv_ref", "mamba2_ssd_ref"]
 
 NEG_INF = -1e30
@@ -67,6 +68,23 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s = q.shape[1]
     pos = torch.arange(s, dtype=torch.int32, device=q.device)
     return _dense(q, k, v, attention_mask(pos, pos, causal, window))
+
+
+def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor, causal: bool = True,
+                            window: Optional[int] = None) -> torch.Tensor:
+    """Each row's log-sum-exp of the masked, scaled scores in the log2
+    domain, the plain version of the forward kernel's ``lse`` output:
+    q (B,S,H,D), k (B,S,K,D) → (B,H,S) float32 holding
+    ``log2 Σ_t exp2(q·k_t · log2(e)/√D)`` over the allowed t, which is the
+    natural log-sum-exp times log2(e)."""
+    b, s, h, d = q.shape
+    kh = k.shape[2]
+    pos = torch.arange(s, dtype=torch.int32, device=q.device)
+    allow = attention_mask(pos, pos, causal, window)
+    qg = q.float().reshape(b, s, kh, h // kh, d)
+    scores = torch.einsum("bqkgd,btkd->bkgqt", qg, k.float()) * (1.0 / math.sqrt(d))
+    lse = torch.logsumexp(scores.masked_fill(~allow, NEG_INF), dim=-1)      # (B,K,G,S)
+    return (lse * (1.0 / math.log(2.0))).reshape(b, h, s)
 
 
 def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -638,8 +638,8 @@ def test_decode_kernel_at_internvl2_shape(dev, fill, dtype):
 
 # -------------------------------------------------------------- training --
 # The flash backward kernel against its plain version (f32 formulas) on the
-# same inputs: o is the forward kernel's output and dO standard normal, in
-# the working dtype.  Tolerance: the f32 band above (summation order) and,
+# same inputs: o and the rows' log-sum-exp are the forward kernel's, dO
+# standard normal, in the working dtype.  Tolerance: the f32 band above (summation order) and,
 # for bf16, the same band plus the one rounding of dq, dk and dv to bf16
 # (TOL, as the forward's: both compute in f32 from the same bf16 inputs).
 FLASH_BWD_SHAPES = [(1, 128, 4, 4, 32, True, None), (2, 200, 8, 2, 64, True, 96),
@@ -650,6 +650,12 @@ FLASH_BWD_SHAPES = [(1, 128, 4, 4, 32, True, None), (2, 200, 8, 2, 64, True, 96)
                     (4, 1024, 14, 2, 64, True, None)]       # internvl2-1b, G = 7
 
 
+def _fwd_with_lse(q, kk, v, causal, window):
+    b, s, h, _ = q.shape
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    return flash_attention_cuda(q, kk, v, causal=causal, window=window, lse=lse), lse
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,s,h,k,d,causal,window", FLASH_BWD_SHAPES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -657,15 +663,39 @@ def test_flash_bwd_kernel_matches_plain(dev, b, s, h, k, d, causal, window, dtyp
     from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda
 
     q, kk, v, do = _randn(dev, dtype, 10, (b, s, h, d), (b, s, k, d), (b, s, k, d), (b, s, h, d))
-    o = K.flash_attention(q, kk, v, causal=causal, window=window)
+    o, lse = _fwd_with_lse(q, kk, v, causal, window)
     n0 = flash_attention_bwd_cuda.launches
-    got = flash_attention_bwd_cuda(q, kk, v, o, do, causal, window)
+    got = flash_attention_bwd_cuda(q, kk, v, o, do, lse, causal, window)
     torch.cuda.synchronize()
     assert flash_attention_bwd_cuda.launches == n0 + 1
     want = R.flash_attention_bwd_ref(*_f32(q, kk, v, o, do), causal, window)
     for g, w in zip(got, want):
         assert g.dtype == q.dtype and g.shape == w.shape
         _close(g, w, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,k,d,causal,window", FLASH_BWD_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_output_same_bits_with_and_without_lse(dev, b, s, h, k, d, causal, window, dtype):
+    """Asking the forward for the rows' log-sum-exp writes only that: its
+    output is bit for bit the output of the call without the buffer."""
+    q, kk, v = _randn(dev, dtype, 11, (b, s, h, d), (b, s, k, d), (b, s, k, d))
+    with_lse, _ = _fwd_with_lse(q, kk, v, causal, window)
+    assert torch.equal(with_lse, flash_attention_cuda(q, kk, v, causal=causal, window=window))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,k,d,causal,window", FLASH_BWD_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_lse_matches_plain(dev, b, s, h, k, d, causal, window, dtype):
+    """The forward's lse (f32 in both dtypes: the scores of the same inputs
+    summed in f32) against the plain logsumexp at the f32 band."""
+    q, kk, v = _randn(dev, dtype, 12, (b, s, h, d), (b, s, k, d), (b, s, k, d))
+    _, lse = _fwd_with_lse(q, kk, v, causal, window)
+    want = R.flash_attention_lse_ref(*_f32(q, kk), causal, window)
+    assert lse.shape == want.shape == (b, h, s)
+    _close(lse, want, "float32")
 
 
 def _leaves(params):

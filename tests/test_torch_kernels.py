@@ -11,8 +11,11 @@ different order.
 The hand-written kernels themselves are held against the plain versions
 on the card by ``tests/test_torch_cuda.py`` and ``chip_smoke.py``; their
 arithmetic is written out here in torch (the bf16 flash kernel's tiles,
-exp2 softmax and P split into bf16 hi and lo; the decode kernel's warps,
-splits and merges) and held against the plain versions on the CPU.
+exp2 softmax, P split into bf16 hi and lo, and the log-sum-exp it writes;
+the bf16 backward kernels' tile walks, P rebuilt from that log-sum-exp and
+P and dS split into hi and lo for dV, dK and dQ, with a test for each
+split showing that one rounding misses the band; the decode kernel's
+warps, splits and merges) and held against the plain versions on the CPU.
 """
 import numpy as np
 import pytest
@@ -153,8 +156,17 @@ def test_cuda_wrappers_refuse_cpu_tensors():
 
 def test_backward_wrapper_refuses_cpu_tensors():
     q, kk, v = _t(*_randn(2, (1, 64, 2, 32), (1, 64, 1, 32), (1, 64, 1, 32)))
+    lse = torch.zeros(1, 2, 64)
     with pytest.raises(ValueError, match="CUDA"):
-        flash_attention_bwd_cuda(q, kk, v, q, q)
+        flash_attention_bwd_cuda(q, kk, v, q, q, lse)
+
+
+def test_backward_wrapper_needs_the_forward_lse():
+    """No hidden recompute: without the forward's log-sum-exp the backward
+    raises before anything else."""
+    q, kk, v = _t(*_randn(2, (1, 64, 2, 32), (1, 64, 1, 32), (1, 64, 1, 32)))
+    with pytest.raises(ValueError, match="lse"):
+        flash_attention_bwd_cuda(q, kk, v, q, q, None)
 
 
 def test_other_devices_are_refused():
@@ -383,12 +395,15 @@ def _flash_wgmma_model(q, k, v, causal, window, bq=128, bk=64, split_p=True):
     skipped), scores of bf16 q and k summed in f32 and scaled into the
     log2 domain, masks with the -1e30 sentinel, an exp2 online softmax, and
     P split into bf16 hi and lo, each times bf16 v, summed in f32; the
-    output rounded to bf16 once.  ``split_p=False`` keeps only hi."""
+    output rounded to bf16 once.  ``split_p=False`` keeps only hi.  Returns
+    the output and the rows' log-sum-exp as the kernel writes it, m +
+    log2(l) (f32 (B,H,S), the log2 domain)."""
     b, s, h, d = q.shape
     g = h // k.shape[2]
     kx, vx = k.repeat_interleave(g, 2), v.repeat_interleave(g, 2)
     scale = LOG2E / d ** 0.5
     out = torch.zeros(b, s, h, d)
+    lse = torch.zeros(b, h, s)
     for q0 in range(0, s, bq):
         q_last = min(q0 + bq - 1, s - 1)
         hi = q_last // bk + 1 if causal else -(-s // bk)
@@ -424,7 +439,8 @@ def _flash_wgmma_model(q, k, v, causal, window, bq=128, bk=64, split_p=True):
                     + torch.einsum("brhc,bchd->brhd", p_lo, vx[:, cols])
                 m = m_new
             out[:, rows] = o / l.clamp_min(1e-30)[..., None]
-    return _bf16(out)
+            lse[:, :, rows] = (m + torch.log2(l.clamp_min(1e-30))).transpose(1, 2)
+    return _bf16(out), lse
 
 
 @pytest.mark.parametrize("b,s,h,k,d", [(1, 128, 4, 4, 32), (2, 256, 4, 2, 32), (1, 128, 8, 1, 64),
@@ -432,10 +448,15 @@ def _flash_wgmma_model(q, k, v, causal, window, bq=128, bk=64, split_p=True):
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("window", [None, 96])
 def test_flash_wgmma_arithmetic_matches_plain(b, s, h, k, d, causal, window):
+    """The output at the bf16 band, and the rows' log-sum-exp that the
+    kernel writes for the backward (m + log2 l of its online softmax) at
+    the f32 band of the plain logsumexp."""
     q, kk, v = (_bf16(x) for x in _t(*_randn(4, (b, s, h, d), (b, s, k, d), (b, s, k, d))))
     want = R.flash_attention_ref(q, kk, v, causal, window)
-    got = _flash_wgmma_model(q, kk, v, causal, window)
+    got, lse = _flash_wgmma_model(q, kk, v, causal, window)
     np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL_BF16)
+    np.testing.assert_allclose(lse.numpy(), R.flash_attention_lse_ref(q, kk, causal, window),
+                               **F32)
 
 
 @pytest.mark.parametrize("b,s,h,k,d", [(2, 256, 4, 2, 32), (1, 200, 4, 2, 128)])
@@ -445,5 +466,120 @@ def test_flash_single_rounding_of_p_breaks_tolerance(b, s, h, k, d):
     sum p|v| / l against an atol of 2e-5)."""
     q, kk, v = (_bf16(x) for x in _t(*_randn(4, (b, s, h, d), (b, s, k, d), (b, s, k, d))))
     want = R.flash_attention_ref(q, kk, v, True, None)
-    got = _flash_wgmma_model(q, kk, v, True, None, split_p=False)
+    got, _ = _flash_wgmma_model(q, kk, v, True, None, split_p=False)
     assert ((got - want).abs() > TOL_BF16["atol"] + TOL_BF16["rtol"] * want.abs()).any()
+
+
+# ------------------------------- bf16 flash backward (wgmma): the algorithm ----
+def _allowed(rows, cols, s, causal, window):
+    ok = (rows[:, None] < s) & (cols[None] < s)
+    if causal:
+        ok &= cols[None] <= rows[:, None]
+    if window:
+        ok &= cols[None] > rows[:, None] - window
+    return ok
+
+
+def _parts(x, split):
+    hi = _bf16(x)
+    return (hi, _bf16(x - hi)) if split else (hi,)
+
+
+def _flash_bwd_wgmma_model(q, k, v, o, do, lse, causal, window, split=("dv", "dk", "dq"),
+                           bt=64, bq=128):
+    """The bf16 backward kernels' arithmetic in torch, from bf16 inputs and
+    the forward's log2-domain lse: delta = rowsum(dO o O) in f32; the dK/dV
+    kernel's walk (a block per 64-key tile, the q tiles of its band) and
+    the dQ kernel's (a 64-row warpgroup of a 128-row q tile, its KV tiles);
+    per tile, products of bf16 values summed in f32, P = exp2(S log2(e)/√D
+    - lse) with P = 0 where masked, dS = P o (dP - delta), and P (for dV)
+    and dS (for dK, dQ) fed to the next product as bf16 hi and lo, or hi
+    alone where ``split`` leaves the product out; the group's sum, the
+    scale and one bf16 rounding at the end."""
+    b, s, h, d = q.shape
+    kh = k.shape[2]
+    g = h // kh
+    kx, vx = k.repeat_interleave(g, 2), v.repeat_interleave(g, 2)
+    scale2 = LOG2E / d ** 0.5
+    delta = (do * o).sum(-1)                     # (b, s, h)
+    lse_t = lse.transpose(1, 2)                  # (b, s, h)
+    nt = -(-s // bt)
+
+    def tile(rows, cols):
+        sc = torch.einsum("brhd,bchd->brhc", q[:, rows], kx[:, cols]) * scale2
+        ok = _allowed(rows, cols, s, causal, window)[None, :, None]
+        p = torch.where(ok, torch.exp2(sc - lse_t[:, rows, :, None]), torch.zeros(()))
+        dp = torch.einsum("brhd,bchd->brhc", do[:, rows], vx[:, cols])
+        return p, p * (dp - delta[:, rows, :, None])
+
+    dq = torch.zeros(b, s, h, d)
+    dkh, dvh = torch.zeros(b, s, h, d), torch.zeros(b, s, h, d)
+    for kt in range(nt):                         # dK/dV: one block per key tile
+        cols = torch.arange(kt * bt, min(kt * bt + bt, s))
+        qlo = kt if causal else 0
+        qhi = min(nt, (int(cols[-1]) + window - 1) // bt + 1) if window else nt
+        for qt in reversed(range(qlo, qhi)):     # the farthest q tile first
+            rows = torch.arange(qt * bt, min(qt * bt + bt, s))
+            p, ds = tile(rows, cols)
+            for x in _parts(p, "dv" in split):
+                dvh[:, cols] += torch.einsum("brhc,brhd->bchd", x, do[:, rows])
+            for x in _parts(ds, "dk" in split):
+                dkh[:, cols] += torch.einsum("brhc,brhd->bchd", x, q[:, rows])
+    for first in range(0, s, bt):                # dQ: a warpgroup's 64 rows
+        q0 = first - first % bq
+        rows = torch.arange(first, min(first + bt, s))
+        hi = min(int(rows[-1]) // bt + 1, (min(q0 + bq, s) - 1) // bt + 1) if causal else nt
+        lo = max(0, first - window + 1) // bt if window else 0
+        for kt in range(lo, hi):
+            cols = torch.arange(kt * bt, min(kt * bt + bt, s))
+            _, ds = tile(rows, cols)
+            for x in _parts(ds, "dq" in split):
+                dq[:, rows] += torch.einsum("brhc,bchd->brhd", x, kx[:, cols])
+    sc = 1 / d ** 0.5
+    dk = dkh.reshape(b, s, kh, g, d).sum(3) * sc
+    dv = dvh.reshape(b, s, kh, g, d).sum(3)
+    return _bf16(dq * sc), _bf16(dk), _bf16(dv)
+
+
+def _bwd_case(b, s, h, k, d, causal, window, seed=5):
+    q, kk, v, do = (_bf16(x) for x in _t(*_randn(seed, (b, s, h, d), (b, s, k, d), (b, s, k, d),
+                                                 (b, s, h, d))))
+    o, lse = _flash_wgmma_model(q, kk, v, causal, window)
+    return q, kk, v, o, do, lse
+
+
+# head_dim 16, 32, 64, 80 and 128 (every swizzle), G = H/K of 1, 2, 4 and 7,
+# ragged S (100, 200)
+BWD_WGMMA_SHAPES = [(1, 100, 2, 1, 16), (2, 256, 4, 2, 32), (1, 128, 7, 1, 64),
+                    (1, 100, 4, 4, 80), (1, 200, 4, 1, 128)]
+
+
+@pytest.mark.parametrize("b,s,h,k,d", BWD_WGMMA_SHAPES)
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 48), (False, None)])
+def test_flash_bwd_wgmma_arithmetic_matches_plain(b, s, h, k, d, causal, window):
+    """The backward kernels' arithmetic, from the forward kernel's output
+    and lse, against the f32 formulas at the bf16 band (chip_smoke.py's
+    TOL[bfloat16], which the card holds the kernels to)."""
+    q, kk, v, o, do, lse = _bwd_case(b, s, h, k, d, causal, window)
+    want = R.flash_attention_bwd_ref(q, kk, v, o, do, causal, window)
+    got = _flash_bwd_wgmma_model(q, kk, v, o, do, lse, causal, window)
+    for g_, w in zip(got, want):
+        np.testing.assert_allclose(g_.numpy(), w.numpy(), **TOL_BF16)
+
+
+@pytest.mark.parametrize("product", ["dv", "dk", "dq"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_single_rounding_breaks_tolerance(product, causal):
+    """Why each of the three products that take P or dS multiplies the lo
+    part too: with P (for dV) or dS (for dK, dQ) rounded to bf16 once, that
+    gradient misses TOL_BF16 where it is near zero (an error up to 2**-9 of
+    sum |x y| against an atol of 2e-5), while the other two, still split,
+    hold it."""
+    q, kk, v, o, do, lse = _bwd_case(1, 200, 4, 2, 128, causal, None)
+    want = R.flash_attention_bwd_ref(q, kk, v, o, do, causal, None)
+    kept = tuple(x for x in ("dv", "dk", "dq") if x != product)
+    got = dict(zip(("dq", "dk", "dv"),
+                   _flash_bwd_wgmma_model(q, kk, v, o, do, lse, causal, None, split=kept)))
+    for name, w in zip(("dq", "dk", "dv"), want):
+        out = (got[name] - w).abs() > TOL_BF16["atol"] + TOL_BF16["rtol"] * w.abs()
+        assert out.any() == (name == product), name
