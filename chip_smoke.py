@@ -7,8 +7,9 @@ Eight serving paths at full width, five hand-written kernels (the four
 forwards and the flash attention backward), the perception frame path,
 batched multi-camera perception and scenario replay (which run none of
 them), multi-tenant decode serving (decode_attention in every shared
-step) and training (qwen3-4b at full width and depth: the flash forward
-and backward kernels): qwen3-4b
+step) and training (every family: the flash forward and backward
+kernels, and the scans' forward kernels with their chunked forms'
+gradients): qwen3-4b
 (dense: flash_attention, decode_attention), rwkv6-3b (ssm: rwkv6_wkv),
 zamba2-2.7b (hybrid: mamba2_ssd, and flash/decode attention at head_dim 80
 in the shared block), olmoe-1b-7b (moe, 64 experts top-8: the moe, vlm and
@@ -86,7 +87,10 @@ Phases (each raises on failure; none is caught):
              of ROUNDS rounds, kernel and SDPA alternating, with the range
              printed; the scans as medians of ROUNDS rounds too); the bound
              from the shapes and the H100's peaks.  No single PyTorch call
-             computes either scan, so their library_ms is null;
+             computes either scan, so their library_ms is null.  Then the
+             scans' gradients at the training shapes: the autograd
+             backward of the chunked forms (the baseline of a backward
+             kernel still to write) against its bound;
 5. perception — the perception frame path (repro_torch.perception and
              repro_torch.anytime), which runs none of the kernels:
              every registered pipeline at lambda = 1 and the five rungs of
@@ -157,27 +161,38 @@ Phases (each raises on failure; none is caught):
              step (torch.profiler); then rwkv6-3b at full width, capacity
              1: a tenant that follows another in the slot generates what
              it generates in a fresh engine;
-9. train   — the training path (repro_torch.train, as launch/train.py
-             drives it): qwen3-4b at full width and depth in bf16, remat
-             on, TRAIN_STEPS AdamW steps of TRAIN_B x TRAIN_S tokens through
-             Trainer.fit, with the launch counters reset just before fit
-             and read just after: flash_attention 2 x 36 and
-             flash_attention_bwd 36 a step, nothing else; the first step's
-             loss against a no-grad Model.loss of the same batch, every
-             loss finite and the last below the first; step mean, CV, p99,
-             tokens/s, the device's busy share of one step
-             (torch.profiler), peak memory; then on smoke models a
-             checkpoint round trip on the card and rwkv6-3b and
-             zamba2-2.7b raising NotImplementedError under grad (their
-             scans have no backward kernel yet) without a launch.
+9. train   — the training paths (repro_torch.train, as launch/train.py
+             drives them), TRAIN_PATHS: every family at full width in bf16,
+             remat on, TRAIN_STEPS AdamW steps through Trainer.fit:
+             qwen3-4b, rwkv6-3b and zamba2-2.7b at full depth on TRAIN_B x
+             TRAIN_S tokens, internvl2-1b (text-only loss after the patch
+             embeddings) and hubert-xlarge (masked labels) likewise,
+             olmoe-1b-7b cut to 8 of 16 layers and mixtral-8x22b to 1 of 56
+             layers on 1 x 8192 tokens (the 4096 window in the flash
+             backward).  The launch counters are reset just before fit and
+             read just after, and held exactly: per step the flash forward
+             twice and its backward kernel once per attention site, the
+             WKV or SSD forward kernel twice per layer (the scans' gradients
+             are their chunked forms' under autograd, which launch
+             nothing), nothing else.  The first step's loss against a
+             no-grad Model.loss of the same batch, every loss and MoE aux
+             finite, the last loss below the first; step mean, CV, p99,
+             tokens/s, peak memory, the device's busy share of one step
+             (torch.profiler) and, for the scan families, the scans'
+             share of it split into the forward kernels and the autograd
+             backward; for zamba2-2.7b the bf16 model against its f32 copy
+             at the training batch.  Then on smoke models a checkpoint round
+             trip on the card, and rwkv6-3b and zamba2-2.7b's loss and every
+             gradient leaf on the card against the CPU.
 
 The build phase prints each kernel's registers, static shared memory and
 spill bytes from the compiler's -Xptxas -v report, and the scan kernels'
 blocks per SM from the occupancy API.  Prints the card's name
 and power limit, one ``{"kernels": [...]}`` line (each row also names the
 kernel's design and splits ``launches`` by path: each arch's prefill and
-Engine.generate, and the multi-tenant drain), and as the last
-line ``{"ok": true, "device": {...}}``.  (Phase 4, times, runs last.)
+Engine.generate, the multi-tenant drain and each training path,
+"train:<arch>"), and as the last line ``{"ok": true, "device": {...}}``.
+(Phase 4, times, runs last.)
 Exits non-zero, with no result, when there is no CUDA device or no
 ``src/repro_torch`` beside it.
 """
@@ -269,9 +284,29 @@ DECODE_FULL = [(B, 16, 16, 128, CONTEXT, None),             # olmoe-1b-7b
                (1, 48, 8, 128, CONTEXT, 4096),              # mixtral-8x22b
                (1, 48, 1, 128, CONTEXT, None)]              # granite-20b, G = 48
 
-# the training path (phase 9): qwen3-4b at full width and depth, batch 2 x
-# 1024, TRAIN_STEPS AdamW steps (the CLI's warmup, min(20, steps // 5 + 1))
-TRAIN_ARCH, TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_LR = "qwen3-4b", 2, 1024, 6, 1e-3
+# the training paths (phase 9): each arch at full width in bf16, remat on,
+# TRAIN_STEPS AdamW steps (the CLI's warmup, min(20, steps // 5 + 1)) of
+# TRAIN_B x TRAIN_S tokens of make_batch_np, unless its entry cuts the depth
+# (layers), sets the batch and sequence, the loss chunk or the learning rate
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_LR = 2, 1024, 6, 1e-3
+TRAIN_PATHS = {
+    "qwen3-4b": {},
+    "rwkv6-3b": {},          # the WKV kernel; its gradient the chunked form's
+    "zamba2-2.7b": {},       # the SSD kernel, and flash at head_dim 80 at the 9 sites
+    "internvl2-1b": {},      # the text-only loss after 256 patch embeddings
+    "hubert-xlarge": {},     # the encoder's masked labels, non-causal flash
+    # the whole 6.919 B needs about 83 GB of bf16 weights and gradients and
+    # f32 moments, more than the card's 80 GB
+    "olmoe-1b-7b": dict(layers=8),
+    # 2 of 56 layers would need about 65 GB before activations; 1 x 8192
+    # engages the 4096 window in the flash backward.  Its 8191 targets are
+    # prime, so the chunked loss's divisor rule (the reference's) would take
+    # 8191 checkpointed chunks of one target (12 s forward, 22 s backward on
+    # the H100): the loss is taken in one chunk (loss_chunk 0).  At TRAIN_LR
+    # this one layer of width 6144 diverges from random weights (loss 10.48
+    # -> 12.64 in 6 steps, router_z_loss 3.3 -> 186.7), so it takes a tenth
+    "mixtral-8x22b": dict(layers=1, batch=1, seq=8192, loss_chunk=0, lr=TRAIN_LR / 10),
+}
 # the flash backward kernel: small shapes (ragged S, every head_dim class,
 # windows with and without causality) and the full-width shapes: the
 # training path's, and the other attention families' (b, s, h, kv, d,
@@ -1099,6 +1134,78 @@ def time_scans(K, R, gen, dev):
     return res
 
 
+def scan_grad_work(name: str, shape: tuple, chunk: int) -> tuple[float, float]:
+    """Bytes and f32 operations of a scan's gradient through its chunked
+    form at ``shape`` and ``chunk``: each input and the output's gradient
+    read once, each input's gradient written once; twice the chunked
+    forward's arithmetic (a product's backward is two products), counting
+    the intra-chunk terms over the triangle that the data needs.  RWKV6 per
+    pair (t > u), head and column: the decay difference, its exp, two
+    products and the sum into A, and A·v (7); per position and head the
+    state's inflow and readout (4 K^2) and the elementwise terms (8 K).
+    Mamba2 per pair (t >= u): C·B (2 N), the decay difference and exp and
+    the gating (4 per head), the product with x (2 P per head); per
+    position and head the state's inflow and readout (4 P N) and the
+    elementwise terms (4 P)."""
+    if name == "rwkv6_wkv":
+        b, s, h, k = shape
+        pairs = s // chunk * (chunk * (chunk - 1) // 2)
+        fwd = 7 * b * pairs * h * k + 4 * b * s * h * k * k + 8 * b * s * h * k
+        nbytes = (9 * b * s * h * k + 2 * h * k) * 4
+    else:
+        b, s, h, p, n = shape
+        pairs = s // chunk * (chunk * (chunk + 1) // 2)
+        fwd = 2 * b * pairs * n + (4 + 2 * p) * b * pairs * h + (4 * p * n + 4 * p) * b * s * h
+        nbytes = (3 * b * s * h * p + 2 * b * s * h + 4 * b * s * n + 2 * h) * 4
+    return nbytes, 2.0 * fwd
+
+
+def time_scan_grads(K, gen, dev) -> dict:
+    """The scans' gradients at the training paths' shapes (rwkv6-3b: batch
+    2 x 1024, 40 heads of 64, the kernel's chunk 32 and the reference's 64
+    for the gradient; zamba2-2.7b: 80 heads, P = N = 64, chunk 256): the
+    autograd backward of RWKV6WKV / Mamba2SSD (the chunked form recomputed
+    and differentiated, the library baseline of a backward kernel still to
+    write) against the forward kernel at the same shape, medians of ROUNDS
+    rounds between CUDA events, and the backward's bound
+    (``scan_grad_work`` at the f32 CUDA-core rate against HBM)."""
+    res = {}
+    for name, shape in (("rwkv6_wkv", (TRAIN_B, TRAIN_S, 40, 64)),
+                        ("mamba2_ssd", (TRAIN_B, TRAIN_S, 80, 64, 64))):
+        if name == "rwkv6_wkv":
+            ins = rwkv6_inputs(gen, shape, 0.5, dev)
+            chunk = RWKV_CHUNK
+            call = lambda *a: K.rwkv6_wkv(*a, 32, grad_chunk=chunk)  # noqa: E731
+        else:
+            ins = mamba2_inputs(gen, shape, dev)
+            chunk = MAMBA_CHUNK
+            call = lambda *a: K.mamba2_ssd(*a, chunk, MAMBA_HB)  # noqa: E731
+        leaves = [x.detach().clone().requires_grad_() for x in ins]
+        y = call(*leaves)
+        dy = torch.randn(y.shape, generator=gen, device=dev)
+        grads = torch.autograd.grad(y, leaves, dy, retain_graph=True)
+        if not all(torch.isfinite(g).all() and g.abs().max() > 0 for g in grads):
+            raise AssertionError(f"{name}: a gradient at the training shape is zero or not finite")
+        fwd, bwd = [], []
+        for _ in range(ROUNDS):
+            with torch.no_grad():
+                fwd.append(event_ms(lambda: call(*ins), 5))
+            bwd.append(event_ms(lambda: torch.autograd.grad(y, leaves, dy, retain_graph=True), 3))
+        nbytes, flops = scan_grad_work(name, shape, chunk)
+        b_ms, b_by = bound(nbytes, flops, torch.float32)
+        ms, f_ms = statistics.median(bwd), statistics.median(fwd)
+        res[name] = dict(library_ms=ms, fwd_ms=f_ms, bound_ms=b_ms, bound_by=b_by)
+        log(f"[times] {name} gradient {shape} f32, chunk {chunk}: autograd backward (the "
+            f"chunked form recomputed and differentiated; the baseline of a backward kernel) "
+            f"{ms:.4f} ms, {ms / f_ms:.1f} x the forward kernel's {f_ms:.4f} ms at this shape; "
+            f"bound {b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP at "
+            f"67 TFLOP/s f32); {b_ms / ms:.3f} of bound")
+        log(f"[times]   {ROUNDS} rounds: backward {spread(bwd)}; forward kernel {spread(fwd)}")
+        del y, dy, grads, leaves, ins
+        torch.cuda.empty_cache()
+    return res
+
+
 def phase_times(dev):
     """Each kernel at its main path's full-width shapes; the attention
     kernels' rows are at qwen3-4b's head_dim 128, with zamba2's head_dim 80
@@ -1115,6 +1222,7 @@ def phase_times(dev):
     time_decode(K, R, gen, dev, ZH, ZKV, ZD)
     time_decode(K, R, gen, dev, H, KV, D, B=MT_CAPACITY)      # the multi-tenant step's shape
     res.update(time_scans(K, R, gen, dev))
+    time_scan_grads(K, gen, dev)
     return res
 
 
@@ -1912,9 +2020,27 @@ def phase_multi_tenant(dev):
     return counts["decode_attention"]
 
 
-def _train_step_busy(model, params, opt_state, batch, opt_cfg, wall_s: float):
+# the scans' forward kernels (by the names in their sources) and their
+# autograd Functions' backward nodes, for the split of a train step's
+# device time
+SCAN_FWD_KERNELS = {"rwkv6_wkv": ("wkv_scores_kernel", "wkv_fwd_kernel"),
+                    "mamba2_ssd": ("ssd_scores_kernel", "ssd_fwd_kernel")}
+SCAN_BWD_NODES = {"rwkv6_wkv": "RWKV6WKVBackward", "mamba2_ssd": "Mamba2SSDBackward"}
+
+
+def _device_total_us(evt) -> float:
+    """A CPU op's device time with its children's (the kernels launched
+    inside it); the attribute's name changed across torch versions."""
+    return getattr(evt, "device_time_total", None) or getattr(evt, "cuda_time_total", 0)
+
+
+def _train_step_busy(model, params, opt_state, batch, opt_cfg, wall_s: float, tag: str) -> dict:
     """The device's busy share of one train step: its kernels' summed
-    device time (torch.profiler) over the unprofiled step's wall time."""
+    device time (torch.profiler) over the unprofiled step's wall time; for
+    the scan families the scans' share of it, split into the forward
+    kernels (launched in the forward and in remat's recomputation) and the
+    autograd backward (the Function's backward node: the chunked form
+    recomputed and differentiated)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.train import make_train_step
@@ -1923,63 +2049,126 @@ def _train_step_busy(model, params, opt_state, batch, opt_cfg, wall_s: float):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         step(params, opt_state, batch)
         torch.cuda.synchronize()
-    rows = [(e.key, _device_us(e), e.count) for e in prof.key_averages()
+    events = prof.key_averages()
+    rows = [(e.key, _device_us(e), e.count) for e in events
             if e.device_type != DeviceType.CPU and _device_us(e) > 0]
     rows.sort(key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows) / 1e3
-    log(f"[train] one step under the profiler: device busy {busy_ms:.3f} ms of "
+    log(f"[train] {tag} one step under the profiler: device busy {busy_ms:.3f} ms of "
         f"{wall_s * 1e3:.3f} ms wall ({busy_ms / (wall_s * 1e3):.3f} busy, "
         f"{1 - busy_ms / (wall_s * 1e3):.3f} idle); {sum(r[2] for r in rows)} kernels")
     for key, us, count in rows[:10]:
         log(f"[train]   {us / 1e3:9.3f} ms  x{count:<5d} {key[:90]}")
-    return busy_ms / (wall_s * 1e3)
+    out = dict(busy=busy_ms / (wall_s * 1e3), busy_ms=busy_ms)
+    for name, kernels in SCAN_FWD_KERNELS.items():
+        fwd = [(us, c) for key, us, c in rows if any(k in key for k in kernels)]
+        if not fwd:
+            continue
+        fwd_ms = sum(us for us, _ in fwd) / 1e3
+        bwd = [e for e in events if e.key == SCAN_BWD_NODES[name]]
+        bwd_ms = sum(_device_total_us(e) for e in bwd) / 1e3
+        out[name] = dict(fwd_ms=fwd_ms, bwd_ms=bwd_ms)
+        log(f"[train] {tag} {name} in the step: forward kernels {fwd_ms:.3f} ms "
+            f"({fwd_ms / busy_ms:.3f} of device time, {sum(c for _, c in fwd)} launches of "
+            f"{len(kernels)} kernels); autograd backward "
+            + (f"{bwd_ms:.3f} ms ({bwd_ms / busy_ms:.3f}, {sum(e.count for e in bwd)} calls of "
+               f"{SCAN_BWD_NODES[name]})" if bwd_ms > 0 else
+               f"not measured (the profiler linked no device time to {SCAN_BWD_NODES[name]})"))
+    return out
 
 
-def phase_train(dev, smi: str) -> dict:
-    """The training path (repro_torch.train): TRAIN_ARCH at full width and
-    depth in bf16, Trainer.init and Trainer.fit over synthetic_batches
-    through a PrefetchIterator (the path of launch/train.py), remat on, the
-    kernels' launch counters reset just before fit and read just after:
-    the flash forward 2L a step (the forward and remat's recomputation),
-    the backward kernel L, nothing else.  Checks: the first step's loss
-    against a no-grad Model.loss of the same batch (bf16 band: 4e-3
-    relative), every loss finite and the last below the first.  Prints the
-    step time (mean, CV, p99), tokens/s, the device's busy share of a step,
-    peak memory and the loss per step.  Then on smoke models: a checkpoint
-    round trip on the card (a trained state saved, loaded, equal bit for
-    bit), and the scans' refusal to train on the card (rwkv6-3b and
-    zamba2-2.7b raise NotImplementedError and launch nothing).  Returns the
-    path's launch counts."""
-    import tempfile
+def train_launches(model) -> dict:
+    """The kernels' launches in one train step: per attention site the flash
+    forward (twice with remat: the forward and the recomputation) and its
+    backward kernel once; per RWKV6 or Mamba2 layer its scan's forward
+    kernel (twice with remat), whose gradient is the chunked form's under
+    autograd and launches nothing; no decode."""
+    cfg = model.cfg
+    fwd = 2 if cfg.remat else 1
+    sites = model.n_attn_sites()
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(flash_attention=fwd * sites, flash_attention_bwd=sites)
+    if cfg.family == "ssm":
+        want["rwkv6_wkv"] = fwd * cfg.num_layers
+    if cfg.family == "hybrid":
+        want["mamba2_ssd"] = fwd * cfg.num_layers
+    return want
 
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _bf16_against_f32(model, params, batch) -> None:
+    """zamba2-2.7b's bf16 margin at the training batch: the no-grad loss and
+    the last position's logits (Model.prefill) of the bf16 model against
+    the same weights upcast to f32 (the scans are f32 in both; flash runs
+    its f32 kernel), the logits' largest difference over the largest f32
+    logit.  Printed, not held: the serving paths' prefill-against-decode
+    check holds the 5e-2 limit."""
+    from repro_torch.models import Model
+
+    m32 = Model(model.cfg.replace(dtype="float32", param_dtype="float32"))
+    p32 = _tree_map(lambda t: t.detach().float(), params)
+    with torch.no_grad():
+        loss16, loss32 = model.loss(params, batch)[0].item(), m32.loss(p32, batch)[0].item()
+        l16, l32 = model.prefill(params, batch).float(), m32.prefill(p32, batch)
+    rel = ((l16 - l32).abs().max() / l32.abs().max()).item()
+    log(f"[train] {model.cfg.name} bf16 against f32 weights at the training batch: loss "
+        f"{loss16:.6f} vs {loss32:.6f} ({abs(loss16 - loss32) / abs(loss32):.3e} relative); last "
+        f"position's logits differ by {rel:.3e} of the largest f32 logit (serving's "
+        f"prefill-against-decode limit 5e-2)")
+
+
+def train_path(dev, smi: str, arch: str, cut: dict) -> dict:
+    """One training path (repro_torch.train, as launch/train.py drives
+    it): ``arch`` at full width in bf16 (depth, batch and sequence as
+    ``cut`` says), Trainer.init and Trainer.fit over synthetic_batches
+    through a PrefetchIterator, remat on, the kernels' launch counters reset
+    just before fit and read just after and held to TRAIN_STEPS x
+    ``train_launches``.  Checks: the first step's loss against a no-grad
+    Model.loss of the same batch (bf16 band: 4e-3 relative), every loss
+    and MoE aux finite and the last loss below the first.  Prints the
+    step time (mean, CV, p99), tokens/s, peak memory, the device's busy
+    share of a step and, for the scan families, the scans' share of it."""
     from repro_torch import kernels as K
     from repro_torch.configs import get_config
     from repro_torch.models import Model
     from repro_torch.train import (AdamWConfig, DataConfig, PrefetchIterator, TrainConfig,
-                                   Trainer, load_checkpoint, make_batch_np, save_checkpoint,
-                                   synthetic_batches)
+                                   Trainer, make_batch_np, synthetic_batches)
     from repro_torch.train.data import to_device
-    from repro_torch.train.optimizer import _walk
 
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    cfg = get_config(TRAIN_ARCH)
+    full = get_config(arch)
+    cfg = full.replace(num_layers=cut.get("layers", full.num_layers),
+                       loss_chunk=cut.get("loss_chunk", full.loss_chunk))
     model = Model(cfg)
-    L = cfg.num_layers
-    opt = AdamWConfig(lr=TRAIN_LR, warmup_steps=min(20, TRAIN_STEPS // 5 + 1),
+    b, s = cut.get("batch", TRAIN_B), cut.get("seq", TRAIN_S)
+    what = (f"depth cut to {cfg.num_layers} of {full.num_layers} layers" if "layers" in cut
+            else "full width and depth")
+    opt = AdamWConfig(lr=cut.get("lr", TRAIN_LR), warmup_steps=min(20, TRAIN_STEPS // 5 + 1),
                       total_steps=TRAIN_STEPS)
     trainer = Trainer(model, dev, TrainConfig(opt=opt, log_every=1))
     params, opt_state = trainer.init(0)
     torch.cuda.synchronize()
-    log(f"[train] {cfg.name} full width and depth ({L} layers, remat {cfg.remat}, loss_chunk "
-        f"{cfg.loss_chunk}), bf16 weights and f32 AdamW moments: {model.num_params() / 1e9:.3f}B "
-        f"params; {torch.cuda.memory_allocated() / 1e9:.1f} GB allocated after init "
-        f"({time.perf_counter() - t0:.1f}s); card {smi}")
-    data = DataConfig(batch=TRAIN_B, seq_len=TRAIN_S)
+    tag = f"[{arch}]"
+    log(f"[train] {tag} {what} ({cfg.num_layers} layers, remat {cfg.remat}, loss_chunk "
+        f"{cfg.loss_chunk}), batch {b} x {s}, lr {opt.lr:g}, bf16 weights and f32 AdamW moments: "
+        f"{model.num_params() / 1e9:.3f}B params (full depth "
+        f"{Model(full).num_params() / 1e9:.3f}B); {torch.cuda.memory_allocated() / 1e9:.1f} GB "
+        f"allocated after init "
+        f"({time.perf_counter() - t0:.1f}s)")
+    data = DataConfig(batch=b, seq_len=s)
+    batch0 = to_device(make_batch_np(cfg, data, 0), dev)
     with torch.no_grad():
-        ref_loss, _ = model.loss(params, to_device(make_batch_np(cfg, data, 0), dev))
-    ref_loss = ref_loss.item()
+        ref_loss = model.loss(params, batch0)[0].item()
+    if arch == "zamba2-2.7b":
+        _bf16_against_f32(model, params, batch0)
+    del batch0
 
     losses = []
     batches = PrefetchIterator(synthetic_batches(cfg, data))
@@ -1992,36 +2181,65 @@ def phase_train(dev, smi: str) -> dict:
     counts = K.launch_counts()
     # ----
     peak = torch.cuda.max_memory_allocated()
-    want = dict.fromkeys(KERNELS, 0)
-    want.update(flash_attention=TRAIN_STEPS * 2 * L, flash_attention_bwd=TRAIN_STEPS * L)
+    per_step = train_launches(model)
+    want = {k: TRAIN_STEPS * v for k, v in per_step.items()}
     if counts != want:
-        raise AssertionError(f"train: launches {counts}, expected {want}")
+        raise AssertionError(f"train {arch}: launches {counts}, expected {want}")
     loss = [m["loss"] for m in losses]
     for i, m in enumerate(losses):
-        log(f"[train] step {i} loss={m['loss']:.6f} ce={m['ce']:.6f} lr={m['lr']:.3e} "
-            f"gnorm={m['grad_norm']:.4f}")
-    if not all(math.isfinite(x) for x in loss) or not loss[-1] < loss[0]:
-        raise AssertionError(f"train: losses {loss} not finite or not decreasing")
+        aux = "".join(f" {k}={m[k]:.4f}" for k in ("load_balance_loss", "router_z_loss",
+                                                    "drop_fraction") if k in m)
+        log(f"[train] {tag} step {i} loss={m['loss']:.6f} ce={m['ce']:.6f} lr={m['lr']:.3e} "
+            f"gnorm={m['grad_norm']:.4f}{aux}")
+    if not all(math.isfinite(v) for m in losses for v in m.values()) or not loss[-1] < loss[0]:
+        raise AssertionError(f"train {arch}: losses {loss} (or metrics) not finite or not "
+                             f"decreasing")
     if not abs(loss[0] - ref_loss) <= 4e-3 * abs(ref_loss):
-        raise AssertionError(f"train: first step's loss {loss[0]} vs no-grad Model.loss "
+        raise AssertionError(f"train {arch}: first step's loss {loss[0]} vs no-grad Model.loss "
                              f"{ref_loss}")
-    s = trainer.latency_summary()
-    toks = TRAIN_B * TRAIN_S
-    log(f"[train] launches on the main path over {TRAIN_STEPS} steps: {counts} (a step: "
-        f"flash_attention {2 * L} = forward + remat recompute, flash_attention_bwd {L})")
-    log(f"[train] first step's loss {loss[0]:.6f} vs no-grad Model.loss of the same batch "
+    st = trainer.latency_summary()
+    toks = b * s
+    log(f"[train] {tag} launches on the main path over {TRAIN_STEPS} steps: "
+        f"{ {k: v for k, v in counts.items() if v} } (a step: "
+        f"{ {k: v for k, v in per_step.items() if v} })")
+    log(f"[train] {tag} first step's loss {loss[0]:.6f} vs no-grad Model.loss of the same batch "
         f"{ref_loss:.6f} (|diff| {abs(loss[0] - ref_loss):.2e}; band 4e-3 relative)")
-    log(f"[train] train_step ({TRAIN_B} x {TRAIN_S} tokens, {s.n} steps after the first): "
-        f"mean {s.mean * 1e3:.3f} ms cv {s.cv:.4f} p99 {s.p99 * 1e3:.3f} ms -> "
-        f"{toks / s.mean:.1f} tokens/s; fit {fit_s:.3f}s; peak memory "
-        f"{peak / 1e9:.3f} GB (torch.cuda.max_memory_allocated); card {smi}")
+    log(f"[train] {tag} train_step ({b} x {s} tokens, {st.n} steps after the first): mean "
+        f"{st.mean * 1e3:.3f} ms cv {st.cv:.4f} p99 {st.p99 * 1e3:.3f} ms -> "
+        f"{toks / st.mean:.1f} tokens/s; fit {fit_s:.3f}s; peak memory {peak / 1e9:.3f} GB "
+        f"(torch.cuda.max_memory_allocated); card {smi}")
     batch = to_device(make_batch_np(cfg, data, TRAIN_STEPS), dev)
-    busy = _train_step_busy(model, params, opt_state, batch, opt, s.mean)
-    del params, opt_state, trainer, batch
+    prof = _train_step_busy(model, params, opt_state, batch, opt, st.mean, tag)
+    del params, opt_state, trainer, batch, batches
     torch.cuda.empty_cache()
+    log(f"[train] {tag} {time.perf_counter() - t0:.1f}s")
+    return dict(counts=counts, peak_gb=peak / 1e9, step_ms=st.mean * 1e3, **prof)
+
+
+def phase_train(dev, smi: str) -> dict:
+    """The training paths of TRAIN_PATHS (``train_path`` each), then on
+    smoke models: a checkpoint round trip on the card (a trained state
+    saved, loaded, equal bit for bit), and rwkv6-3b and zamba2-2.7b under
+    grad on the card against the CPU (launches held exactly, the loss
+    within 1e-5 relative, every gradient leaf nonzero and within 1e-3 of its
+    largest element: the scans' forward kernels against the step
+    recurrences, and the chunked forms' gradients on both devices).
+    Returns each path's launch counts and measurements."""
+    import tempfile
+
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.train import (AdamWConfig, DataConfig, TrainConfig, Trainer,
+                                   load_checkpoint, make_batch_np, save_checkpoint,
+                                   synthetic_batches)
+    from repro_torch.train.optimizer import _walk
+
+    t0 = time.perf_counter()
+    res = {arch: train_path(dev, smi, arch, cut) for arch, cut in TRAIN_PATHS.items()}
 
     # ---- smoke: a checkpoint round trip on the card
-    small = Model(get_config(TRAIN_ARCH, smoke=True))
+    small = Model(get_config("qwen3-4b", smoke=True))
     tr = Trainer(small, dev, TrainConfig(opt=AdamWConfig(lr=1e-3, warmup_steps=1,
                                                          total_steps=4)))
     p_s, o_s = tr.init(1)
@@ -2041,27 +2259,40 @@ def phase_train(dev, smi: str) -> dict:
     log(f"[train] smoke checkpoint round trip on the card: {len(flat)} leaves and the step "
         f"equal bit for bit ({Path(where).name})")
 
-    # ---- smoke: the scans refuse to train on the card, launching nothing
+    # ---- smoke: the scan families' gradients on the card against the CPU
     for arch in ("rwkv6-3b", "zamba2-2.7b"):
         m = Model(get_config(arch, smoke=True))
-        p = m.init(1, device=dev)
-        for _, leaf in _walk(p):
-            leaf.requires_grad_()
-        K.reset_launch_counts()
-        try:
-            m.loss(p, to_device(make_batch_np(m.cfg, DataConfig(2, 64), 0), dev))
-        except NotImplementedError as e:
-            msg = str(e)
-        else:
-            raise AssertionError(f"train: {arch} trained on the card without a scan backward")
-        scans = {k: v for k, v in K.launch_counts().items() if k in ("rwkv6_wkv", "mamba2_ssd")}
-        if any(scans.values()):
-            raise AssertionError(f"train: {arch} launched {scans} before raising")
-        log(f"[train] {arch} smoke under grad on the card raises NotImplementedError "
-            f"({msg[:70]}...); scan launches {scans}")
+        p_cpu = m.init(1, device="cpu")
+        batch = make_batch_np(m.cfg, DataConfig(2, 64), 0)
+        out = {}
+        for where, params in (("cpu", p_cpu), ("card", to_device(p_cpu, dev))):
+            leaves = [p.requires_grad_() for _, p in _walk(params)]
+            K.reset_launch_counts()
+            loss, _ = m.loss(params, {k: torch.from_numpy(v).to(leaves[0].device)
+                                      for k, v in batch.items()})
+            grads = torch.autograd.grad(loss, leaves)
+            out[where] = (loss.item(), [g.cpu() for g in grads], K.launch_counts())
+        if out["card"][2] != train_launches(m) or any(out["cpu"][2].values()):
+            raise AssertionError(f"train: {arch} smoke launches {out['card'][2]} on the card, "
+                                 f"{out['cpu'][2]} on the CPU; expected {train_launches(m)}")
+        if not abs(out["card"][0] - out["cpu"][0]) <= 1e-5 * abs(out["cpu"][0]):
+            raise AssertionError(f"train: {arch} smoke loss {out['card'][0]} on the card vs "
+                                 f"{out['cpu'][0]} on the CPU")
+        worst = 0.0
+        for g, w in zip(out["card"][1], out["cpu"][1]):
+            scale = max(w.abs().max().item(), 1e-30)
+            err = (g - w).abs().max().item()
+            if not g.abs().max() > 0 or not err <= 1e-3 * scale:
+                raise AssertionError(f"train: {arch} smoke gradients on the card differ from "
+                                     f"the CPU's: {err:.3e} of {scale:.3e}")
+            worst = max(worst, err / scale)
+        log(f"[train] {arch} smoke (f32) under grad on the card: launches "
+            f"{ {k: v for k, v in out['card'][2].items() if v} }; loss {out['card'][0]:.6f} vs "
+            f"CPU {out['cpu'][0]:.6f}; {len(out['cpu'][1])} gradient leaves, all nonzero, within "
+            f"{worst:.2e} of each leaf's largest element (band 1e-3)")
     torch.cuda.empty_cache()
     log(f"[train] phase {time.perf_counter() - t0:.1f}s")
-    return dict(counts=counts, busy=busy, peak_gb=peak / 1e9)
+    return res
 
 
 def main() -> int:
@@ -2109,10 +2340,10 @@ def main() -> int:
     launches["decode_attention"] += mt_decode
     for name in KERNELS:
         by_path[name]["multi_tenant"] = mt_decode if name == "decode_attention" else 0
-    train = phase_train(dev, smi)
-    for name in KERNELS:
-        launches[name] += train["counts"][name]
-        by_path[name]["train"] = train["counts"][name]
+    for arch, res in phase_train(dev, smi).items():
+        for name in KERNELS:
+            launches[name] += res["counts"][name]
+            by_path[name][f"train:{arch}"] = res["counts"][name]
     times = phase_times(dev)
 
     rows = []

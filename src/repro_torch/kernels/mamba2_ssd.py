@@ -11,6 +11,12 @@ tensor cores in split TF32 and carries its rows of the (P×N) f32 state
 across them.  ``chunk`` and ``head_block`` are checked as the reference
 checks them and do not change the result (see the source's note).  The
 launch counter counts calls.
+
+``Mamba2SSD`` puts the kernel on the training path: its forward is the
+kernel (the plain version on a CPU tensor), and its gradient is that of the
+reference's chunked form, ``ref.mamba2_ssd_chunked``, recomputed in the
+backward under autograd at the model's ``ssm_chunk``, the chunk
+``jax.value_and_grad`` differentiates in the reference.
 """
 from __future__ import annotations
 
@@ -19,9 +25,10 @@ import ctypes
 import torch
 
 from . import _build
+from . import ref as _ref
 
-__all__ = ["mamba2_ssd_cuda", "check_mamba2_inputs", "occupancy", "MAX_DIM", "SUB_TILE",
-           "STATE_ROWS"]
+__all__ = ["mamba2_ssd_cuda", "Mamba2SSD", "check_mamba2_inputs", "occupancy", "MAX_DIM",
+           "SUB_TILE", "STATE_ROWS"]
 
 MAX_DIM = 64         # the kernel's largest head width P and state size N (multiples of 4)
 SUB_TILE = 64        # rows the kernel walks at a time, whatever the chunk
@@ -98,3 +105,30 @@ def mamba2_ssd_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
 
 
 mamba2_ssd_cuda.launches = 0
+
+
+class Mamba2SSD(torch.autograd.Function):
+    """The SSD scan from a zero state with its gradient: on CUDA tensors the
+    forward kernel, on CPU tensors the step recurrence; the backward
+    recomputes ``ref.mamba2_ssd_chunked`` at ``chunk`` on the saved inputs
+    and differentiates it (dx, ddt, da, dB, dC)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
+                cmat: torch.Tensor, chunk: int, head_block: int) -> torch.Tensor:
+        if x.device.type == "cuda":
+            y = mamba2_ssd_cuda(x, dt, a, bmat, cmat, chunk, head_block)
+        else:
+            y = _ref.mamba2_ssd_ref(x, dt, a, bmat, cmat)
+        ctx.save_for_backward(x, dt, a, bmat, cmat)
+        ctx.chunk = chunk
+        return y
+
+    @staticmethod
+    def backward(ctx, dy: torch.Tensor):
+        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            y, _ = _ref.mamba2_ssd_chunked(*inputs, ctx.chunk)
+        grads = torch.autograd.grad(y, inputs, dy)
+        return (*(g if need else None for g, need in zip(grads, ctx.needs_input_grad)),
+                None, None)

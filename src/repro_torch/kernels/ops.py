@@ -6,13 +6,17 @@ tensor takes the kernel's plain PyTorch version in ``ref.py``.  There is
 no other switch.  Each kernel wrapper counts its launches, so a run can
 show that its main path went through the kernels.
 
-Gradients: on the CPU every op is its plain version, differentiated by
-autograd.  On a CUDA tensor under grad with an input that requires grad,
-``flash_attention`` applies ``FlashAttention`` (the forward kernel, and the
-backward kernel for its gradient); the three other kernels have no
-backward kernel yet and raise ``NotImplementedError`` there, since their
-ctypes launches would hand autograd an output cut from its inputs.
-Without grad every op makes its plain launch.
+Gradients: under grad with an input that requires grad, on either device,
+``flash_attention`` applies ``FlashAttention`` (on the card the forward
+kernel, and the backward kernel for its gradient), and the two scans apply
+``RWKV6WKV`` and ``Mamba2SSD`` (on the card the forward kernel; the
+gradient is that of the reference's chunked form, recomputed in the
+backward under autograd).  On the CPU those Functions' forwards are the
+plain versions, so the CPU runs the backward that the card runs.
+``decode_attention`` has no backward and raises ``NotImplementedError`` on
+a CUDA tensor under grad, since its ctypes launch would hand autograd an
+output cut from its inputs (decode runs without grad).  Without grad every
+op makes its plain launch.
 """
 from __future__ import annotations
 
@@ -23,8 +27,8 @@ import torch
 from . import ref as _ref
 from .decode_attention import decode_attention_cuda
 from .flash_attention import FlashAttention, flash_attention_bwd_cuda, flash_attention_cuda
-from .mamba2_ssd import check_mamba2_inputs, mamba2_ssd_cuda
-from .rwkv6_scan import check_rwkv6_inputs, rwkv6_wkv_cuda
+from .mamba2_ssd import Mamba2SSD, check_mamba2_inputs, mamba2_ssd_cuda
+from .rwkv6_scan import RWKV6WKV, check_rwkv6_inputs, rwkv6_wkv_cuda
 
 __all__ = ["flash_attention", "decode_attention", "rwkv6_wkv", "mamba2_ssd",
            "launch_counts", "reset_launch_counts"]
@@ -51,12 +55,12 @@ def _needs_grad(*ts: torch.Tensor) -> bool:
 
 
 def _no_backward(name: str, *ts: torch.Tensor) -> None:
-    """Raise for a CUDA op under grad whose kernel has no backward yet."""
+    """Raise for a CUDA op under grad whose kernel has no backward."""
     if _needs_grad(*ts):
         raise NotImplementedError(
-            f"{name} has no backward kernel yet: its gradient on the card waits for "
-            f"ROADMAP.md Queue 1 step 6b (backward kernels for the WKV and SSD scans; "
-            f"decode runs without grad); on the CPU its plain version is differentiable")
+            f"{name} has no backward: decode runs without grad (serving), and on the card "
+            f"its kernel's output would be cut from autograd's graph; on the CPU its plain "
+            f"version is differentiable")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -83,12 +87,20 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
 
 
 def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tensor,
-              u: torch.Tensor, chunk: int = 64) -> torch.Tensor:
+              u: torch.Tensor, chunk: int = 64,
+              grad_chunk: Optional[int] = None) -> torch.Tensor:
     """The RWKV6 WKV scan from a zero state: r, k, v, logw (B,S,H,K), u
-    (H,K) → y (B,S,H,K) float32.  ``chunk`` is checked on every device."""
+    (H,K) → y (B,S,H,K) float32.  ``chunk`` is checked on every device;
+    under grad the gradient is the chunked form's at ``grad_chunk``
+    (default ``chunk``), which must divide S."""
     check_rwkv6_inputs(r, k, v, logw, u, chunk)
-    if _on_cuda(r):
-        _no_backward("rwkv6_wkv", r, k, v, logw, u)
+    on_cuda = _on_cuda(r)
+    if _needs_grad(r, k, v, logw, u):
+        grad_chunk = chunk if grad_chunk is None else grad_chunk
+        if grad_chunk < 1 or r.shape[1] % grad_chunk:
+            raise ValueError(f"seq {r.shape[1]} not divisible by grad_chunk {grad_chunk}")
+        return RWKV6WKV.apply(r, k, v, logw, u, chunk, grad_chunk)
+    if on_cuda:
         return rwkv6_wkv_cuda(r, k, v, logw, u, chunk)
     return _ref.rwkv6_wkv_ref(r, k, v, logw, u)
 
@@ -97,10 +109,13 @@ def mamba2_ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, bmat: torch.T
                cmat: torch.Tensor, chunk: int = 64, head_block: int = 8) -> torch.Tensor:
     """The Mamba2 SSD scan from a zero state, one B/C group: x (B,S,H,P),
     dt (B,S,H), a (H,), B/C (B,S,N) → y (B,S,H,P) float32 without the
-    D-skip term.  ``chunk`` and ``head_block`` are checked on every device."""
+    D-skip term.  ``chunk`` and ``head_block`` are checked on every device;
+    under grad the gradient is the chunked form's at ``chunk``."""
     check_mamba2_inputs(x, dt, a, bmat, cmat, chunk, head_block)
-    if _on_cuda(x):
-        _no_backward("mamba2_ssd", x, dt, a, bmat, cmat)
+    on_cuda = _on_cuda(x)
+    if _needs_grad(x, dt, a, bmat, cmat):
+        return Mamba2SSD.apply(x, dt, a, bmat, cmat, chunk, head_block)
+    if on_cuda:
         return mamba2_ssd_cuda(x, dt, a, bmat, cmat, chunk, head_block)
     return _ref.mamba2_ssd_ref(x, dt, a, bmat, cmat)
 

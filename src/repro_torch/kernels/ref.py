@@ -15,7 +15,12 @@ version of the rows' log-sum-exp that the forward kernel writes for it.
 
 Scans: the step-by-step recurrences of the reference's ``rwkv6_wkv_ref``
 (through ``rwkv6_recurrent``) and ``mamba2_ssd_ref``, in float32 from a
-zero state, structurally unlike the chunked kernels they check.
+zero state, structurally unlike the chunked kernels they check.  Beside
+them the chunked forms that the reference differentiates,
+``rwkv6_wkv_chunked`` (its ``models/rwkv6.py::_wkv_chunked``) and
+``mamba2_ssd_chunked`` (``models/mamba2.py::_ssd_chunked``), each from an
+initial state to a final one: the scan kernels' autograd Functions
+recompute them for the gradient.
 
 The kernel wrappers use these for CPU tensors; ``chip_smoke.py`` holds
 each kernel against them on the card.
@@ -29,7 +34,8 @@ import torch
 
 __all__ = ["NEG_INF", "flash_attention_ref", "flash_attention_lse_ref", "flash_attention_bwd_ref",
            "decode_attention_ref", "attention_mask",
-           "rwkv6_recurrent", "rwkv6_wkv_ref", "mamba2_ssd_ref"]
+           "rwkv6_recurrent", "rwkv6_wkv_ref", "rwkv6_wkv_chunked", "mamba2_ssd_ref",
+           "mamba2_ssd_chunked"]
 
 NEG_INF = -1e30
 
@@ -156,6 +162,92 @@ def rwkv6_wkv_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s0 = torch.zeros((b, h, dk, dk), dtype=torch.float32, device=r.device)
     y, _ = rwkv6_recurrent(r.float(), k.float(), v.float(), logw.float(), u.float(), s0)
     return y
+
+
+def _masked_exp(x: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
+    """``where(keep, exp(x), 0)`` with the dropped entries zeroed before the
+    exp as well as after.  The value is the reference's ``jnp.where(tri,
+    jnp.exp(x), 0.0)`` bit for bit.  Its gradient is the reference's
+    wherever that is finite: above the diagonal the log-decay differences
+    are positive and exp overflows to inf at strong decay (zamba2's 256-row
+    chunk at its initial dt·A ≈ -0.69, or logw = -25), and the reference's
+    gradient there is 0·inf = NaN."""
+    return torch.where(keep, torch.exp(torch.where(keep, x, 0.0)), 0.0)
+
+
+def _carry(inputs: torch.Tensor, decay: torch.Tensor,
+           s0: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The chunk-to-chunk carry ``s ← s·decay_c + inputs_c`` over the chunk
+    axis 1, one Python step per chunk (the reference's ``lax.scan``):
+    inputs (B,nc,H,X,Y), decay (B,nc,H,X,1) or (B,nc,H,1,1) → (the state
+    entering each chunk (B,nc,H,X,Y), the final state)."""
+    s, starts = s0, []
+    for c in range(inputs.shape[1]):
+        starts.append(s)
+        s = s * decay[:, c] + inputs[:, c]
+    return torch.stack(starts, dim=1), s
+
+
+def rwkv6_wkv_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      logw: torch.Tensor, u: torch.Tensor, chunk: int,
+                      s0: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The reference's chunked WKV scan (``_wkv_chunked``) in float32: r, k,
+    v, logw (B,S,H,K), u (H,K), state s0 (B,H,K,K) → (y (B,S,H,K), final
+    state).  Within a chunk the pairwise decays ``exp(cum[t-1] - cum[u])``
+    of the strictly lower triangle (the exp after the difference); across
+    chunks the state carried one chunk at a time."""
+    b, s, h, dk = r.shape
+    if s % chunk:
+        raise ValueError(f"seq {s} not divisible by chunk {chunk}")
+    nc = s // chunk
+    rc, kc, vc, lw = (t.reshape(b, nc, chunk, h, dk) for t in (r, k, v, logw))
+    cum = torch.cumsum(lw, dim=2)                                   # inclusive
+    total = cum[:, :, -1]                                           # (b,nc,h,k)
+    cum_tm1 = torch.cat([torch.zeros_like(cum[:, :, :1]), cum[:, :, :-1]], dim=2)
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=r.device), -1)
+    pair = _masked_exp(cum_tm1[:, :, :, None] - cum[:, :, None],  # (b,nc,t,u,h,k)
+                       tri[:, :, None, None])
+    amat = (rc[:, :, :, None] * kc[:, :, None] * pair).sum(-1)      # (b,nc,t,u,h)
+    diag = (rc * u * kc).sum(-1)                                    # (b,nc,t,h)
+    y_intra = torch.einsum("bltuh,bluhk->blthk", amat, vc) + diag[..., None] * vc
+    k_to_end = torch.exp(total[:, :, None] - cum) * kc              # decayed to chunk end
+    state_in = torch.einsum("bluhk,bluhj->blhkj", k_to_end, vc)     # (b,nc,h,k,k)
+    s_starts, s_final = _carry(state_in, torch.exp(total)[..., None], s0)
+    y_inter = torch.einsum("blthk,blhkj->blthj", rc * torch.exp(cum_tm1), s_starts)
+    return (y_intra + y_inter).reshape(b, s, h, dk), s_final
+
+
+def mamba2_ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                       bmat: torch.Tensor, cmat: torch.Tensor, chunk: int,
+                       h0: Optional[torch.Tensor] = None
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The reference's chunked SSD scan (``_ssd_chunked``) in float32: x
+    (B,S,H,P), dt (B,S,H), a (H,), B/C (B,S,N), state h0 (B,H,P,N) or None
+    for zeros → (y (B,S,H,P) without the D-skip term, final state).  Within
+    a chunk the decays ``exp(cum[t] - cum[u])`` of the inclusive lower
+    triangle; across chunks the state carried one chunk at a time."""
+    b, s, nh, p = x.shape
+    n = bmat.shape[-1]
+    if s % chunk:
+        raise ValueError(f"seq {s} not divisible by ssm_chunk {chunk}")
+    nc = s // chunk
+    xr = x.reshape(b, nc, chunk, nh, p)
+    dtr = dt.reshape(b, nc, chunk, nh)
+    br, cr = bmat.reshape(b, nc, chunk, n), cmat.reshape(b, nc, chunk, n)
+    cum = torch.cumsum(dtr * a, dim=2)                              # (b,nc,l,h) inclusive
+    total = cum[:, :, -1:]                                          # (b,nc,1,h)
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=x.device))
+    wmat = _masked_exp(cum[:, :, :, None] - cum[:, :, None], tri[:, :, None])  # (b,nc,t,u,h)
+    scores = torch.einsum("bltn,blun->bltu", cr, br)
+    gated = scores[..., None] * wmat * dtr[:, :, None]
+    y_intra = torch.einsum("bltuh,bluhp->blthp", gated, xr)
+    weighted = (torch.exp(total - cum) * dtr)[..., None] * xr       # (b,nc,l,h,p)
+    state_in = torch.einsum("blthp,bltn->blhpn", weighted, br)       # (b,nc,h,p,n)
+    if h0 is None:
+        h0 = torch.zeros((b, nh, p, n), dtype=x.dtype, device=x.device)
+    h_prev, h_final = _carry(state_in, torch.exp(total[:, :, 0])[..., None, None], h0.to(x.dtype))
+    y_inter = torch.einsum("bltn,blhpn->blthp", cr, h_prev) * torch.exp(cum)[..., None]
+    return (y_intra + y_inter).reshape(b, s, nh, p), h_final
 
 
 def mamba2_ssd_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,

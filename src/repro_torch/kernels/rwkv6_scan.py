@@ -13,6 +13,13 @@ on the tensor cores in split TF32 and carries its columns of the (K×K) f32
 state across tiles.  See the source's note for the arithmetic and what
 bounds it.  ``chunk`` is checked as the reference checks it and not passed
 on.  The launch counter counts calls.
+
+``RWKV6WKV`` puts the kernel on the training path: its forward is the
+kernel (the plain version on a CPU tensor), and its gradient is that of the
+reference's chunked form, ``ref.rwkv6_wkv_chunked``, recomputed in the
+backward under autograd at the reference's chunk.  The reference has no
+Pallas backward either: ``jax.value_and_grad`` differentiates the same
+chunked form.
 """
 from __future__ import annotations
 
@@ -21,9 +28,10 @@ import ctypes
 import torch
 
 from . import _build
+from . import ref as _ref
 
-__all__ = ["rwkv6_wkv_cuda", "check_rwkv6_inputs", "occupancy", "STATE_TILE", "FOLD_TILE",
-           "SUB_BLOCK", "STATE_COLUMNS", "MAX_HEAD_DIM"]
+__all__ = ["rwkv6_wkv_cuda", "RWKV6WKV", "check_rwkv6_inputs", "occupancy", "STATE_TILE",
+           "FOLD_TILE", "SUB_BLOCK", "STATE_COLUMNS", "MAX_HEAD_DIM"]
 
 STATE_TILE = 32      # the TPU kernel's _STATE_TILE, which its chunk check names
 FOLD_TILE = 32       # rows the kernel folds into the state at once
@@ -101,3 +109,34 @@ def rwkv6_wkv_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 rwkv6_wkv_cuda.launches = 0
+
+
+class RWKV6WKV(torch.autograd.Function):
+    """The WKV scan from a zero state with its gradient: on CUDA tensors the
+    forward kernel, on CPU tensors the step recurrence; the backward
+    recomputes ``ref.rwkv6_wkv_chunked`` at ``grad_chunk`` on the saved
+    inputs and differentiates it (dr, dk, dv, dlogw, du).  ``chunk`` is the
+    kernel's, checked and not used by the backward."""
+
+    @staticmethod
+    def forward(ctx, r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tensor,
+                u: torch.Tensor, chunk: int, grad_chunk: int) -> torch.Tensor:
+        if r.device.type == "cuda":
+            y = rwkv6_wkv_cuda(r, k, v, logw, u, chunk)
+        else:
+            y = _ref.rwkv6_wkv_ref(r, k, v, logw, u)
+        ctx.save_for_backward(r, k, v, logw, u)
+        ctx.grad_chunk = grad_chunk
+        return y
+
+    @staticmethod
+    def backward(ctx, dy: torch.Tensor):
+        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        r = inputs[0]
+        b, _, h, dk = r.shape
+        s0 = torch.zeros((b, h, dk, dk), dtype=torch.float32, device=r.device)
+        with torch.enable_grad():
+            y, _ = _ref.rwkv6_wkv_chunked(*inputs, ctx.grad_chunk, s0)
+        grads = torch.autograd.grad(y, inputs, dy)
+        return (*(g if need else None for g, need in zip(grads, ctx.needs_input_grad)),
+                None, None)

@@ -8,8 +8,10 @@ the CPU pass ``--device cpu`` with ``--smoke`` (the reduced config).  Runs
 on CUDA unless ``--device cpu`` is given, and fails without a card: it
 never moves to the CPU on its own.  One device only: ``--mesh`` takes
 ``local``; ``single``/``multi`` and ``--fsdp`` wait for the multi-GPU
-fleet (ROADMAP.md Queue 1 step 8).  The ssm and hybrid archs train on the
-CPU; on the card their scans have no backward kernel yet and raise.
+fleet (ROADMAP.md Queue 1 step 8).  Every arch trains on either device;
+on the card the ssm and hybrid archs (``--arch rwkv6-3b``,
+``--arch zamba2-2.7b``) run their scans' forward kernels, and the scans'
+gradients are those of the reference's chunked forms under autograd.
 Weights are random, from a ``torch.Generator`` seeded with 0.
 """
 from __future__ import annotations

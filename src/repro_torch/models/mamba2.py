@@ -4,9 +4,11 @@
     h_t = exp(dt_t · A) ⊙ h_{t-1} + dt_t · x_t ⊗ B_t        (per head)
     y_t = C_t · h_t + D ⊙ x_t
 
-The full-sequence form (prefill) runs the SSD scan through
+The full-sequence form (prefill, and training) runs the SSD scan through
 ``kernels.mamba2_ssd`` from a zero state, which is how the reference's
-``Model`` calls it (``state=None``; it drops the final state).  Decode is
+``Model`` calls it (``state=None``; it drops the final state); under grad
+its gradient is that of the reference's chunked form at ``ssm_chunk``,
+ported as ``_ssd_chunked`` (``kernels.ref.mamba2_ssd_chunked``).  Decode is
 the O(1) single-step update in plain torch, with the layer's state and conv
 tail updated in place (about 283 MB of state at zamba2-2.7b width and
 batch 4, which a functional copy per token would move for nothing).
@@ -24,6 +26,7 @@ import torch.nn.functional as F
 
 from repro_torch import kernels
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.ref import mamba2_ssd_chunked as _ssd_chunked  # noqa: F401
 from .layers import rmsnorm, rmsnorm_spec
 from .params import ParamSpec
 

@@ -5,9 +5,11 @@ channel-mix FFN.  Per head (dk = dv = head width):
     y_t = r_t · (S_{t-1} + diag(u) k_t v_tᵀ)
     S_t = diag(w_t) S_{t-1} + k_t v_tᵀ
 
-The full-sequence form (prefill) runs the WKV scan through
+The full-sequence form (prefill, and training) runs the WKV scan through
 ``kernels.rwkv6_wkv`` from a zero state, which is how the reference's
-``Model`` calls it (``state=None``; it drops the final state).  Decode is
+``Model`` calls it (``state=None``; it drops the final state); under grad
+its gradient is that of the reference's chunked form, ported as
+``_wkv_chunked`` (``kernels.ref.rwkv6_wkv_chunked``).  Decode is
 the O(1) recurrence in plain torch, with the layer's state updated in
 place: at rwkv6-3b width and batch 4 the states are about 84 MB, and a
 functional copy per token would move them through memory for nothing.
@@ -25,6 +27,7 @@ import torch.nn.functional as F
 
 from repro_torch import kernels
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.ref import rwkv6_wkv_chunked as _wkv_chunked  # noqa: F401
 from repro_torch.kernels.rwkv6_scan import STATE_TILE
 from .layers import rmsnorm, rmsnorm_spec
 from .params import ParamSpec
@@ -129,6 +132,15 @@ def _gate_and_out(params: Mapping[str, Any], y: torch.Tensor, g: torch.Tensor,
     return y @ params["wo"]
 
 
+def _largest_divisor(s: int, cap: int) -> int:
+    """The largest divisor of s up to cap (1 for s < 2), as the reference
+    picks its chunk (``rwkv6.py:219-221``)."""
+    chunk = min(cap, s) if s >= 2 else 1
+    while s % chunk:
+        chunk -= 1
+    return chunk
+
+
 def rwkv6_time_mix(params: Mapping[str, Any], x: torch.Tensor,
                    cfg: ModelConfig) -> torch.Tensor:
     """Full-sequence time mix from a zero state: x (B,S,d) normed → (B,S,d).
@@ -147,11 +159,11 @@ def rwkv6_time_mix(params: Mapping[str, Any], x: torch.Tensor,
     # the reference's fold tile that is not a multiple of it (48 at S = 96),
     # so the port takes the largest divisor of S up to min(ssm_chunk,
     # STATE_TILE), which passes it.  The CUDA kernel walks its own fold tile
-    # whatever the chunk, so the chunk does not change its work.
-    chunk = min(cfg.ssm_chunk, STATE_TILE, s)
-    while s % chunk:
-        chunk -= 1
-    y = kernels.rwkv6_wkv(r, k, v, logw, u, chunk)
+    # whatever the chunk, so the chunk does not change its work.  The
+    # gradient is the chunked form's at the reference's own chunk, the
+    # arithmetic that jax.value_and_grad differentiates.
+    y = kernels.rwkv6_wkv(r, k, v, logw, u, _largest_divisor(s, min(cfg.ssm_chunk, STATE_TILE)),
+                          grad_chunk=_largest_divisor(s, cfg.ssm_chunk))
     return _gate_and_out(params, y.reshape(b, s, d).to(x.dtype), g, cfg)
 
 

@@ -6,7 +6,8 @@ deadline policies and c_v are first-class training metrics too.
 The reference jits the step with mesh shardings; the port runs it eagerly
 on one device.  The gradient comes from ``torch.autograd.grad`` of
 ``Model.loss``: on the card through the flash attention kernels' forward
-and backward, on the CPU through the plain versions.
+and backward and the scans' forward kernels (their gradients the chunked
+forms' under autograd), on the CPU through the plain versions.
 """
 from __future__ import annotations
 

@@ -703,15 +703,31 @@ def _leaves(params):
     return [p for _, p in _walk(params)]
 
 
+def _train_launches(model) -> dict:
+    """The kernels' launches in one forward and backward of ``model.loss``:
+    per attention site the flash forward (twice with remat: the forward and
+    the recomputation) and its backward kernel once; per RWKV6 or Mamba2
+    layer its scan's forward kernel (twice with remat), whose gradient is
+    the chunked form's under autograd, launching nothing."""
+    cfg = model.cfg
+    fwd = 2 if cfg.remat else 1
+    sites = model.n_attn_sites()
+    return {"flash_attention": fwd * sites, "flash_attention_bwd": sites, "decode_attention": 0,
+            "rwkv6_wkv": fwd * cfg.num_layers if cfg.family == "ssm" else 0,
+            "mamba2_ssd": fwd * cfg.num_layers if cfg.family == "hybrid" else 0}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["qwen3-4b", "olmoe-1b-7b", "internvl2-1b", "hubert-xlarge"])
+@pytest.mark.parametrize("arch", ["qwen3-4b", "olmoe-1b-7b", "internvl2-1b", "hubert-xlarge",
+                                  "rwkv6-3b", "zamba2-2.7b"])
 def test_loss_gradients_on_card_match_cpu(dev, arch):
     """Model.loss and every gradient leaf of the smoke model (f32) through
-    the kernels (flash forward and backward) against the plain versions on
-    the CPU, which tests/test_torch_train.py holds against JAX.  Loss 1e-5
+    the kernels (flash forward and backward; the scans' forward kernels and
+    the chunked forms' gradients) against the plain versions on the CPU,
+    which tests/test_torch_train.py holds against JAX.  Loss 1e-5
     relative; gradients 1e-3 of each leaf's largest magnitude and 1e-3
     relative (cuBLAS and the CPU sum in different orders, as the prefill's
-    1e-3 above)."""
+    1e-3 above); every leaf's gradient nonzero on the card."""
     from repro_torch.configs import get_config
     from repro_torch.models import Model
     from repro_torch.train import DataConfig, make_batch_np
@@ -728,36 +744,56 @@ def test_loss_gradients_on_card_match_cpu(dev, arch):
                                       for k, v in batch.items()})
         grads = torch.autograd.grad(loss, leaves)
         out[d] = (loss.item(), [g.cpu() for g in grads], K.launch_counts())
-    assert out["cpu"][2]["flash_attention"] == 0
-    assert out["gpu"][2]["flash_attention"] == out["gpu"][2]["flash_attention_bwd"] \
-        == model.cfg.num_layers
+    assert not any(out["cpu"][2].values())
+    assert out["gpu"][2] == _train_launches(model)
     np.testing.assert_allclose(out["gpu"][0], out["cpu"][0], rtol=1e-5)
     for g, w in zip(out["gpu"][1], out["cpu"][1]):
+        assert g.abs().max() > 0
         np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-3,
                                    atol=1e-3 * max(w.abs().max().item(), 1e-30))
 
 
 @pytest.mark.cuda
-def test_kernels_without_a_backward_raise_under_grad(dev):
-    """On the card the scans and decode attention raise under grad rather
-    than hand autograd an output cut from its inputs; without grad they
-    launch as before."""
-    r, k2, v2, w = (x.requires_grad_() for x in _randn(dev, "float32", 11, *[(1, 64, 2, 16)] * 4))
-    logw = -torch.nn.functional.softplus(w)
-    with pytest.raises(NotImplementedError, match="rwkv6_wkv.*backward"):
-        K.rwkv6_wkv(r, k2, v2, logw, torch.zeros(2, 16, device=dev), chunk=16)
-    x, bm, cm = _randn(dev, "float32", 12, (1, 64, 4, 16), (1, 64, 16), (1, 64, 16))
-    dt = torch.full((1, 64, 4), 0.1, device=dev, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="mamba2_ssd.*backward"):
-        K.mamba2_ssd(x, dt, -torch.ones(4, device=dev), bm, cm, chunk=16, head_block=4)
+def test_decode_raises_and_the_scans_train_under_grad(dev):
+    """Under grad on the card decode attention raises rather than hand
+    autograd an output cut from its inputs; the scans launch their forward
+    kernels (y equal to the launch without grad, bit for bit) and return a
+    gradient for every input, held against the same Functions on the CPU
+    (the step recurrences forward, the chunked forms' gradients, which
+    tests/test_torch_scan_grad.py holds against JAX) at 1e-4 of each
+    input's largest gradient."""
+    def check(op, name, ins, **kw):
+        cuda_in = [x.to(dev).requires_grad_() for x in ins]
+        cpu_in = [x.clone().requires_grad_() for x in ins]
+        n0 = K.launch_counts()[name]
+        y = op(*cuda_in, **kw)
+        assert K.launch_counts()[name] == n0 + 1 and y.grad_fn is not None
+        with torch.no_grad():
+            assert torch.equal(y, op(*cuda_in, **kw))
+        dy = torch.randn(y.shape, generator=torch.Generator().manual_seed(3))
+        got = torch.autograd.grad(y, cuda_in, dy.to(dev))
+        torch.cuda.synchronize()
+        want = torch.autograd.grad(op(*cpu_in, **kw), cpu_in, dy)
+        for g, w in zip(got, want):
+            assert g is not None and g.abs().max() > 0
+            np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), rtol=1e-4,
+                                       atol=1e-4 * w.abs().max().item())
+
+    cpu = torch.device("cpu")
+    r, k2, v2, w = _randn(cpu, "float32", 11, *[(2, 128, 2, 16)] * 4)
+    u, = _randn(cpu, "float32", 14, (2, 16))
+    check(K.rwkv6_wkv, "rwkv6_wkv", [r, k2, v2, -torch.nn.functional.softplus(w), u],
+          chunk=32, grad_chunk=64)
+    x, bm, cm = _randn(cpu, "float32", 12, (2, 128, 4, 16), (2, 128, 16), (2, 128, 16))
+    dt = torch.nn.functional.softplus(_randn(cpu, "float32", 15, (2, 128, 4))[0])
+    check(K.mamba2_ssd, "mamba2_ssd", [x, dt, -torch.ones(4), bm, cm], chunk=32, head_block=4)
     q, kc, vc = _randn(dev, "float32", 13, (2, 4, 32), (2, 64, 2, 32), (2, 64, 2, 32))
     pos = torch.arange(64, dtype=torch.int32, device=dev)
     npos = torch.tensor(63, dtype=torch.int32, device=dev)
-    with pytest.raises(NotImplementedError, match="decode_attention.*backward"):
+    with pytest.raises(NotImplementedError, match="decode_attention has no backward"):
         K.decode_attention(q.requires_grad_(), kc, vc, pos, npos)
     with torch.no_grad():
         K.decode_attention(q, kc, vc, pos, npos)
-        K.rwkv6_wkv(r, k2, v2, logw, torch.zeros(2, 16, device=dev), chunk=16)
 
 
 @pytest.mark.cuda
@@ -783,5 +819,35 @@ def test_flash_launches_per_train_step(dev, remat):
     L = model.cfg.num_layers
     assert K.launch_counts() == {"flash_attention": (2 if remat else 1) * L,
                                  "flash_attention_bwd": L, "decode_attention": 0,
-                                 "rwkv6_wkv": 0, "mamba2_ssd": 0}
+                                 "rwkv6_wkv": 0, "mamba2_ssd": 0} == _train_launches(model)
     assert torch.isfinite(metrics["loss"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,layers", [("rwkv6-3b", 3), ("zamba2-2.7b", 4)])
+@pytest.mark.parametrize("remat", [True, False])
+def test_scan_launches_per_train_step(dev, arch, layers, remat):
+    """A train step of the scan families: rwkv6-3b launches its WKV kernel
+    L times and, with remat, L more in the recomputation; zamba2-2.7b its
+    SSD kernel likewise per Mamba2 layer, and per site of the shared block
+    (one each 2 layers at smoke size, remat per site) the flash forward once
+    or twice and the backward kernel once.  The scans' gradients launch
+    nothing.  Every gradient leaf is finite and some nonzero."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.train import DataConfig, make_batch_np
+    from repro_torch.train.data import to_device
+
+    model = Model(get_config(arch, smoke=True).replace(num_layers=layers, remat=remat))
+    params = model.init(seed=2, device=dev)
+    leaves = [p.requires_grad_() for p in _leaves(params)]
+    batch = to_device(make_batch_np(model.cfg, DataConfig(2, 128), 0), dev)
+    K.reset_launch_counts()
+    loss, _ = model.loss(params, batch)
+    grads = torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize()
+    want = _train_launches(model)
+    assert K.launch_counts() == want
+    assert want["rwkv6_wkv" if arch == "rwkv6-3b" else "mamba2_ssd"] == (2 if remat else 1) * layers
+    assert torch.isfinite(loss) and all(torch.isfinite(g).all() for g in grads)
+    assert all(g.abs().max() > 0 for g in grads)

@@ -239,7 +239,9 @@ def _loss_and_grads(arch, data=DataConfig(batch=B, seq_len=S), step=0, **replace
 
 @pytest.mark.parametrize("arch", sorted(ARCHS))
 def test_loss_and_every_gradient_match_reference(arch):
-    """All ten archs (the ssm and hybrid families through the plain scans):
+    """All ten archs (the ssm and hybrid families through the scans'
+    autograd Functions: the step recurrences forward, the chunked forms'
+    gradients):
     internvl2's batch has patch embeddings and text, hubert's masked labels
     (8% of frames, the rest -1)."""
     (jl, jm, jg), (tl, tm, tg, tparams), batch = _loss_and_grads(arch)
