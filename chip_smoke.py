@@ -6,7 +6,8 @@
 Eight serving paths at full width, five hand-written kernels (the four
 forwards and the flash attention backward), the perception frame path,
 batched multi-camera perception and scenario replay (which run none of
-them), multi-tenant decode serving (decode_attention in every shared
+them), chaos at one shard (none either),
+multi-tenant decode serving (decode_attention in every shared
 step) and training (every family: the flash forward and backward
 kernels, and the scans' forward kernels with their chunked forms'
 gradients): qwen3-4b
@@ -146,6 +147,22 @@ Phases (each raises on failure; none is caught):
              Printed as information: the card reports' violations of
              tests/golden (those fixtures come from the reference's
              weights);
+7b. chaos — chaos at one shard (repro_torch.chaos and the scheduler's
+             resilience hooks), which runs none of the kernels: on the card,
+             urban_rush_hour replayed plain and with an empty fault plan
+             attached (byte-equal), then sensor_stall_storm's fault-free
+             base and the storm through the same scheduler, and the storm
+             through a CPU scheduler at the same capacity, all with the
+             port's seed-7 weights; the two storms' reports must agree as
+             phase 7's do and their ledgers event for event; the reference's
+             storm gates (fault_inject >= 10, nan_drop, watchdog and retry
+             >= 1, every recovery within 20 ticks); one capture per engine
+             through all four replays, each tick loop under
+             set_sync_debug_mode("error"), the storm's and its base's tick
+             wall printed with the card's name and power limit; then
+             python -m repro_torch.chaos --episode sensor_stall_storm --check
+             on the card, and the one-shard fleet under the storm (at most
+             one capture per engine, a non-empty ledger);
 8. multi_tenant — the multi-tenant runtime (repro_torch.runtime): the smoke
              qwen3-4b and rwkv6-3b engines in f32 on the card against the
              CPU (one queued workload, AlwaysAdmit: the same tokens, slots
@@ -1828,7 +1845,7 @@ def phase_scenarios(dev):
         # ---- one-shard fleet, as launch/serve.py --fleet runs it
         doc = serve_fleet(argparse.Namespace(batch=4, streams=FLEET_STREAMS, ticks=FLEET_TICKS,
                                              obs=False, slo_ms=None, json_out=None,
-                                             trace_out=None, device=str(dev)))
+                                             trace_out=None, device=str(dev), chaos=None))
         if doc["frames"] != FLEET_STREAMS * FLEET_TICKS or any(
                 c > 1 for c in doc["trace_counts"].values()):
             raise AssertionError(f"fleet: {doc['frames']} frames, captures {doc['trace_counts']}")
@@ -1842,6 +1859,112 @@ def phase_scenarios(dev):
     if any(counts.values()):
         raise AssertionError(f"scenarios: the replay path launched kernels {counts}")
     log(f"[scenarios] kernel launch counters over the phase: {counts}; phase "
+        f"{time.perf_counter() - t0:.1f}s")
+
+
+# ---- phase 7b: chaos at one shard (repro_torch.chaos)
+CHAOS_EPISODE = "sensor_stall_storm"
+# the reference's storm gates (tests/test_chaos.py:317-336)
+CHAOS_GATES = {"fault_inject": 10, "nan_drop": 1, "watchdog": 1, "retry": 1}
+CHAOS_RECOVERY_BOUND = 20
+
+
+def phase_chaos(dev, smi: str):
+    """The storm on the card against the CPU, its gates, one capture per
+    engine through it, an empty plan inert, the chaos CLI's gates and a
+    one-shard fleet under the storm (module docstring, phase 7b)."""
+    import argparse
+
+    from repro_torch import kernels as K
+    from repro_torch.batched import RungBucketScheduler
+    from repro_torch.chaos import FaultPlan, get_chaos_episode, run_chaos_episode
+    from repro_torch.chaos.__main__ import main as chaos_main
+    from repro_torch.launch.serve import serve_fleet
+    from repro_torch.scenarios import ScenarioReplayer, Tolerance, compare_reports, \
+        compile_trace, get_episode, golden_replay, replay_ladder
+    from repro_torch.scenarios.golden import GOLDEN_CAPACITY, GOLDEN_EPISODES, \
+        GOLDEN_TICK_SCALE
+
+    prev_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True        # torch's default, as phases 5 to 7
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        # ---- an empty plan attached is pure observation, on the card
+        name = "urban_rush_hour"
+        plain, sched = golden_replay(name, sentinel=TickLoopGuard(), device=str(dev))
+        trace = compile_trace(get_episode(name), seed=GOLDEN_EPISODES[name],
+                              tick_scale=GOLDEN_TICK_SCALE)
+        empty = ScenarioReplayer(trace, scheduler=sched, chaos=FaultPlan.empty()).run(
+            sentinel=TickLoopGuard())
+        if empty.chaos is not None or empty.to_json(indent=2) != plain.to_json(indent=2):
+            raise AssertionError(f"chaos: {name} with an empty plan differs from its plain "
+                                 f"replay on the card")
+
+        # ---- the storm's fault-free base, then the storm, on the card and the CPU
+        ep = get_chaos_episode(CHAOS_EPISODE)
+        base = compile_trace(get_episode(ep.base), seed=ep.seed, tick_scale=ep.tick_scale)
+        base_guard = TickLoopGuard()
+        ScenarioReplayer(base, scheduler=sched).run(sentinel=base_guard)
+        storms, guard = {}, TickLoopGuard()
+        cpu_sched = RungBucketScheduler(replay_ladder(), capacity=GOLDEN_CAPACITY, device="cpu")
+        for where, sch, g in (("card", sched, guard), ("cpu", cpu_sched, None)):
+            report, replayer, plan = run_chaos_episode(CHAOS_EPISODE, scheduler=sch, sentinel=g)
+            storms[where] = (report, replayer.injector.ledger)
+        (card, card_ledger), (cpu, cpu_ledger) = storms["card"], storms["cpu"]
+        problems = compare_reports(card.to_dict(), cpu.to_dict(), Tolerance(**REPLAY_TOL))
+        if problems:
+            raise AssertionError(f"chaos: the card's storm differs from the CPU's: "
+                                 + "; ".join(problems[:5]))
+        a, b = [e.to_dict() for e in card_ledger.events], [e.to_dict() for e in cpu_ledger.events]
+        if a != b:
+            i = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+            raise AssertionError(f"chaos: ledgers differ from event {i}: card {a[i:i + 1]}, "
+                                 f"cpu {b[i:i + 1]}")
+        counts = card_ledger.counts()
+        short = {k: counts.get(k, 0) for k, n in CHAOS_GATES.items() if counts.get(k, 0) < n}
+        recovery = card_ledger.recovery_times()
+        if short or not recovery or max(recovery) > CHAOS_RECOVERY_BOUND:
+            raise AssertionError(f"chaos: storm gates failed: counts {counts} (need "
+                                 f"{CHAOS_GATES}), recoveries {recovery}")
+        caps = {n: e.executor.step_captures for n, e in sched.engines.items()}
+        if any(c != 1 for c in caps.values()):
+            raise AssertionError(f"chaos: an engine captured its step again: {caps}")
+        ms_tick = guard.seconds / card.n_ticks * 1e3
+        base_ms = base_guard.seconds / base.n_ticks * 1e3
+        log(f"[chaos] {CHAOS_EPISODE}: card equals CPU ({len(card_ledger)} ledger events, "
+            f"counts {counts}, recoveries {recovery} ticks, {card.totals()['frames']} frames, "
+            f"clock {card.clock_s:.6f} s virtual); an empty plan on {name} byte-equal to its "
+            f"plain replay; step_captures per engine through golden, empty plan, base and "
+            f"storm {caps}")
+        log(f"[chaos] tick loop under set_sync_debug_mode('error'), {smi}: storm "
+            f"{guard.seconds:.3f} s wall for {card.n_ticks} ticks ({ms_tick:.3f} ms a tick); "
+            f"its fault-free base {ep.base} (seed {ep.seed}) {base_guard.seconds:.3f} s for "
+            f"{base.n_ticks} ticks ({base_ms:.3f} ms a tick)")
+
+        # ---- the chaos CLI's gates on the card (its own scheduler, capacity 3)
+        if chaos_main(["--episode", CHAOS_EPISODE, "--check", "--device", str(dev)]) != 0:
+            raise AssertionError("chaos: python -m repro_torch.chaos --check failed on the card")
+
+        # ---- a one-shard fleet under the storm, as launch/serve.py --fleet --chaos runs it
+        doc = serve_fleet(argparse.Namespace(batch=4, streams=FLEET_STREAMS, ticks=FLEET_TICKS,
+                                             obs=False, slo_ms=None, json_out=None,
+                                             trace_out=None, device=str(dev),
+                                             chaos=CHAOS_EPISODE))
+        if not doc.get("chaos", {}).get("events") or any(
+                c > 1 for c in doc["trace_counts"].values()):
+            raise AssertionError(f"chaos fleet: ledger {doc.get('chaos')}, captures "
+                                 f"{doc['trace_counts']}")
+        log(f"[chaos] fleet {FLEET_STREAMS} x {FLEET_TICKS} under {CHAOS_EPISODE}: ledger "
+            f"{doc['chaos']['counts']}, captures {doc['trace_counts']}, {doc['frames']} "
+            f"frames, {doc['wall_s']:.3f} s wall")
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev_tf32
+        torch.cuda.set_sync_debug_mode("default")
+    counts = K.launch_counts()
+    if any(counts.values()):
+        raise AssertionError(f"chaos: the chaos path launched kernels {counts}")
+    log(f"[chaos] kernel launch counters over the phase: {counts}; phase "
         f"{time.perf_counter() - t0:.1f}s")
 
 
@@ -2336,6 +2459,7 @@ def main() -> int:
     phase_perception(dev)
     phase_batched(dev)
     phase_scenarios(dev)
+    phase_chaos(dev, smi)
     mt_decode = phase_multi_tenant(dev)
     launches["decode_attention"] += mt_decode
     for name in KERNELS:

@@ -6,8 +6,9 @@ the RWKV6 WKV scan and the Mamba2 SSD scan; of training (``train``:
 AdamW, the loop, data and checkpoints, with a hand-written backward
 kernel for flash attention); and of the perception path:
 single-stream pipelines and the anytime ladder (``perception``,
-``anytime``), batched multi-camera serving (``batched``) and the
-observability layer (``obs``).
+``anytime``), batched multi-camera serving (``batched``), the
+observability layer (``obs``), scenario replay (``scenarios``) and
+deterministic fault injection at one shard (``chaos``).
 
 The JAX package ``repro`` stays the reference: every module here mirrors
 its counterpart's layout and semantics, and the parity tests

@@ -19,7 +19,7 @@
                 decisions account for batching delay (and, pipelined, for
                 pipeline depth).
 ``fleet``     — ``FleetPlacer``: predicted-cost seat choice over shards
-                (inert on one device).
+                (on one device only the dead set of a shard kill).
 """
 from .engine import BatchedPerceptionEngine, BatchedStreamState
 from .executor import Drained, PipelinedExecutor

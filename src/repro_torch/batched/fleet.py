@@ -1,9 +1,9 @@
 """Fleet placement: seat camera streams onto data shards (a copy of the
 reference's ``repro/batched/fleet.py``; pure Python on the shared
-``LadderCostModel``).  The port's engines run on one device, one shard, so
-the placer is inert there: the reference's scheduler seats through it
-only when its engines have more than one shard, which the multi-device
-fleet brings to the port.
+``LadderCostModel``).  The port's engines run on one device, one shard:
+the scheduler seats through the placer only when its engines have more
+than one shard, which the multi-device fleet brings to the port; at one
+shard it keeps the dead set of ``kill_shard``/``revive_shard``.
 
 On a mesh of devices, every rung engine's padded slot batch is partitioned
 into contiguous per-shard slot blocks — one block per device.  A

@@ -17,10 +17,12 @@ expected co-batch size next tick is approximated by its current rung's
 bucket size last tick (pessimistically, all active streams before any
 history).
 
-Not ported yet: the chaos/recovery hooks (resilience, shard kill and
-revive, ingest guard, retry gate, watchdog), and the fleet placement and
-cross-shard rebalance through ``FleetPlacer``, which need more than one
-shard (the multi-device fleet).
+The chaos/recovery hooks are ported at one shard: ``attach_resilience``,
+``kill_shard``/``revive_shard`` (through a ``FleetPlacer`` over one shard,
+so every victim of a kill is unseated, force-degraded and re-seated by the
+next tick's join), the ingest guard, the retry gate and the watchdog.
+Not ported yet: placement on more than one shard and the cross-shard
+rebalance, which need the multi-device fleet.
 """
 from __future__ import annotations
 
@@ -39,6 +41,7 @@ from ..perception.data import Scene, SceneConfig, generate_scene
 from ..perception.pipelines import build_pipeline
 
 from .engine import BatchedPerceptionEngine
+from .fleet import FleetPlacer
 
 __all__ = ["ScheduledStream", "TickResult", "RungBucketScheduler"]
 
@@ -108,9 +111,12 @@ class RungBucketScheduler:
         self.capacity = capacity
         self.ctl_cfg = ctl_cfg if ctl_cfg is not None else ControllerConfig()
         self.depth = depth
+        # one device, one data shard (more come with the multi-device fleet)
+        self.n_shards = 1
         # one cost model shared by every stream: latency is a property of
         # the shared accelerator, not of any one camera
         self.cost = LadderCostModel(ladder)
+        self.placer = FleetPlacer(self.cost, self.n_shards, pipeline_depth=depth)
         # one engine per rung, all at full capacity: any bucket split can
         # be seated and membership churn never changes a captured shape
         self.engines: Dict[str, BatchedPerceptionEngine] = {}
@@ -127,6 +133,13 @@ class RungBucketScheduler:
         self.clock = None
         self.stage_cost = None
         self.obs = None
+        # chaos/recovery: a ``repro_torch.chaos.FleetResilience`` (duck
+        # typed — the scheduler never imports chaos, so the dependency
+        # points one way).  None means every recovery path is inert.
+        self.resilience = None
+        # streams unseated by a shard evacuation: the normal tick join path
+        # re-seats them, and that join is ledgered as the completing failover
+        self._pending_reseat: set = set()
         self.set_virtual(clock, stage_cost)
         self.set_obs(obs)
 
@@ -171,8 +184,22 @@ class RungBucketScheduler:
         self._prev_rung.clear()
         self.ticks = 0
         self.cost = LadderCostModel(self.ladder)
+        self.placer = FleetPlacer(self.cost, self.n_shards, pipeline_depth=self.depth)
+        # resilience is per-episode state (health machines, armed faults):
+        # a reused scheduler must not leak one episode's quarantines into
+        # the next — the replayer re-attaches a fresh instance when asked
+        self.resilience = None
+        self._pending_reseat.clear()
         for eng in self.engines.values():
             eng.reset()
+
+    def attach_resilience(self, res) -> None:
+        """Attach a ``FleetResilience`` (None detaches).  With it attached
+        the scheduler gains its failure paths: NaN-frame quarantine at
+        ingest, bounded retry of transient step faults, a latency watchdog
+        that forces rung degrades, and survivable shard evacuation."""
+        self.resilience = res
+        self._pending_reseat.clear()
 
     def warm(self, probe_cfg: Optional[SceneConfig] = None) -> None:
         """Build every rung's batched step up front and seed the cost model
@@ -213,10 +240,51 @@ class RungBucketScheduler:
 
     def remove_stream(self, stream_id: str) -> ScheduledStream:
         st = self.streams.pop(stream_id)
+        self._pending_reseat.discard(stream_id)
         for eng in self.engines.values():
             if stream_id in eng.active:
                 eng.leave(stream_id)
         return st
+
+    # ---------------- shard failure / recovery ----------------
+    def kill_shard(self, shard: int) -> None:
+        """Declare ``shard`` lost and evacuate every stream seated on it.
+
+        Evacuation is slot churn only (captured shapes never change).  A
+        victim with no alive shard to move to — on one shard, every victim
+        — is unseated instead, its controller force-degraded (it re-enters
+        at lower fidelity), and queued on ``_pending_reseat`` for the next
+        tick's join to re-seat.  A shard out of range raises
+        ``ValueError`` (``FleetPlacer.mark_dead``)."""
+        res = self.resilience
+        self.placer.mark_dead(shard)
+        for rung_name in sorted(self.engines):
+            eng = self.engines[rung_name]
+            for sid in eng.streams_on(shard):
+                try:
+                    dst = self.placer.place(rung_name, eng.shard_occupancy(),
+                                            eng.slots_per_shard)
+                except RuntimeError:
+                    eng.leave(sid)
+                    self._pending_reseat.add(sid)
+                    st = self.streams.get(sid)
+                    if st is not None:
+                        st.controller.force_degrade()
+                    if res is not None:
+                        res.ledger.add(
+                            self.ticks, "degrade",
+                            f"evacuation capacity pressure: unseated from shard {shard}",
+                            stream=sid, shard=shard)
+                    continue
+                eng.migrate(sid, dst)
+                if res is not None:
+                    res.ledger.add(self.ticks, "failover",
+                                   f"evacuated {rung_name} stream from shard {shard}",
+                                   stream=sid, shard=dst)
+
+    def revive_shard(self, shard: int) -> None:
+        """Return ``shard`` to the placement pool (no eager migration)."""
+        self.placer.mark_alive(shard)
 
     # ---------------- the tick ----------------
     def _features(self, st: ScheduledStream, scene: Scene) -> SceneFeatures:
@@ -253,6 +321,14 @@ class RungBucketScheduler:
         if unknown:
             raise KeyError(f"scenes for unknown streams: {sorted(unknown)}")
 
+        # chaos/recovery ingest guard: quarantined streams are skipped,
+        # non-finite frame payloads are dropped and fault-counted — on the
+        # host images, before any frame is staged for the device.  With no
+        # resilience attached (or a healthy fleet) the tick below is
+        # unchanged.
+        if self.resilience is not None:
+            scenes = self._guard_ingest(scenes)
+
         # dropout-aware: a seated stream with no frame this tick is a
         # dropped sensor frame, not an error — count it, serve the rest
         for sid, st in self.streams.items():
@@ -288,6 +364,22 @@ class RungBucketScheduler:
             for sid in members:
                 if sid not in eng.active:
                     eng.join(sid)
+                    if sid in self._pending_reseat and self.resilience is not None:
+                        # the deferred half of a shard evacuation lands
+                        self._pending_reseat.discard(sid)
+                        self.resilience.ledger.add(
+                            self.ticks, "failover",
+                            "re-seated after evacuation capacity pressure", stream=sid,
+                            shard=-1)
+            # transient step faults: the resilience layer arms N failures;
+            # each bucket step retries through them with exponential
+            # backoff, aborting (the bucket drops one tick) past max_retries
+            if self.resilience is not None and self.resilience.armed:
+                if not self._retry_gate(rung_name):
+                    for sid in members:
+                        self.streams[sid].drops += 1
+                    buckets[rung_name] = []
+                    continue
             payload = {
                 sid: (scenes[sid], budgets[sid] if budgets is not None
                       else self.streams[sid].budget_s)
@@ -305,8 +397,95 @@ class RungBucketScheduler:
                 for record, outs, echoed in eng.flush():
                     self._account_drain(rung_name, record, outs, echoed, latencies, outputs,
                                         rows)
+
+        # 4. watchdog: a served frame that blew past its deadline by the
+        # watchdog factor is a wedged tick, not ordinary jitter — fault
+        # the stream's health machine and force its rung down now
+        if self.resilience is not None:
+            self._watchdog(rows)
         self.ticks += 1
         return TickResult(buckets=buckets, latencies=latencies, outputs=outputs, rows=rows)
+
+    # ---------------- chaos/recovery paths ----------------
+    def _guard_ingest(self, scenes: Mapping[str, Scene]) -> Dict[str, Scene]:
+        """Health-gate this tick's frames: age quarantine probations, skip
+        quarantined streams, drop non-finite payloads (fault-counting the
+        stream: repeated garbage escalates to quarantine).  Finiteness is
+        read from the host NumPy image, so the guard costs no device
+        synchronisation."""
+        res = self.resilience
+        for sid in res.age_quarantine(self.ticks):
+            res.ledger.add(self.ticks, "probation",
+                           "quarantine aged out: stream on probation", stream=sid)
+        out: Dict[str, Scene] = {}
+        for sid, scene in scenes.items():
+            if res.is_quarantined(sid):
+                res.ledger.add(self.ticks, "skip", "quarantined stream skipped", stream=sid)
+                continue
+            if not np.all(np.isfinite(np.asarray(scene.image))):
+                res.ledger.add(self.ticks, "nan_drop",
+                               "non-finite frame payload dropped at ingest", stream=sid)
+                self._apply_fault_action(sid, res.note_fault(sid, self.ticks))
+                continue
+            out[sid] = scene
+        return out
+
+    def _apply_fault_action(self, sid: str, action: str) -> None:
+        """Translate a health-machine verdict into scheduler state."""
+        res = self.resilience
+        if action == "degrade":
+            st = self.streams.get(sid)
+            if st is not None and st.controller.force_degrade():
+                res.ledger.add(self.ticks, "degrade", "health degrade: rung forced down",
+                               stream=sid)
+        elif action == "quarantine":
+            res.ledger.add(self.ticks, "quarantine",
+                           "fault threshold reached: stream quarantined", stream=sid)
+
+    def _retry_gate(self, rung_name: str) -> bool:
+        """Burn through armed transient step faults with bounded
+        exponential backoff (virtual time when a clock is wired).  True
+        means the bucket may serve; False aborts it for this tick."""
+        res = self.resilience
+        for attempt in range(res.cfg.max_retries + 1):
+            if not res.take_step_fault():
+                if attempt:
+                    res.ledger.add(
+                        self.ticks, "retry",
+                        f"{rung_name} step served after {attempt} "
+                        f"retr{'y' if attempt == 1 else 'ies'}",
+                        value=float(attempt))
+                return True
+            backoff = res.cfg.backoff_base_s * (2 ** attempt)
+            if self.clock is not None:
+                self.clock.advance(backoff)
+            res.ledger.add(self.ticks, "retry",
+                           f"transient {rung_name} step fault: backing off "
+                           f"{backoff * 1e3:.1f}ms", value=backoff)
+        res.ledger.add(self.ticks, "abort",
+                       f"retries exhausted: {rung_name} bucket dropped this tick",
+                       value=float(res.cfg.max_retries))
+        return False
+
+    def _watchdog(self, rows: list) -> None:
+        res = self.resilience
+        scale = res.cfg.watchdog_scale
+        for r in rows:
+            sid = r["stream"]
+            if r["latency_s"] > scale * r["budget_s"]:
+                res.ledger.add(
+                    self.ticks, "watchdog",
+                    f"latency {r['latency_s'] * 1e3:.2f}ms > "
+                    f"{scale:g}x budget {r['budget_s'] * 1e3:.2f}ms",
+                    stream=sid, value=r["latency_s"])
+                self._apply_fault_action(sid, res.note_fault(sid, self.ticks))
+            else:
+                healthy_after = res.note_clean(sid, self.ticks)
+                if healthy_after is not None:
+                    res.ledger.add(
+                        self.ticks, "recover",
+                        f"healthy after {healthy_after} ticks degraded",
+                        stream=sid, value=float(healthy_after))
 
     def _account_drain(self, rung_name, record, outs, echoed, latencies, outputs, rows) -> None:
         """Account one drained engine tick: a cost-model observation at its

@@ -21,11 +21,13 @@ CV, p99, miss rate per stream; ``--anytime`` degrades a stream's SLO down
         --batch 8 --context 1024 --prompt-len 64 --streams 16
 
 Camera fleet (``--fleet``): N camera streams served by the rung-bucket
-scheduler under deterministic virtual time, on one device (``--mesh``
-and ``--chaos`` are not ported yet)::
+scheduler under deterministic virtual time, on one device (``--mesh`` is
+not ported yet); ``--chaos PLAN`` injects faults from a ``FaultPlan`` JSON
+file or a one-shard chaos episode (``repro_torch.chaos``) and arms the
+scheduler's resilience paths::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --fleet --streams 8 \
-        --ticks 40 --json-out fleet.json
+        --ticks 40 --json-out fleet.json [--chaos sensor_stall_storm]
 
 Runs on CUDA unless ``--device cpu`` is given (a CPU run is for checking
 control flow at ``--smoke`` size; its times are not the card's).
@@ -166,15 +168,38 @@ def serve_multi_tenant(args, cfg, model, params) -> None:
         )
 
 
+def _chaos_plan(spec: str, sids: list, n_ticks: int):
+    """``--chaos``'s ``FaultPlan``: a plan JSON file, or a chaos episode's
+    spec compiled over the fleet's streams and ticks at its seed."""
+    import os
+
+    from repro_torch.chaos import FaultPlan, compile_plan, get_chaos_episode
+    if os.path.exists(spec):
+        return FaultPlan.load(spec)
+    try:
+        ep = get_chaos_episode(spec)
+    except KeyError:
+        raise SystemExit(f"--chaos: {spec!r} is neither a FaultPlan JSON file nor a "
+                         f"known chaos episode") from None
+    if ep.mesh_data > 1:
+        raise SystemExit(f"--chaos: episode {ep.name!r} wants {ep.mesh_data} data shards: "
+                         f"the multi-device fleet is not ported yet (ROADMAP.md Queue 1 "
+                         f"step 8)")
+    return compile_plan(ep.spec, sids, n_ticks, seed=ep.seed)
+
+
 def serve_fleet(args) -> dict:
     """Camera-fleet mode: rung-bucket scheduling of ``--streams`` camera
     streams on one device, ticked under deterministic virtual time
-    (seeded ``ModeledStageCost``).  Returns the JSON report."""
+    (seeded ``ModeledStageCost``), with ``--chaos``'s faults injected when
+    given.  Returns the JSON report."""
     from repro_torch.batched.scheduler import RungBucketScheduler
     from repro_torch.perception.data import SceneConfig, generate_scene
     from repro_torch.scenarios.replay import ModeledStageCost, replay_ladder
 
     cap = max(args.batch, args.streams)
+    sids = [f"cam{i:02d}" for i in range(args.streams)]
+    plan = _chaos_plan(args.chaos, sids, args.ticks) if args.chaos else None
     clock = SimClock()
     ladder = replay_ladder()
     cost = ModeledStageCost(ladder, seed=0)
@@ -188,9 +213,17 @@ def serve_fleet(args) -> dict:
         sched.set_obs(obs)
     sched.warm(SceneConfig(scenario="city", seed=7))
     budget_s = args.slo_ms * 1e-3 if args.slo_ms is not None else 0.03
-    sids = [f"cam{i:02d}" for i in range(args.streams)]
     for sid in sids:
         sched.add_stream(sid, budget_s)
+
+    injector = ledger = None
+    if plan is not None:
+        from repro_torch.chaos import ChaosLedger, FaultInjector, FleetResilience
+        ledger = ChaosLedger(obs=obs)
+        injector = FaultInjector(plan, ledger=ledger)
+        sched.attach_resilience(FleetResilience(ledger=ledger))
+        print(f"chaos: plan {plan.name!r} armed "
+              f"({len(plan.events)} fault event(s) over {plan.n_ticks} ticks)")
 
     rng = np.random.default_rng(0)
     frames = 0
@@ -201,6 +234,10 @@ def serve_fleet(args) -> dict:
                 SceneConfig(scenario="city", rain_mm_per_hour=float(
                     rng.choice([0.0, 0.0, 4.0])), seed=i), t)
             for i, sid in enumerate(sids)}
+        if injector is not None:
+            cost.contention = injector.latency_scale(t)
+            injector.pre_tick(t, sched)
+            scenes = injector.filter_scenes(t, scenes)
         res = sched.tick(scenes)
         frames += len(res.outputs)
     wall_s = time.perf_counter() - t_wall
@@ -224,9 +261,15 @@ def serve_fleet(args) -> dict:
         "shard_occupancy": occupancy,
         "report": sched.report(),
     }
+    if ledger is not None:
+        doc["chaos"] = ledger.to_dict()
     print(f"fleet: {args.streams} streams x {args.ticks} ticks on 1 shard "
           f"({args.device}): {frames} frames in {virtual_s*1e3:.1f}ms virtual "
           f"({doc['frames_per_vs']:.1f} frames/s), wall {wall_s:.2f}s")
+    if ledger is not None:
+        counts = ledger.counts()
+        print("chaos ledger: " + (" ".join(
+            f"{k}={v}" for k, v in counts.items()) or "no events"))
     for name, occ in occupancy.items():
         print(f"  {name}: shard occupancy {occ} (traces={traces[name]})")
     if args.json_out:
@@ -264,7 +307,10 @@ def main(argv=None) -> None:
     ap.add_argument("--json-out", default=None,
                     help="fleet mode: write the machine-readable run report here")
     ap.add_argument("--chaos", default=None, metavar="PLAN",
-                    help="fleet mode: fault injection (not ported yet)")
+                    help="fleet mode: inject faults from PLAN — a FaultPlan "
+                         "JSON file (repro_torch.chaos) or a one-shard chaos-"
+                         "episode name (e.g. sensor_stall_storm); arms the "
+                         "watchdog/failover resilience machinery")
     ap.add_argument("--arrival-rate", type=float, default=100.0,
                     help="multi-tenant Poisson arrival rate (streams/s, simulated)")
     ap.add_argument("--slo-ms", type=float, default=None,
@@ -298,9 +344,8 @@ def main(argv=None) -> None:
     if args.mesh is not None:
         ap.error("--mesh: the multi-device fleet is not ported yet "
                  "(ROADMAP.md Queue 1 step 8)")
-    if args.chaos is not None:
-        ap.error("--chaos: fault injection is not ported yet "
-                 "(ROADMAP.md Queue 1 step 7)")
+    if args.chaos is not None and not args.fleet:
+        ap.error("--chaos only applies to --fleet")
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("CUDA is not available; pass --device cpu to run on the CPU")
 

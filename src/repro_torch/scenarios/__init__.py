@@ -19,8 +19,8 @@ static scene generator into replayable episodes:
   golden regression fixtures (also a CLI: ``python -m
   repro_torch.scenarios --check``).
 
-The port of the reference's ``repro.scenarios``; chaos plans and device
-meshes come with later slices.
+The port of the reference's ``repro.scenarios``; the replayer takes
+chaos plans (``repro_torch.chaos``); device meshes come with a later slice.
 """
 from .catalog import CATALOG, episode_names, get_episode
 from .golden import Tolerance, compare_reports, golden_replay

@@ -31,8 +31,9 @@ same randomness is drawn in the same order (one NumPy generator for the
 dropout, scenario and shutter-stagger draws of each stream and tick, and
 the cost model's own generator once per modeled stage), so a replay on
 the reference's detector weights gives the reference's report.  Weights
-come from ``params=`` (pipeline name → NumPy tree) or ``generator=``;
-chaos plans and device meshes are not ported yet and raise.
+come from ``params=`` (pipeline name → NumPy tree) or ``generator=``.
+``chaos=`` takes a compiled ``repro_torch.chaos.FaultPlan``; device meshes
+are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -214,15 +215,18 @@ class SegmentReport:
 
 @dataclasses.dataclass
 class VariationReport:
-    """The whole episode's replay outcome, segment by segment (the
-    reference's fault-free report: the chaos ledger field comes with the
-    chaos port)."""
+    """The whole episode's replay outcome, segment by segment."""
 
     episode: str
     seed: int
     n_ticks: int
     clock_s: float
     segments: list[SegmentReport]
+    # fault/recovery ledger dict when a chaos plan actually fired during
+    # the replay; None (and absent from the JSON) otherwise — so a
+    # fault-free run with chaos machinery attached serializes
+    # byte-identically to a plain run
+    chaos: Optional[dict] = None
 
     def totals(self) -> dict:
         frames = sum(s.frames for s in self.segments)
@@ -243,7 +247,7 @@ class VariationReport:
         }
 
     def to_dict(self) -> dict:
-        return {
+        d = {
             "episode": self.episode,
             "seed": self.seed,
             "n_ticks": self.n_ticks,
@@ -251,6 +255,9 @@ class VariationReport:
             "totals": self.totals(),
             "segments": [s.to_dict() for s in self.segments],
         }
+        if self.chaos:
+            d["chaos"] = self.chaos
+        return d
 
     def to_json(self, indent: int | None = None) -> str:
         return json.dumps(self.to_dict(), sort_keys=True, indent=indent,
@@ -283,8 +290,11 @@ class ScenarioReplayer:
     value is kept on ``.requested_depth`` so a wall-clock harness can
     drive the same trace pipelined.
 
-    ``mesh=`` (a multi-device fleet) and ``chaos=`` (a fault plan) are not
-    ported yet and raise ``NotImplementedError`` when given.
+    ``chaos=`` takes a compiled ``repro_torch.chaos.FaultPlan``: it wires
+    the injector (pure plan lookups) and the scheduler's resilience layer
+    (health machines, watchdog, retry) into the replay.  ``mesh=`` (a
+    multi-device fleet) is not ported yet and raises
+    ``NotImplementedError``.
     """
 
     def __init__(
@@ -308,10 +318,6 @@ class ScenarioReplayer:
             raise NotImplementedError(
                 "mesh=: the multi-device fleet is not ported yet (ROADMAP.md "
                 "Queue 1 step 8)")
-        if chaos is not None:
-            raise NotImplementedError(
-                "chaos=: fault plans and the scheduler's resilience hooks are "
-                "not ported yet (ROADMAP.md Queue 1 step 7)")
         if depth < 1:
             raise ValueError(f"depth must be >= 1 (got {depth})")
         self.requested_depth = depth
@@ -371,6 +377,20 @@ class ScenarioReplayer:
             obs.bind_clock(self.clock)
             for rung_name, eng in scheduler.engines.items():
                 eng.obs_tag = f"{trace.name}/{rung_name}"
+        # chaos: all fault randomness was spent at plan compile time, so an
+        # empty plan makes this attachment pure observation.  Imports are
+        # lazy: repro_torch.chaos.catalog builds replayers, so a
+        # module-level import here would be circular.
+        self.injector = None
+        self.resilience = None
+        if chaos is not None:
+            from ..chaos.inject import FaultInjector
+            from ..chaos.ledger import ChaosLedger
+            from ..chaos.recovery import FleetResilience
+            ledger = ChaosLedger(obs=obs)
+            self.resilience = FleetResilience(ledger=ledger)
+            self.injector = FaultInjector(chaos, ledger=ledger)
+            scheduler.attach_resilience(self.resilience)
 
     def run(self, sentinel=None) -> VariationReport:
         """Replay the episode.  ``sentinel`` is any context manager; it
@@ -392,9 +412,12 @@ class ScenarioReplayer:
         guard = sentinel if sentinel is not None else contextlib.nullcontext()
         with guard:
             reports = self._run_segments(tr, sched, rng)
-        return VariationReport(
+        report = VariationReport(
             episode=tr.name, seed=tr.seed, n_ticks=tr.n_ticks,
             clock_s=self.clock.time(), segments=reports)
+        if self.injector is not None and len(self.injector.ledger):
+            report.chaos = self.injector.ledger.to_dict()
+        return report
 
     def _run_segments(self, tr, sched, rng) -> list[SegmentReport]:
         reports: list[SegmentReport] = []
@@ -415,6 +438,10 @@ class ScenarioReplayer:
             drops: dict[str, int] = {}
             for k in range(seg.n_ticks):
                 self.cost.contention = seg.contention_at(k)
+                if self.injector is not None:
+                    # adversarial latency spike: compounds with the
+                    # trace's own contention profile
+                    self.cost.contention *= self.injector.latency_scale(tick_idx)
                 rain = seg.rain_at(k)
                 budget = tr.budget_s * seg.budget_scale_at(k)
                 t0 = self.clock.time()
@@ -435,6 +462,13 @@ class ScenarioReplayer:
                     # slop matching is exercised and delays (arrival −
                     # stamp) stay physically non-negative
                     stamps[sid] = t0 - 0.25 * tr.period_s * rng.random()
+                if self.injector is not None:
+                    # infrastructure faults first (shard kills/revives,
+                    # armed step failures), then sensor faults — AFTER
+                    # scene generation, so the dropout/scenario RNG
+                    # consumes draws in exactly the fault-free order
+                    self.injector.pre_tick(tick_idx, sched)
+                    scenes = self.injector.filter_scenes(tick_idx, scenes)
                 # tick even when every stream dropped: the scheduler's
                 # per-stream dropout accounting must see the empty tick
                 res = sched.tick(

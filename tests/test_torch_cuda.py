@@ -506,6 +506,35 @@ def test_scenario_replay_on_card_equals_cpu(dev, tf32_default):
     assert [e.executor.step_captures for e in scheds[str(dev)].engines.values()] == [1, 1, 1]
 
 
+@pytest.mark.cuda
+def test_chaos_storm_on_card_equals_cpu(dev, tf32_default):
+    """sensor_stall_storm on the card against the CPU: the same report (as
+    above) and the same ledger event for event, the tick loop free of host
+    syncs, and one capture per rung engine through the storm: corrupt
+    frames are dropped on the host, stalled and aborted buckets only skip
+    a tick."""
+    from repro_torch.chaos import run_chaos_episode
+    from repro_torch.scenarios import compare_reports
+
+    @contextlib.contextmanager
+    def no_sync():
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    card, card_replayer, _ = run_chaos_episode("sensor_stall_storm", sentinel=no_sync(),
+                                               device=str(dev))
+    cpu, cpu_replayer, _ = run_chaos_episode("sensor_stall_storm", device="cpu")
+    got, want = card.to_dict(), cpu.to_dict()
+    assert compare_reports(got, want, _exact_but_quality()) == []
+    assert got["chaos"] == want["chaos"] and got["chaos"]["counts"]["nan_drop"] >= 1
+    assert [e.executor.step_captures for e in card_replayer.scheduler.engines.values()] == \
+        [1, 1, 1]
+
+
 # ----------------------------------------------------- multi-tenant serving --
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["qwen3-4b", "rwkv6-3b"])

@@ -352,9 +352,9 @@ def test_run_anytime_accepts_trace_profiles():
 
 # --------------------------------------------------------- API guards ------
 def test_chaos_and_mesh_raise_until_ported():
+    """``chaos=`` is ported (tests/test_torch_chaos.py); ``mesh=`` still
+    raises, naming the multi-device fleet's step."""
     trace = _golden_trace("urban_rush_hour")
-    with pytest.raises(NotImplementedError, match="step 7"):
-        ScenarioReplayer(trace, chaos=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="step 8"):
         ScenarioReplayer(trace, mesh=object(), device="cpu")
 
