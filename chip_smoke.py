@@ -163,6 +163,27 @@ Phases (each raises on failure; none is caught):
              python -m repro_torch.chaos --episode sensor_stall_storm --check
              on the card, and the one-shard fleet under the storm (at most
              one capture per engine, a non-empty ledger);
+7c. fleet  — the multi-shard camera fleet (repro_torch.launch.mesh, the
+             sharded executor, the scheduler's placer and rebalance), which
+             runs none of the kernels: two shards on the one card
+             (make_local_mesh(data=2, devices=[dev, dev]): one CUDA graph
+             per shard at batch capacity/2, each replayed on its own
+             stream).  shard_loss_rush_hour through a scheduler on the card
+             and one on two CPU shards: reports agree as phase 7's do,
+             ledgers event for event, the same final occupancy; two
+             captures per engine by the warm-up and none added through the
+             kill, failover, revive and rebalance (read as the tick loop,
+             under set_sync_debug_mode("error"), starts and ends); then
+             python -m repro_torch.chaos --episode shard_loss_rush_hour
+             --mesh data=2 --mesh-devices cuda:0,cuda:0 --check on the
+             card; both goldens on a one-shard mesh byte-equal to their
+             meshless replays on the card; and the fleet of FLEET_STREAMS x
+             FLEET_TICKS as launch/serve.py --fleet runs it at one and at
+             two shards: frames per wall second, tick wall, and the
+             device's busy share of a tick (the union of kernel and copy
+             intervals over FLEET_PROFILE_TICKS ticks under torch.profiler,
+             so two streams' overlap counts once), with the card's name and
+             power limit;
 8. multi_tenant — the multi-tenant runtime (repro_torch.runtime): the smoke
              qwen3-4b and rwkv6-3b engines in f32 on the card against the
              CPU (one queued workload, AlwaysAdmit: the same tokens, slots
@@ -215,6 +236,7 @@ Exits non-zero, with no result, when there is no CUDA device or no
 """
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import statistics
@@ -1789,8 +1811,6 @@ def phase_scenarios(dev):
     engine across episodes, the obs contract on the card, the card's
     report against tests/golden, and a one-shard fleet run (module
     docstring, phase 7)."""
-    import argparse
-
     from repro_torch import kernels as K
     from repro_torch.launch.serve import serve_fleet
     from repro_torch.obs.__main__ import main as obs_main
@@ -1843,9 +1863,7 @@ def phase_scenarios(dev):
             raise AssertionError("scenarios: the obs contract failed on the card")
 
         # ---- one-shard fleet, as launch/serve.py --fleet runs it
-        doc = serve_fleet(argparse.Namespace(batch=4, streams=FLEET_STREAMS, ticks=FLEET_TICKS,
-                                             obs=False, slo_ms=None, json_out=None,
-                                             trace_out=None, device=str(dev), chaos=None))
+        doc = serve_fleet(_fleet_args(dev, 1))
         if doc["frames"] != FLEET_STREAMS * FLEET_TICKS or any(
                 c > 1 for c in doc["trace_counts"].values()):
             raise AssertionError(f"fleet: {doc['frames']} frames, captures {doc['trace_counts']}")
@@ -1873,8 +1891,6 @@ def phase_chaos(dev, smi: str):
     """The storm on the card against the CPU, its gates, one capture per
     engine through it, an empty plan inert, the chaos CLI's gates and a
     one-shard fleet under the storm (module docstring, phase 7b)."""
-    import argparse
-
     from repro_torch import kernels as K
     from repro_torch.batched import RungBucketScheduler
     from repro_torch.chaos import FaultPlan, get_chaos_episode, run_chaos_episode
@@ -1947,10 +1963,7 @@ def phase_chaos(dev, smi: str):
             raise AssertionError("chaos: python -m repro_torch.chaos --check failed on the card")
 
         # ---- a one-shard fleet under the storm, as launch/serve.py --fleet --chaos runs it
-        doc = serve_fleet(argparse.Namespace(batch=4, streams=FLEET_STREAMS, ticks=FLEET_TICKS,
-                                             obs=False, slo_ms=None, json_out=None,
-                                             trace_out=None, device=str(dev),
-                                             chaos=CHAOS_EPISODE))
+        doc = serve_fleet(_fleet_args(dev, 1, chaos=CHAOS_EPISODE))
         if not doc.get("chaos", {}).get("events") or any(
                 c > 1 for c in doc["trace_counts"].values()):
             raise AssertionError(f"chaos fleet: ledger {doc.get('chaos')}, captures "
@@ -1965,6 +1978,193 @@ def phase_chaos(dev, smi: str):
     if any(counts.values()):
         raise AssertionError(f"chaos: the chaos path launched kernels {counts}")
     log(f"[chaos] kernel launch counters over the phase: {counts}; phase "
+        f"{time.perf_counter() - t0:.1f}s")
+
+
+# ---- phase 7c: the multi-shard camera fleet (two shards on one card)
+FLEET_SHARDS = 2
+FLEET_PROFILE_TICKS = 10
+
+
+def _fleet_args(dev, shards: int, chaos=None) -> argparse.Namespace:
+    """launch/serve.py --fleet's arguments, at ``shards`` shards on ``dev``."""
+    mesh = dict(mesh=None, mesh_devices=None) if shards == 1 else dict(
+        mesh=f"data={shards}", mesh_devices=",".join([str(dev)] * shards))
+    return argparse.Namespace(batch=4, streams=FLEET_STREAMS, ticks=FLEET_TICKS, obs=False,
+                              slo_ms=None, json_out=None, trace_out=None, device=str(dev),
+                              chaos=chaos, **mesh)
+
+
+def _busy_share(dev, shards: int) -> tuple[float, float]:
+    """(device busy share, host wall ms) of a fleet tick at ``shards``
+    shards: FLEET_STREAMS streams as serve_fleet seats them, warmed over
+    FLEET_TICKS // 4 ticks, then FLEET_PROFILE_TICKS ticks under the
+    profiler; busy is the union of the device's kernel and copy intervals
+    (two streams' overlap counted once) over the window's wall."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.batched import RungBucketScheduler
+    from repro_torch.bus import SimClock
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.perception import SceneConfig, generate_scene
+    from repro_torch.scenarios import ModeledStageCost, replay_ladder
+
+    ladder = replay_ladder()
+    sched = RungBucketScheduler(ladder, capacity=max(4, FLEET_STREAMS), clock=SimClock(),
+                                stage_cost=ModeledStageCost(ladder, seed=0), device=dev,
+                                mesh=make_local_mesh(data=shards, devices=[dev] * shards))
+    sched.warm(SceneConfig(scenario="city", seed=7))
+    sids = [f"cam{i:02d}" for i in range(FLEET_STREAMS)]
+    for sid in sids:
+        sched.add_stream(sid, 0.03)
+    scenes = [{sid: generate_scene(SceneConfig(scenario="city", seed=i), t)
+               for i, sid in enumerate(sids)} for t in range(FLEET_TICKS)]
+    for t in range(FLEET_TICKS // 4):
+        sched.tick(scenes[t])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for t in range(FLEET_PROFILE_TICKS):
+            sched.tick(scenes[FLEET_TICKS // 4 + t])
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA and e.time_range.end > e.time_range.start)
+    busy, end = 0.0, -math.inf
+    for a, b in spans:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return busy / wall_us, wall_us / 1e3 / FLEET_PROFILE_TICKS
+
+
+def phase_fleet(dev, smi: str):
+    """shard_loss_rush_hour at two shards on the card against two CPU
+    shards, its CLI gates, the one-shard mesh replays byte-equal to the
+    meshless ones, and the fleet at one and two shards (module docstring,
+    phase 7c)."""
+    from repro_torch import kernels as K
+    from repro_torch.batched import RungBucketScheduler
+    from repro_torch.chaos import CHAOS_CATALOG, run_chaos_episode
+    from repro_torch.chaos.__main__ import main as chaos_main
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.serve import serve_fleet
+    from repro_torch.scenarios import ScenarioReplayer, Tolerance, compare_reports, \
+        compile_trace, get_episode, golden_replay, replay_ladder
+    from repro_torch.scenarios.golden import GOLDEN_CAPACITY, GOLDEN_EPISODES, \
+        GOLDEN_TICK_SCALE
+
+    prev_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True        # torch's default, as phases 5 to 7b
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        # ---- shard_loss_rush_hour at two shards: the card against two CPU shards
+        name = "shard_loss_rush_hour"
+        cap = CHAOS_CATALOG[name].capacity
+        runs, at = {}, []
+
+        class Captures(TickLoopGuard):
+            """The tick loop's guard, reading each engine's captures as it
+            starts and as it ends."""
+
+            def __init__(self, sched):
+                super().__init__()
+                self.sched = sched
+
+            def read(self):
+                at.append([e.executor.step_captures for e in self.sched.engines.values()])
+
+            def __enter__(self):
+                self.read()
+                return super().__enter__()
+
+            def __exit__(self, *exc):
+                out = super().__exit__(*exc)
+                self.read()
+                return out
+
+        for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+            sched = RungBucketScheduler(
+                replay_ladder(), capacity=cap, device=d,
+                mesh=make_local_mesh(data=FLEET_SHARDS, devices=[d] * FLEET_SHARDS))
+            guard = Captures(sched) if where == "card" else None
+            report, replayer, _ = run_chaos_episode(name, scheduler=sched, sentinel=guard)
+            runs[where] = (report, replayer, guard)
+        (card, card_rep, guard), (cpu, cpu_rep, _) = runs["card"], runs["cpu"]
+        problems = compare_reports(card.to_dict(), cpu.to_dict(), Tolerance(**REPLAY_TOL))
+        if problems:
+            raise AssertionError(f"fleet: the card's {name} differs from the CPU's: "
+                                 + "; ".join(problems[:5]))
+        card_ledger, cpu_ledger = card_rep.injector.ledger, cpu_rep.injector.ledger
+        a = [e.to_dict() for e in card_ledger.events]
+        b = [e.to_dict() for e in cpu_ledger.events]
+        if a != b:
+            i = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+            raise AssertionError(f"fleet: ledgers differ from event {i}: card {a[i:i + 1]}, "
+                                 f"cpu {b[i:i + 1]}")
+        occ = {n: e.shard_occupancy() for n, e in card_rep.scheduler.engines.items()}
+        if occ != {n: e.shard_occupancy() for n, e in cpu_rep.scheduler.engines.items()}:
+            raise AssertionError(f"fleet: final occupancy on the card {occ} differs from the CPU's")
+        counts, reseat = card_ledger.counts(), card_ledger.reseat_ticks()
+        if not counts.get("failover") or reseat is None or reseat > 3:
+            raise AssertionError(f"fleet: {name} gates failed: counts {counts}, reseat {reseat}")
+        want = [[FLEET_SHARDS] * len(occ)] * 2
+        if at != want:
+            raise AssertionError(f"fleet: captures per engine at the tick loop's start and end "
+                                 f"{at}, not {want}")
+        log(f"[fleet] {name} at {FLEET_SHARDS} shards on one card equals two CPU shards "
+            f"({len(card_ledger)} ledger events, counts {counts}, worst reseat {reseat} ticks, "
+            f"{card.totals()['frames']} frames, clock {card.clock_s:.6f} s virtual, final "
+            f"occupancy {occ}); step_captures per engine {at[0]} at the tick loop's start and "
+            f"{at[1]} at its end; tick loop under set_sync_debug_mode('error'), {smi}: "
+            f"{guard.seconds:.3f} s wall for {card.n_ticks} ticks "
+            f"({guard.seconds / card.n_ticks * 1e3:.3f} ms a tick)")
+
+        # ---- the chaos CLI's gates at two shards on the card
+        if chaos_main(["--episode", name, "--mesh", f"data={FLEET_SHARDS}", "--mesh-devices",
+                       ",".join([str(dev)] * FLEET_SHARDS), "--check",
+                       "--device", str(dev)]) != 0:
+            raise AssertionError(f"fleet: python -m repro_torch.chaos --episode {name} --mesh "
+                                 f"--check failed on the card")
+
+        # ---- a one-shard mesh replays byte-equal to no mesh, on the card
+        sched = None
+        for episode in GOLDEN_EPISODES:
+            plain, sched = golden_replay(episode, scheduler=sched,
+                                         device=None if sched else str(dev))
+            trace = compile_trace(get_episode(episode), seed=GOLDEN_EPISODES[episode],
+                                  tick_scale=GOLDEN_TICK_SCALE)
+            one = ScenarioReplayer(trace, capacity=GOLDEN_CAPACITY, device=str(dev),
+                                   mesh=make_local_mesh(data=1, devices=[dev])).run(
+                sentinel=TickLoopGuard())
+            if one.to_json(indent=2) != plain.to_json(indent=2):
+                raise AssertionError(f"fleet: {episode} on a one-shard mesh differs from its "
+                                     f"meshless replay on the card")
+        log(f"[fleet] {', '.join(GOLDEN_EPISODES)} on a one-shard mesh byte-equal to their "
+            f"meshless replays on the card")
+
+        # ---- the fleet at one and two shards, as launch/serve.py --fleet runs it
+        for shards in (1, FLEET_SHARDS):
+            doc = serve_fleet(_fleet_args(dev, shards))
+            if (doc["n_shards"], doc["frames"]) != (shards, FLEET_STREAMS * FLEET_TICKS) or any(
+                    c != shards for c in doc["trace_counts"].values()):
+                raise AssertionError(f"fleet: {shards} shard(s): {doc['n_shards']} shards, "
+                                     f"{doc['frames']} frames, captures {doc['trace_counts']}")
+            busy, tick_ms = _busy_share(dev, shards)
+            log(f"[fleet] {FLEET_STREAMS} streams x {FLEET_TICKS} ticks at {shards} shard(s), "
+                f"{smi}: {doc['frames'] / doc['wall_s']:.1f} frames per wall second, tick wall "
+                f"{doc['wall_s'] / FLEET_TICKS * 1e3:.3f} ms ({doc['wall_s']:.3f} s), "
+                f"{doc['frames_per_vs']:.3f} frames per virtual second; occupancy "
+                f"{doc['shard_occupancy']}; profiled window of {FLEET_PROFILE_TICKS} ticks on "
+                f"scenes made beforehand: {tick_ms:.3f} ms a tick, device busy {busy:.3f} of it")
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev_tf32
+        torch.cuda.set_sync_debug_mode("default")
+    counts = K.launch_counts()
+    if any(counts.values()):
+        raise AssertionError(f"fleet: the fleet path launched kernels {counts}")
+    log(f"[fleet] kernel launch counters over the phase: {counts}; phase "
         f"{time.perf_counter() - t0:.1f}s")
 
 
@@ -2460,6 +2660,7 @@ def main() -> int:
     phase_batched(dev)
     phase_scenarios(dev)
     phase_chaos(dev, smi)
+    phase_fleet(dev, smi)
     mt_decode = phase_multi_tenant(dev)
     launches["decode_attention"] += mt_decode
     for name in KERNELS:

@@ -18,8 +18,8 @@
                 model learns per-(rung, batch-size) latency so deadline
                 decisions account for batching delay (and, pipelined, for
                 pipeline depth).
-``fleet``     — ``FleetPlacer``: predicted-cost seat choice over shards
-                (on one device only the dead set of a shard kill).
+``fleet``     — ``FleetPlacer``: predicted-cost seat choice and skew
+                rebalance over the shards of a mesh (``mesh=``).
 """
 from .engine import BatchedPerceptionEngine, BatchedStreamState
 from .executor import Drained, PipelinedExecutor

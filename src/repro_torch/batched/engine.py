@@ -12,10 +12,10 @@ post-processing passes per tick share:
 * **one device step** — the rung's device pre-processing + ``infer``
   over a fixed-capacity padded batch, with the slot axis written out in
   the device functions (each slot normalised and suppressed on its own),
-  captured once in a CUDA graph.  Joining/leaving streams only flips an
-  active mask and blanks a slot's buffer; shapes never change, so the step
-  is captured exactly once (``trace_count``: the executor's
-  ``step_captures``).
+  captured once in a CUDA graph (one per shard).  Joining/leaving streams
+  only flips an active mask and blanks a slot's buffer; shapes never
+  change, so the step is captured exactly once per shard (``trace_count``:
+  the executor's ``step_captures``).
 * **one batched fixed-shape readback** — one copy of the whole output
   tree into pinned memory and one event wait, after which the rung's
   ``post_batch`` performs the vectorized ``_unscale``/keep-mask pass on
@@ -32,8 +32,16 @@ and host post-processing overlap across consecutive ticks.
 
 Per-tick latency is attributed to every co-resident stream (per-stream
 ``TimelineRecorder``): your frame took that long because of who you shared
-the batch with.  The multi-shard stage model of the reference (a mesh of
-devices) is not ported: this engine runs on one device, one shard.
+the batch with.
+
+**Fleet sharding** (``mesh=``): the executor splits the slot batch into
+one contiguous block per shard of the mesh's data axis, each on its own
+device and stream; the engine keeps one free list per shard, so a
+stream's frames always land in one shard's block, and ``join``/``migrate``
+take a shard.  Under virtual time each stage costs what its slowest shard
+costs (``_modeled_stages_sharded``), and a traced tick carries one
+``shard_serve`` span per serving shard.  With one shard all of this
+reduces to the single-device engine, report for report.
 """
 from __future__ import annotations
 
@@ -92,7 +100,9 @@ class BatchedPerceptionEngine:
     parameter trees of NumPy arrays (``build_pipeline``'s ``params``);
     without an entry for this pipeline the weights are drawn from
     ``generator`` (seed 7 when none is given).  ``device`` defaults to the
-    card and raises without one unless ``"cpu"`` is asked for.
+    card and raises without one unless ``"cpu"`` is asked for.  ``mesh``
+    (``repro_torch.launch.mesh.Mesh``) shards the slot batch over its data
+    axis (module docstring); the weights are copied to each shard's device.
     """
 
     def __init__(
@@ -110,6 +120,7 @@ class BatchedPerceptionEngine:
         obs_tag: str = "",
         device: str | torch.device = "cuda",
         params: Optional[Mapping[str, Any]] = None,
+        mesh=None,
         **det_kw,
     ) -> None:
         if capacity < 1:
@@ -159,8 +170,9 @@ class BatchedPerceptionEngine:
         # the λ gather indices for this frame shape, on the device, before
         # the step is ever captured
         self.built.pre_index(image_shape[:2])
+        self.mesh = mesh
         self._exec = PipelinedExecutor(self.built.device_step, capacity, image_shape,
-                                       depth=depth, device=self.built.device)
+                                       depth=depth, device=self.built.device, mesh=mesh)
         self.n_shards = self._exec.n_shards
         self._slots_per_shard = capacity // self.n_shards
         self._free: list[deque[int]] = self._free_lists()
@@ -187,7 +199,8 @@ class BatchedPerceptionEngine:
 
     @property
     def trace_count(self) -> int:
-        """Captures of the step — must stay 1 after any churn."""
+        """Captures of the step, one per shard — must not grow after any
+        churn."""
         return self._exec.step_captures
 
     @property
@@ -213,15 +226,18 @@ class BatchedPerceptionEngine:
         return self._slots_per_shard
 
     def shard_of(self, stream_id: str) -> int:
-        """Shard whose slot block seats this stream (0: one shard)."""
+        """Shard whose slot block seats this stream (0 on one shard)."""
         return self._exec.shard_of_slot(self.active[stream_id].slot)
 
     def shard_occupancy(self) -> list[int]:
-        """Seated streams per shard."""
+        """Seated streams per shard — the fleet scheduler's skew signal
+        for cross-shard migration."""
         return [self._slots_per_shard - len(self._free[k]) for k in range(self.n_shards)]
 
     def streams_on(self, shard: int) -> list[str]:
-        """Stream ids seated on one shard, sorted."""
+        """Stream ids seated on one shard, sorted — the evacuation order
+        during shard failover (sorted so recovery is deterministic under
+        replay)."""
         return sorted(sid for sid in self.active if self.shard_of(sid) == shard)
 
     def join(self, stream_id: str, shard: Optional[int] = None) -> BatchedStreamState:
@@ -463,16 +479,19 @@ class BatchedPerceptionEngine:
     # ---------------- shared accounting ----------------
     def _account(self, rec, snapshot, outputs, n_served):
         if self.stage_cost is not None:
-            # replace measured wall-clock stage times with the modeled
-            # per-(stage, batch-size, work) durations; post work is the
-            # tick's total proposal count (the paper's post-time driver)
-            work = float(sum(getattr(out, "num_proposals", 0.0) or 0.0
-                             for out in outputs.values()))
-            rec.stages = {
-                "read": self.stage_cost("read", n_served, 0.0),
-                "inference": self.stage_cost("inference", n_served, 0.0),
-                "post_processing": self.stage_cost("post_processing", n_served, work),
-            }
+            if self.n_shards > 1:
+                rec.stages = self._modeled_stages_sharded(snapshot, outputs)
+            else:
+                # replace measured wall-clock stage times with the modeled
+                # per-(stage, batch-size, work) durations; post work is the
+                # tick's total proposal count (what sets post time in the paper)
+                work = float(sum(getattr(out, "num_proposals", 0.0) or 0.0
+                                 for out in outputs.values()))
+                rec.stages = {
+                    "read": self.stage_cost("read", n_served, 0.0),
+                    "inference": self.stage_cost("inference", n_served, 0.0),
+                    "post_processing": self.stage_cost("post_processing", n_served, work),
+                }
         rec.meta["n_active"] = float(self.n_active)
         rec.meta["batch_size"] = float(n_served)
         if self.clock is not None:
@@ -483,7 +502,7 @@ class BatchedPerceptionEngine:
         self.tick_log.append((n_served, lat))
         self.recorder.add(rec)
         if self.obs is not None:
-            self._emit_tick_spans(rec, n_served)
+            self._emit_tick_spans(rec, n_served, snapshot)
         for sid, _slot in snapshot:
             st = self.active.get(sid)
             if st is None:
@@ -492,7 +511,29 @@ class BatchedPerceptionEngine:
             st.frames += 1
             st.last_output = outputs[sid]
 
-    def _emit_tick_spans(self, rec: StageRecord, n_served: int) -> None:
+    def _modeled_stages_sharded(self, snapshot, outputs):
+        """Virtual-time stage model on a multi-shard mesh: every shard
+        serves its own slice of the slot batch in parallel, so each stage
+        costs what its *slowest* shard costs (max over shards, evaluated at
+        that shard's served count and proposal work).  Shards are visited
+        in ascending index so the seeded stage-cost RNG draw order stays
+        deterministic across replays."""
+        per: dict[int, list[str]] = {}
+        for sid, slot in snapshot:
+            per.setdefault(self._exec.shard_of_slot(slot), []).append(sid)
+        stages = {"read": 0.0, "inference": 0.0, "post_processing": 0.0}
+        for shard in sorted(per):
+            sids = per[shard]
+            n = len(sids)
+            work = float(sum(getattr(outputs[sid], "num_proposals", 0.0) or 0.0
+                             for sid in sids))
+            stages["read"] = max(stages["read"], self.stage_cost("read", n, 0.0))
+            stages["inference"] = max(stages["inference"], self.stage_cost("inference", n, 0.0))
+            stages["post_processing"] = max(stages["post_processing"],
+                                            self.stage_cost("post_processing", n, work))
+        return stages
+
+    def _emit_tick_spans(self, rec: StageRecord, n_served: int, snapshot) -> None:
         """Lay this tick's stages on the observatory timeline.
 
         The tick span ends at the tick's completion time — virtual time
@@ -500,7 +541,9 @@ class BatchedPerceptionEngine:
         ``_account``), the observatory clock otherwise — and the stage
         children tile it in recorded order.  ``track`` cycles with pipeline
         depth so overlapped ticks render on parallel Perfetto rows instead
-        of as malformed nesting."""
+        of as malformed nesting.  On a multi-shard mesh a per-shard
+        ``shard_serve`` child rides under the tick span, tagged with the
+        shard id and that shard's served count."""
         obs = self.obs
         e2e = rec.end_to_end
         t_end = rec.meta.get("t_virtual")
@@ -518,6 +561,15 @@ class BatchedPerceptionEngine:
                        batch_size=n_served, axis=STAGE_AXES.get(name, "end_to_end"),
                        track=track, parent=parent.seq)
             t += dur
+        if self.n_shards > 1:
+            served: dict[int, int] = {}
+            for _sid, slot in snapshot:
+                k = self._exec.shard_of_slot(slot)
+                served[k] = served.get(k, 0) + 1
+            for k in sorted(served):
+                obs.record("shard_serve", t0, t_end, stream=stream, tick=self.ticks, rung=rung,
+                           batch_size=served[k], axis="hardware", track=track,
+                           parent=parent.seq, shard=k)
 
     # ---------------- reporting ----------------
     def _latency_series(self, recorder: TimelineRecorder) -> np.ndarray:

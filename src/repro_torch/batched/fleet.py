@@ -1,12 +1,13 @@
 """Fleet placement: seat camera streams onto data shards (a copy of the
 reference's ``repro/batched/fleet.py``; pure Python on the shared
-``LadderCostModel``).  The port's engines run on one device, one shard:
-the scheduler seats through the placer only when its engines have more
-than one shard, which the multi-device fleet brings to the port; at one
-shard it keeps the dead set of ``kill_shard``/``revive_shard``.
+``LadderCostModel``).  The scheduler seats through the placer and
+rebalances with it when its engines have more than one shard
+(``mesh=``); at one shard it keeps only the dead set of
+``kill_shard``/``revive_shard``.
 
-On a mesh of devices, every rung engine's padded slot batch is partitioned
-into contiguous per-shard slot blocks — one block per device.  A
+On a mesh of devices, every rung engine's padded slot batch is
+partitioned into contiguous per-shard slot blocks
+(``distributed.sharding.slot_batch_spec``) — one block per device.  A
 shard's tick cost grows with *its own* served count (each device runs
 the step over its slice in parallel; the tick is as slow as its slowest
 shard), so where a joining stream sits determines the whole bucket's

@@ -17,12 +17,19 @@ expected co-batch size next tick is approximated by its current rung's
 bucket size last tick (pessimistically, all active streams before any
 history).
 
-The chaos/recovery hooks are ported at one shard: ``attach_resilience``,
-``kill_shard``/``revive_shard`` (through a ``FleetPlacer`` over one shard,
-so every victim of a kill is unseated, force-degraded and re-seated by the
-next tick's join), the ingest guard, the retry gate and the watchdog.
-Not ported yet: placement on more than one shard and the cross-shard
-rebalance, which need the multi-device fleet.
+**Fleet sharding** (``mesh=``): every rung engine splits its slot batch
+over the mesh's data axis; a joining stream is seated by the
+``FleetPlacer`` on the shard whose predicted post-seating cost is
+smallest, and after each tick one stream of a skewed rung engine migrates
+toward balance (``_rebalance_shards``).  Both are slot churn only: no new
+capture, ever.  On one shard (no mesh, or a data axis of 1) the placer and
+the rebalance are bypassed and the scheduler is the single-device one.
+
+The chaos/recovery hooks: ``attach_resilience``, ``kill_shard`` (every
+stream on the lost shard is evacuated onto an alive shard with a free
+slot; a victim with none — at one shard, every victim — is unseated,
+force-degraded and re-seated by a later tick's join), ``revive_shard``,
+the ingest guard, the retry gate and the watchdog.
 """
 from __future__ import annotations
 
@@ -37,6 +44,7 @@ from ..anytime.cost import LadderCostModel, SceneFeatures
 from ..anytime.ladder import Ladder, frame_quality
 from ..bus.clock import SimClock
 from ..core.stats import json_num
+from ..distributed.sharding import data_shards
 from ..perception.data import Scene, SceneConfig, generate_scene
 from ..perception.pipelines import build_pipeline
 
@@ -87,7 +95,8 @@ class RungBucketScheduler:
     arrays (as ``build_pipeline`` takes them); pipelines without an entry
     draw their weights from ``generator`` (seed 7 when none is given).
     ``device`` defaults to the card and raises without one unless ``"cpu"``
-    is asked for."""
+    is asked for.  ``mesh`` (``repro_torch.launch.mesh.Mesh``) shards every
+    rung engine's slot batch over its data axis (module docstring)."""
 
     def __init__(
         self,
@@ -101,6 +110,7 @@ class RungBucketScheduler:
         obs=None,
         device: str | torch.device = "cuda",
         params: Optional[Mapping[str, Any]] = None,
+        mesh=None,
     ) -> None:
         if depth > 1 and stage_cost is not None:
             raise ValueError(
@@ -111,8 +121,11 @@ class RungBucketScheduler:
         self.capacity = capacity
         self.ctl_cfg = ctl_cfg if ctl_cfg is not None else ControllerConfig()
         self.depth = depth
-        # one device, one data shard (more come with the multi-device fleet)
-        self.n_shards = 1
+        # fleet sharding: every rung engine partitions its padded slot batch
+        # over the mesh's data axis; the placer seats joining streams on
+        # shards by predicted (rung, batch-size) cost
+        self.mesh = mesh
+        self.n_shards = data_shards(mesh)
         # one cost model shared by every stream: latency is a property of
         # the shared accelerator, not of any one camera
         self.cost = LadderCostModel(ladder)
@@ -125,7 +138,7 @@ class RungBucketScheduler:
             built = build_pipeline(rung.pipeline, scale=rung.scale, generator=generator,
                                    pad=False, device=device, params=tree)
             self.engines[rung.name] = BatchedPerceptionEngine(built, capacity=capacity,
-                                                              depth=depth)
+                                                              depth=depth, mesh=mesh)
         self.streams: Dict[str, ScheduledStream] = {}
         self._last_bucket_size: Dict[str, int] = {}
         self._prev_rung: Dict[str, str] = {}
@@ -250,12 +263,13 @@ class RungBucketScheduler:
     def kill_shard(self, shard: int) -> None:
         """Declare ``shard`` lost and evacuate every stream seated on it.
 
-        Evacuation is slot churn only (captured shapes never change).  A
-        victim with no alive shard to move to — on one shard, every victim
-        — is unseated instead, its controller force-degraded (it re-enters
-        at lower fidelity), and queued on ``_pending_reseat`` for the next
-        tick's join to re-seat.  A shard out of range raises
-        ``ValueError`` (``FleetPlacer.mark_dead``)."""
+        Evacuation is pure slot churn via ``engine.migrate`` — captured
+        shapes never change, so failover never captures anew.  A victim
+        with no alive shard to move to — on one shard, every victim — is
+        unseated instead, its controller force-degraded (capacity pressure:
+        it re-enters at lower fidelity), and queued on ``_pending_reseat``
+        for the normal join path to re-seat once capacity returns.  A shard
+        out of range raises ``ValueError`` (``FleetPlacer.mark_dead``)."""
         res = self.resilience
         self.placer.mark_dead(shard)
         for rung_name in sorted(self.engines):
@@ -283,7 +297,10 @@ class RungBucketScheduler:
                                    stream=sid, shard=dst)
 
     def revive_shard(self, shard: int) -> None:
-        """Return ``shard`` to the placement pool (no eager migration)."""
+        """Return ``shard`` to the placement pool.  Streams drift back via
+        the normal per-tick skew rebalance — no eager mass migration, so
+        recovery has the same one-move-per-tick churn bound as any other
+        imbalance."""
         self.placer.mark_alive(shard)
 
     # ---------------- the tick ----------------
@@ -354,6 +371,7 @@ class RungBucketScheduler:
         latencies: Dict[str, float] = {}
         outputs: Dict[str, object] = {}
         rows: list[dict] = []
+        shard_buckets: Dict[str, Dict[int, list]] = {}
         for rung_name in list(buckets):
             members = buckets[rung_name]
             eng = self.engines[rung_name]
@@ -361,16 +379,38 @@ class RungBucketScheduler:
             # ones that moved in (slot churn only — never a new capture)
             for sid in [s for s in eng.active if s not in members]:
                 eng.leave(sid)
+            unseatable: list[str] = []
             for sid in members:
                 if sid not in eng.active:
-                    eng.join(sid)
+                    shard = None
+                    if self.n_shards > 1:
+                        # fleet placement: seat on the shard whose
+                        # post-seating predicted cost is smallest
+                        try:
+                            shard = self.placer.place(rung_name, eng.shard_occupancy(),
+                                                      eng.slots_per_shard)
+                        except RuntimeError:
+                            if self.resilience is None:
+                                raise
+                            # no alive capacity: survivable under chaos — the
+                            # stream's frame drops this tick and the join
+                            # retries next tick
+                            self.streams[sid].drops += 1
+                            unseatable.append(sid)
+                            continue
+                    eng.join(sid, shard=shard)
                     if sid in self._pending_reseat and self.resilience is not None:
                         # the deferred half of a shard evacuation lands
                         self._pending_reseat.discard(sid)
                         self.resilience.ledger.add(
                             self.ticks, "failover",
                             "re-seated after evacuation capacity pressure", stream=sid,
-                            shard=-1)
+                            shard=shard if shard is not None else -1)
+            if unseatable:
+                members = [s for s in members if s not in unseatable]
+                buckets[rung_name] = members
+                if not members:
+                    continue
             # transient step faults: the resilience layer arms N failures;
             # each bucket step retries through them with exponential
             # backoff, aborting (the bucket drops one tick) past max_retries
@@ -380,6 +420,11 @@ class RungBucketScheduler:
                         self.streams[sid].drops += 1
                     buckets[rung_name] = []
                     continue
+            if self.n_shards > 1:
+                per: Dict[int, list] = {}
+                for sid in members:
+                    per.setdefault(eng.shard_of(sid), []).append(sid)
+                shard_buckets[rung_name] = per
             payload = {
                 sid: (scenes[sid], budgets[sid] if budgets is not None
                       else self.streams[sid].budget_s)
@@ -403,8 +448,15 @@ class RungBucketScheduler:
         # the stream's health machine and force its rung down now
         if self.resilience is not None:
             self._watchdog(rows)
+
+        # 5. cross-shard skew repair: when churn piles a rung's streams onto
+        # one shard, every tick pays that shard's batch size while other
+        # shards idle — migrate one stream toward balance
+        if self.n_shards > 1:
+            self._rebalance_shards(buckets)
         self.ticks += 1
-        return TickResult(buckets=buckets, latencies=latencies, outputs=outputs, rows=rows)
+        return TickResult(buckets=buckets, latencies=latencies, outputs=outputs, rows=rows,
+                          shard_buckets=shard_buckets)
 
     # ---------------- chaos/recovery paths ----------------
     def _guard_ingest(self, scenes: Mapping[str, Scene]) -> Dict[str, Scene]:
@@ -486,6 +538,24 @@ class RungBucketScheduler:
                         self.ticks, "recover",
                         f"healthy after {healthy_after} ticks degraded",
                         stream=sid, value=float(healthy_after))
+
+    def _rebalance_shards(self, buckets: Dict[str, list]) -> None:
+        """One placer-driven migration per skewed rung engine (the lowest
+        stream id on the crowded shard moves; deterministic under replay).
+        Slot churn only — never a new capture."""
+        for rung_name in buckets:
+            eng = self.engines[rung_name]
+            move = self.placer.rebalance(rung_name, eng.shard_occupancy())
+            if move is None:
+                continue
+            src, dst = move
+            for sid in sorted(eng.active):
+                if eng.shard_of(sid) == src:
+                    eng.migrate(sid, dst)
+                    if self.obs is not None:
+                        self.obs.tracer.instant("shard_migrate", stream=sid, tick=self.ticks,
+                                                rung=rung_name, axis="hardware", shard=dst)
+                    break
 
     def _account_drain(self, rung_name, record, outs, echoed, latencies, outputs, rows) -> None:
         """Account one drained engine tick: a cost-model observation at its

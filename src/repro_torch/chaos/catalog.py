@@ -15,9 +15,11 @@ scenario episodes don't have.
 |                       | transient step faults: ingest quarantine,       |
 |                       | watchdog degrade, bounded retry, recovery       |
 
-The port runs on one device, one data shard: an episode that wants more
-(``shard_loss_rush_hour``, ``mesh_data=2``) and any ``mesh=`` raise before
-anything runs, until the multi-device fleet (ROADMAP.md Queue 1 step 8).
+An episode that wants more than one data shard (``shard_loss_rush_hour``,
+``mesh_data=2``) runs on a mesh that gives it them
+(``repro_torch.launch.mesh.make_local_mesh(data=2, devices=[d, d])`` puts
+two shards on one device); on a narrower one its kill of shard 1 raises
+``ValueError``, as in the reference.
 """
 from __future__ import annotations
 
@@ -135,19 +137,11 @@ def run_chaos_episode(name: str, mesh=None, scheduler=None, sentinel=None,
     zero-capture gate.  ``scheduler`` reuses a built scheduler (reset
     first); otherwise one is built at the episode's capacity on ``device``
     (the card unless ``"cpu"`` is asked for).  ``sentinel`` is any context
-    manager around the tick loop (see ``ScenarioReplayer.run``).
-
-    Only one-shard episodes run: ``mesh=`` or an episode with
-    ``mesh_data > 1`` raises ``NotImplementedError`` before anything is
-    built."""
+    manager around the tick loop (see ``ScenarioReplayer.run``).  ``mesh``
+    must span the episode's ``mesh_data`` shards (build one with
+    ``repro_torch.launch.mesh.make_local_mesh``); omit it for one-shard
+    episodes.  A reused scheduler keeps its own mesh."""
     ep = get_chaos_episode(name)
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh=: the multi-device fleet is not ported yet (ROADMAP.md Queue 1 step 8)")
-    if ep.mesh_data > 1:
-        raise NotImplementedError(
-            f"chaos episode {ep.name!r} wants {ep.mesh_data} data shards: the "
-            f"multi-device fleet is not ported yet (ROADMAP.md Queue 1 step 8)")
     seed = ep.seed if seed is None else seed
     tick_scale = ep.tick_scale if tick_scale is None else tick_scale
     trace = compile_trace(get_episode(ep.base), seed=seed,
@@ -156,6 +150,7 @@ def run_chaos_episode(name: str, mesh=None, scheduler=None, sentinel=None,
     replayer = ScenarioReplayer(
         trace, scheduler=scheduler,
         capacity=(ep.capacity if scheduler is None else None),
+        mesh=mesh if scheduler is None else None,
         obs=obs, chaos=plan, device=device)
     report = replayer.run(sentinel=sentinel)
     return report, replayer, plan

@@ -1,6 +1,6 @@
 """Serving launcher: single-stream instrumented decoding, the
 multi-tenant continuous-batching runtime under a Poisson arrival stream,
-or the camera-fleet perception scheduler at one shard.
+or the camera-fleet perception scheduler, its slot batches sharded over a mesh.
 
 Single stream::
 
@@ -21,13 +21,16 @@ CV, p99, miss rate per stream; ``--anytime`` degrades a stream's SLO down
         --batch 8 --context 1024 --prompt-len 64 --streams 16
 
 Camera fleet (``--fleet``): N camera streams served by the rung-bucket
-scheduler under deterministic virtual time, on one device (``--mesh`` is
-not ported yet); ``--chaos PLAN`` injects faults from a ``FaultPlan`` JSON
-file or a one-shard chaos episode (``repro_torch.chaos``) and arms the
-scheduler's resilience paths::
+scheduler under deterministic virtual time, the slot batches sharded over
+``--mesh``'s data axis (``--mesh-devices`` names the mesh's devices, one
+may repeat: two shards on one card); ``--chaos PLAN`` injects faults from a
+``FaultPlan`` JSON file or a chaos episode (``repro_torch.chaos``) and arms
+the scheduler's resilience paths::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --fleet --streams 8 \
         --ticks 40 --json-out fleet.json [--chaos sensor_stall_storm]
+    PYTHONPATH=src python -m repro_torch.launch.serve --fleet --streams 8 \
+        --mesh data=2 --mesh-devices cuda:0,cuda:0 --chaos shard_loss_rush_hour
 
 Runs on CUDA unless ``--device cpu`` is given (a CPU run is for checking
 control flow at ``--smoke`` size; its times are not the card's).
@@ -168,9 +171,10 @@ def serve_multi_tenant(args, cfg, model, params) -> None:
         )
 
 
-def _chaos_plan(spec: str, sids: list, n_ticks: int):
+def _chaos_plan(spec: str, sids: list, n_ticks: int, n_shards: int):
     """``--chaos``'s ``FaultPlan``: a plan JSON file, or a chaos episode's
-    spec compiled over the fleet's streams and ticks at its seed."""
+    spec compiled over the fleet's streams and ticks at its seed (an
+    episode that wants more data shards than the fleet has exits)."""
     import os
 
     from repro_torch.chaos import FaultPlan, compile_plan, get_chaos_episode
@@ -181,30 +185,40 @@ def _chaos_plan(spec: str, sids: list, n_ticks: int):
     except KeyError:
         raise SystemExit(f"--chaos: {spec!r} is neither a FaultPlan JSON file nor a "
                          f"known chaos episode") from None
-    if ep.mesh_data > 1:
-        raise SystemExit(f"--chaos: episode {ep.name!r} wants {ep.mesh_data} data shards: "
-                         f"the multi-device fleet is not ported yet (ROADMAP.md Queue 1 "
-                         f"step 8)")
+    if ep.mesh_data > n_shards:
+        raise SystemExit(f"--chaos: episode {ep.name!r} wants {ep.mesh_data} data shards, the "
+                         f"fleet has {n_shards}: pass --mesh data={ep.mesh_data} (and "
+                         f"--mesh-devices to name one device more than once)")
     return compile_plan(ep.spec, sids, n_ticks, seed=ep.seed)
 
 
 def serve_fleet(args) -> dict:
     """Camera-fleet mode: rung-bucket scheduling of ``--streams`` camera
-    streams on one device, ticked under deterministic virtual time
-    (seeded ``ModeledStageCost``), with ``--chaos``'s faults injected when
-    given.  Returns the JSON report."""
+    streams, slot batches sharded over ``--mesh``'s data axis, ticked under
+    deterministic virtual time (seeded ``ModeledStageCost``), with
+    ``--chaos``'s faults injected when given.  Returns the JSON report."""
     from repro_torch.batched.scheduler import RungBucketScheduler
+    from repro_torch.distributed.sharding import data_shards
+    from repro_torch.launch.mesh import make_local_mesh, parse_mesh_spec
     from repro_torch.perception.data import SceneConfig, generate_scene
     from repro_torch.scenarios.replay import ModeledStageCost, replay_ladder
 
+    mesh = None
+    if args.mesh:
+        devices = args.mesh_devices.split(",") if args.mesh_devices else None
+        mesh = make_local_mesh(**parse_mesh_spec(args.mesh), device=args.device,
+                               devices=devices)
+    n_shards = data_shards(mesh)
     cap = max(args.batch, args.streams)
+    if cap % n_shards:
+        cap += n_shards - cap % n_shards
     sids = [f"cam{i:02d}" for i in range(args.streams)]
-    plan = _chaos_plan(args.chaos, sids, args.ticks) if args.chaos else None
+    plan = _chaos_plan(args.chaos, sids, args.ticks, n_shards) if args.chaos else None
     clock = SimClock()
     ladder = replay_ladder()
     cost = ModeledStageCost(ladder, seed=0)
     sched = RungBucketScheduler(ladder, capacity=cap, clock=clock,
-                                stage_cost=cost, device=args.device)
+                                stage_cost=cost, device=args.device, mesh=mesh)
     obs = None
     if args.obs:
         from repro_torch.obs import Observatory
@@ -247,9 +261,10 @@ def serve_fleet(args) -> dict:
                  for name, eng in sched.engines.items() if eng.n_active}
     traces = {name: eng.trace_count for name, eng in sched.engines.items()}
     doc = {
-        "mesh": None,
+        "mesh": args.mesh or None,
+        "mesh_devices": [str(d) for d in mesh.devices.flat] if mesh is not None else None,
         "devices": torch.cuda.device_count(),
-        "n_shards": 1,
+        "n_shards": n_shards,
         "capacity": cap,
         "streams": args.streams,
         "ticks": args.ticks,
@@ -263,8 +278,9 @@ def serve_fleet(args) -> dict:
     }
     if ledger is not None:
         doc["chaos"] = ledger.to_dict()
-    print(f"fleet: {args.streams} streams x {args.ticks} ticks on 1 shard "
-          f"({args.device}): {frames} frames in {virtual_s*1e3:.1f}ms virtual "
+    print(f"fleet: {args.streams} streams x {args.ticks} ticks on {n_shards} shard(s) "
+          f"({args.device if mesh is None else mesh}): {frames} frames in "
+          f"{virtual_s*1e3:.1f}ms virtual "
           f"({doc['frames_per_vs']:.1f} frames/s), wall {wall_s:.2f}s")
     if ledger is not None:
         counts = ledger.counts()
@@ -299,17 +315,23 @@ def main(argv=None) -> None:
                          " (with --fleet: N camera streams)")
     ap.add_argument("--fleet", action="store_true",
                     help="camera-fleet mode: rung-bucket perception "
-                         "scheduling of --streams cameras on one device")
+                         "scheduling of --streams cameras, slot batches "
+                         "sharded over --mesh")
     ap.add_argument("--mesh", default=None,
-                    help="fleet mesh spec (not ported yet: multi-device fleet)")
+                    help="fleet mesh spec, e.g. 'data=2' or 'data=2,model=1' "
+                         "(omit for a single device)")
+    ap.add_argument("--mesh-devices", default=None,
+                    help="with --mesh: comma-separated devices of the mesh, "
+                         "repeats allowed (e.g. cuda:0,cuda:0); default every "
+                         "visible device of --device's type")
     ap.add_argument("--ticks", type=int, default=40,
                     help="fleet mode: number of scheduler ticks to run")
     ap.add_argument("--json-out", default=None,
                     help="fleet mode: write the machine-readable run report here")
     ap.add_argument("--chaos", default=None, metavar="PLAN",
                     help="fleet mode: inject faults from PLAN — a FaultPlan "
-                         "JSON file (repro_torch.chaos) or a one-shard chaos-"
-                         "episode name (e.g. sensor_stall_storm); arms the "
+                         "JSON file (repro_torch.chaos) or a chaos-episode "
+                         "name (e.g. sensor_stall_storm); arms the "
                          "watchdog/failover resilience machinery")
     ap.add_argument("--arrival-rate", type=float, default=100.0,
                     help="multi-tenant Poisson arrival rate (streams/s, simulated)")
@@ -341,9 +363,10 @@ def main(argv=None) -> None:
         ap.error("--trace-out/--obs-period have no effect without --obs")
     if args.obs and args.streams <= 0:
         ap.error("--obs needs multi-tenant mode (--streams N) or --fleet")
-    if args.mesh is not None:
-        ap.error("--mesh: the multi-device fleet is not ported yet "
-                 "(ROADMAP.md Queue 1 step 8)")
+    if args.mesh is not None and not args.fleet:
+        ap.error("--mesh only applies to --fleet")
+    if args.mesh_devices is not None and args.mesh is None:
+        ap.error("--mesh-devices needs --mesh")
     if args.chaos is not None and not args.fleet:
         ap.error("--chaos only applies to --fleet")
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():

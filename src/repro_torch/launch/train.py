@@ -7,8 +7,8 @@ trains at full width on the card (bf16 weights, f32 AdamW moments); on
 the CPU pass ``--device cpu`` with ``--smoke`` (the reduced config).  Runs
 on CUDA unless ``--device cpu`` is given, and fails without a card: it
 never moves to the CPU on its own.  One device only: ``--mesh`` takes
-``local``; ``single``/``multi`` and ``--fsdp`` wait for the multi-GPU
-fleet (ROADMAP.md Queue 1 step 8).  Every arch trains on either device;
+``local``; ``single``/``multi`` and ``--fsdp`` wait for sharded training
+(ROADMAP.md Queue 1 step 8).  Every arch trains on either device;
 on the card the ssm and hybrid archs (``--arch rwkv6-3b``,
 ``--arch zamba2-2.7b``) run their scans' forward kernels, and the scans'
 gradients are those of the reference's chunked forms under autograd.
@@ -44,10 +44,10 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                     help="torch device (default cuda; cpu only when asked)")
     args = ap.parse_args(argv)
     if args.mesh != "local":
-        ap.error(f"--mesh {args.mesh}: the multi-GPU fleet is not ported yet "
-                 "(ROADMAP.md Queue 1 step 8); the port trains on one device")
+        ap.error(f"--mesh {args.mesh}: sharded training (ROADMAP.md Queue 1 step 8) is not "
+                 "ported yet; the port trains on one device")
     if args.fsdp:
-        ap.error("--fsdp: sharded training is not ported yet (ROADMAP.md Queue 1 step 8)")
+        ap.error("--fsdp: sharded training (ROADMAP.md Queue 1 step 8) is not ported yet")
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("CUDA is not available; pass --device cpu to run on the CPU")
 

@@ -44,6 +44,7 @@ __all__ = [
     "params_from_numpy",
     "init_detector_params",
     "resolve_device",
+    "canonical_device",
 ]
 
 def resolve_device(device: str | torch.device) -> torch.device:
@@ -55,6 +56,15 @@ def resolve_device(device: str | torch.device) -> torch.device:
         raise RuntimeError(f"device {str(dev)!r} asked for, but no CUDA device is present "
                            "(torch.cuda.is_available() is false); pass device='cpu' to run "
                            "on the CPU")
+    return dev
+
+
+def canonical_device(device: str | torch.device) -> torch.device:
+    """``device`` with a CUDA index filled in (the current device), so one
+    device compares equal however it was spelled (``cuda`` and ``cuda:0``)."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
     return dev
 
 

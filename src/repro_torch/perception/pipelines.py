@@ -33,9 +33,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..core.timing import StageTimer, TimelineRecorder, fence, to_host
+from ..core.timing import StageTimer, TimelineRecorder, _map_tensors, fence, to_host
 from .data import H, W, Scene, SceneConfig, generate_scene
-from .detector import OneStageDetector, TwoStageDetector, params_from_numpy, resolve_device
+from .detector import OneStageDetector, TwoStageDetector, canonical_device, params_from_numpy
 from .lane import LaneDetector
 
 __all__ = [
@@ -178,9 +178,14 @@ class BuiltPipeline:
     device: torch.device
     pad: bool = True                         # False: truly smaller λ input
     post_batch: Optional[Callable[[Any, np.ndarray], list]] = None
+    # the same pipeline with its weights copied to another device (set by
+    # the factories); ``on`` keeps one copy per device
+    replicate: Optional[Callable[[torch.device], "BuiltPipeline"]] = dataclasses.field(
+        default=None, repr=False, compare=False)
     # λ gather indices on the device, per raw (H, W): made at build time
     # for the canonical frame, and once for any other shape
     _index: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
+    _replicas: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
 
     def pre_index(self, shape: tuple[int, int]):
         key = (int(shape[0]), int(shape[1]))
@@ -188,9 +193,27 @@ class BuiltPipeline:
             self._index[key] = gather_index(key, self.scale, self.pad, self.device)
         return self._index[key]
 
+    def on(self, device: str | torch.device) -> "BuiltPipeline":
+        """This pipeline on ``device``: itself on its own device, else a copy
+        with the same weights there (made once, kept)."""
+        dev = canonical_device(device)
+        if dev == self.device:
+            return self
+        if dev not in self._replicas:
+            if self.replicate is None:
+                raise ValueError(f"pipeline {self.name!r} cannot be copied to {dev}")
+            self._replicas[dev] = self.replicate(dev)
+        return self._replicas[dev]
+
     def device_step(self, raw: torch.Tensor):
         """Pre-processing on the device, then inference, over raw frames
-        (B, H, W, 3): the batched engine's step."""
+        (B, H, W, 3): the batched engine's step.  Frames on another device
+        than the weights' run on the pipeline's copy there (``on``): a
+        multi-device fleet steps each shard where its slots live."""
+        if raw.device != self.device:
+            other = self.on(raw.device)
+            if other is not self:
+                return other.device_step(raw)
         index = self.pre_index(raw.shape[-3:-1])
         return self.infer(preprocess_device(raw, self.scale, self.pad, index))
 
@@ -218,7 +241,9 @@ def build_pipeline(name: str, scale: float = 1.0, generator: Optional[torch.Gene
     return built
 
 
-def _weights(det, generator, dev: torch.device, params) -> dict:
+def _weights(det, generator, dev: torch.device, params, weights=None) -> dict:
+    if weights is not None:            # a copy of built weights (``replicate``)
+        return _map_tensors(lambda t: t.to(dev), weights)
     if params is not None:
         return params_from_numpy(params, dev)
     return det.init(generator if generator is not None else _default_generator(), dev)
@@ -251,10 +276,10 @@ def _unscale(boxes: np.ndarray, scale: float, pad: bool) -> np.ndarray:
 
 @register_pipeline("one_stage")
 def _make_one_stage(scale: float = 1.0, generator=None, pad: bool = True, device="cuda",
-                    params=None, **det_kw) -> BuiltPipeline:
+                    params=None, weights=None, **det_kw) -> BuiltPipeline:
     det = OneStageDetector(**det_kw)
-    dev = resolve_device(device)
-    weights = _weights(det, generator, dev, params)
+    dev = canonical_device(device)
+    weights = _weights(det, generator, dev, params, weights)
 
     def infer(img):
         return det.infer(weights, img)
@@ -279,27 +304,30 @@ def _make_one_stage(scale: float = 1.0, generator=None, pad: bool = True, device
         return outs
 
     return BuiltPipeline("one_stage", scale, infer, post, dev, pad=pad,
-                         post_batch=post_batch)
+                         post_batch=post_batch, replicate=lambda d: _make_one_stage(
+                             scale, pad=pad, device=d, weights=weights, **det_kw))
 
 
 @register_pipeline("early_exit")
 def _make_early_exit(scale: float = 1.0, generator=None, pad: bool = True, device="cuda",
-                     params=None, **det_kw) -> BuiltPipeline:
+                     params=None, weights=None, **det_kw) -> BuiltPipeline:
     """Truncated-backbone one-stage variant: 1 conv + coarse 16-px grid —
     the anytime ladder's cheapest detection rung."""
     det_kw.setdefault("depth", 1)
     det_kw.setdefault("cell", 16)
     built = _make_one_stage(scale=scale, generator=generator, pad=pad, device=device,
-                            params=params, **det_kw)
-    return dataclasses.replace(built, name="early_exit")
+                            params=params, weights=weights, **det_kw)
+    return dataclasses.replace(
+        built, name="early_exit", _index={}, _replicas={},
+        replicate=lambda d: dataclasses.replace(built.replicate(d), name="early_exit"))
 
 
 @register_pipeline("two_stage")
 def _make_two_stage(scale: float = 1.0, generator=None, pad: bool = True, device="cuda",
-                    params=None, **det_kw) -> BuiltPipeline:
+                    params=None, weights=None, **det_kw) -> BuiltPipeline:
     det = TwoStageDetector(**det_kw)
-    dev = resolve_device(device)
-    weights = _weights(det, generator, dev, params)
+    dev = canonical_device(device)
+    weights = _weights(det, generator, dev, params, weights)
 
     def infer(img):
         return det.infer_device(weights, img)
@@ -326,7 +354,8 @@ def _make_two_stage(scale: float = 1.0, generator=None, pad: bool = True, device
         return outs
 
     return BuiltPipeline("two_stage", scale, infer, post, dev, pad=pad,
-                         post_batch=post_batch)
+                         post_batch=post_batch, replicate=lambda d: _make_two_stage(
+                             scale, pad=pad, device=d, weights=weights, **det_kw))
 
 
 _NO_BOXES = np.zeros((0, 4), np.float32)
@@ -334,10 +363,10 @@ _NO_BOXES = np.zeros((0, 4), np.float32)
 
 @register_pipeline("lane")
 def _make_lane(scale: float = 1.0, generator=None, pad: bool = True, device="cuda",
-               params=None, **det_kw) -> BuiltPipeline:
+               params=None, weights=None, **det_kw) -> BuiltPipeline:
     det = LaneDetector(**det_kw)
-    dev = resolve_device(device)
-    weights = _weights(det, generator, dev, params)
+    dev = canonical_device(device)
+    weights = _weights(det, generator, dev, params, weights)
 
     def infer(img):
         return det.infer_device(weights, img)
@@ -347,17 +376,19 @@ def _make_lane(scale: float = 1.0, generator=None, pad: bool = True, device="cud
         return FrameOutput(boxes=_NO_BOXES, num_objects=float(len(fits)),
                            num_proposals=float(n_pix))
 
-    return BuiltPipeline("lane", scale, infer, post, dev, pad=pad)
+    return BuiltPipeline("lane", scale, infer, post, dev, pad=pad,
+                         replicate=lambda d: _make_lane(scale, pad=pad, device=d,
+                                                        weights=weights, **det_kw))
 
 
 @register_pipeline("lane_static")
 def _make_lane_static(scale: float = 1.0, generator=None, pad: bool = True, device="cuda",
-                      params=None, **det_kw) -> BuiltPipeline:
+                      params=None, weights=None, **det_kw) -> BuiltPipeline:
     """The mitigation: identical lane pipeline with static-shape top-k
     fitting on device — post-processing variance collapses."""
     det = LaneDetector(**det_kw)
-    dev = resolve_device(device)
-    weights = _weights(det, generator, dev, params)
+    dev = canonical_device(device)
+    weights = _weights(det, generator, dev, params, weights)
 
     def infer(img):
         return det.static_fit_device(det.infer_device(weights, img))
@@ -367,7 +398,9 @@ def _make_lane_static(scale: float = 1.0, generator=None, pad: bool = True, devi
         return FrameOutput(boxes=_NO_BOXES, num_objects=float(fits.shape[0]),
                            num_proposals=float(n_pix))
 
-    return BuiltPipeline("lane_static", scale, infer, post, dev, pad=pad)
+    return BuiltPipeline("lane_static", scale, infer, post, dev, pad=pad,
+                         replicate=lambda d: _make_lane_static(scale, pad=pad, device=d,
+                                                               weights=weights, **det_kw))
 
 
 def run_frame(built: BuiltPipeline, scene: Scene):

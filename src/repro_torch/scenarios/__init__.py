@@ -20,7 +20,8 @@ static scene generator into replayable episodes:
   repro_torch.scenarios --check``).
 
 The port of the reference's ``repro.scenarios``; the replayer takes
-chaos plans (``repro_torch.chaos``); device meshes come with a later slice.
+chaos plans (``repro_torch.chaos``) and device meshes
+(``repro_torch.launch.mesh``).
 """
 from .catalog import CATALOG, episode_names, get_episode
 from .golden import Tolerance, compare_reports, golden_replay

@@ -32,8 +32,8 @@ dropout, scenario and shutter-stagger draws of each stream and tick, and
 the cost model's own generator once per modeled stage), so a replay on
 the reference's detector weights gives the reference's report.  Weights
 come from ``params=`` (pipeline name → NumPy tree) or ``generator=``.
-``chaos=`` takes a compiled ``repro_torch.chaos.FaultPlan``; device meshes
-are not ported yet and raise.
+``chaos=`` takes a compiled ``repro_torch.chaos.FaultPlan``; ``mesh=`` a
+``repro_torch.launch.mesh.Mesh`` for a multi-shard fleet.
 """
 from __future__ import annotations
 
@@ -292,9 +292,14 @@ class ScenarioReplayer:
 
     ``chaos=`` takes a compiled ``repro_torch.chaos.FaultPlan``: it wires
     the injector (pure plan lookups) and the scheduler's resilience layer
-    (health machines, watchdog, retry) into the replay.  ``mesh=`` (a
-    multi-device fleet) is not ported yet and raises
-    ``NotImplementedError``.
+    (health machines, watchdog, retry) into the replay.
+
+    ``mesh=`` (a ``repro_torch.launch.mesh.Mesh``) makes a fleet replay: a
+    scheduler built here shards every rung engine's slot batch over the
+    mesh's data axis.  On a one-shard mesh the placer and the sharded cost
+    model are bypassed (``n_shards == 1``), so the report is byte-identical
+    to the meshless one.  A reused scheduler keeps the mesh it was built
+    with.
     """
 
     def __init__(
@@ -314,10 +319,6 @@ class ScenarioReplayer:
         chaos=None,
         device: str | torch.device | None = None,
     ) -> None:
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh=: the multi-device fleet is not ported yet (ROADMAP.md "
-                "Queue 1 step 8)")
         if depth < 1:
             raise ValueError(f"depth must be >= 1 (got {depth})")
         self.requested_depth = depth
@@ -336,17 +337,17 @@ class ScenarioReplayer:
             scheduler = RungBucketScheduler(
                 ladder, capacity=cap, generator=generator, ctl_cfg=ctl_cfg,
                 clock=self.clock, stage_cost=self.cost, depth=self.depth,
-                device=device if device is not None else "cuda", params=params)
+                device=device if device is not None else "cuda", params=params, mesh=mesh)
         else:
             # a reused scheduler brings its own ladder/controller config/
             # weights/device — accepting overrides here would silently
             # produce a report under a different configuration than requested
             if (ladder is not None or generator is not None or params is not None
-                    or ctl_cfg is not None or device is not None):
+                    or ctl_cfg is not None or device is not None or mesh is not None):
                 raise ValueError(
                     "scheduler was passed already built; ladder/ctl_cfg/"
-                    "generator/params/device belong to its construction and "
-                    "would be silently ignored here")
+                    "generator/params/device/mesh belong to its construction "
+                    "and would be silently ignored here")
             if capacity is not None and capacity != scheduler.capacity:
                 raise ValueError(
                     f"reused scheduler has capacity {scheduler.capacity}, "

@@ -93,7 +93,7 @@ class Trainer:
                  fsdp: bool = False) -> None:
         if rules is not None or fsdp:
             raise NotImplementedError(
-                "sharding rules and FSDP come with the multi-GPU fleet (ROADMAP.md Queue 1 "
+                "sharding rules and FSDP come with sharded training (ROADMAP.md Queue 1 "
                 "step 8); the port trains on one device")
         self.model = model
         self.device = torch.device(device)

@@ -23,6 +23,8 @@ import pytest
 torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 
+import repro.batched.executor as rexecutor  # noqa: E402
+import repro.batched.scheduler as rscheduler  # noqa: E402
 from repro import chaos as rchaos  # noqa: E402
 from repro.batched.scheduler import RungBucketScheduler as RScheduler  # noqa: E402
 from repro.bus.clock import SimClock as RSimClock  # noqa: E402
@@ -51,6 +53,7 @@ from repro_torch.chaos import (  # noqa: E402
     run_chaos_episode,
 )
 from repro_torch.chaos.__main__ import main as chaos_main  # noqa: E402
+from repro_torch.launch.mesh import make_local_mesh  # noqa: E402
 from repro_torch.obs import Observatory  # noqa: E402
 from repro_torch.perception import SceneConfig, generate_scene  # noqa: E402
 from repro_torch.scenarios import (  # noqa: E402
@@ -491,6 +494,121 @@ def test_kill_shard_at_one_shard_follows_the_reference(pool):
     assert got[3][2] == []                      # revived
 
 
+# ------------------------------------------- shard loss at two shards -----
+# The reference cannot run two shards under this JAX (its sharded jit of the
+# perception step raises ShardingTypeError on two forced host devices,
+# ROADMAP.md Queue 3).  Its oracle is its own host logic at two shards over
+# its one-device program: data_shards patched to 2 in its executor and
+# scheduler, mesh None (tests/test_torch_fleet.py's docstring says why that
+# is sound).  The port runs two CPU shards.
+
+class _Captures:
+    """A replay sentinel: each engine's captures as the tick loop starts
+    (after the warm-up) and as it ends."""
+
+    def __init__(self, sched):
+        self.sched, self.at = sched, []
+
+    def _read(self):
+        self.at.append([e.executor.step_captures for e in self.sched.engines.values()])
+
+    def __enter__(self):
+        self._read()
+        return self
+
+    def __exit__(self, *exc):
+        self._read()
+        return False
+
+
+def _tick_log(sched):
+    """Record every tick's (buckets, shard_buckets) of a scheduler."""
+    log, tick = [], sched.tick
+
+    def logged(*args, **kw):
+        res = tick(*args, **kw)
+        log.append((res.buckets, res.shard_buckets))
+        return res
+
+    sched.tick = logged
+    return log
+
+
+@pytest.fixture(scope="module")
+def shard_loss(ref_params):
+    """shard_loss_rush_hour twice through one port scheduler at two CPU
+    shards, and once through the reference's two-shard oracle."""
+    port = RungBucketScheduler(replay_ladder(), capacity=CHAOS_CATALOG[
+        "shard_loss_rush_hour"].capacity, device="cpu", params=ref_params,
+        mesh=make_local_mesh(data=2, devices=["cpu", "cpu"]))
+    port_log = _tick_log(port)
+    runs = []
+    for _ in range(2):
+        guard = _Captures(port)
+        runs.append(run_chaos_episode("shard_loss_rush_hour", scheduler=port, sentinel=guard)
+                    + (guard.at,))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(rexecutor, "data_shards", lambda mesh: 2)
+        mp.setattr(rscheduler, "data_shards", lambda mesh: 2)
+        ref_sched = RScheduler(rreplay.replay_ladder(), capacity=port.capacity)
+        ref_log = _tick_log(ref_sched)
+        ref = rchaos.run_chaos_episode("shard_loss_rush_hour", scheduler=ref_sched)
+    return runs, port_log, ref, ref_log
+
+
+def test_shard_loss_at_two_shards_matches_the_reference_oracle(shard_loss):
+    runs, port_log, (want, want_rep, want_plan), _ = shard_loss
+    got, got_rep, got_plan, _ = runs[0]
+    assert got_plan.to_json() == want_plan.to_json()
+    gl, wl = got_rep.injector.ledger, want_rep.injector.ledger
+    _assert_same_ledger(gl.events, wl.events)
+    assert gl.counts() == wl.counts() == {"failover": 2, "fault_inject": 2}
+    assert gl.reseat_ticks() == wl.reseat_ticks() == 0
+    assert got.totals() == want.totals() and got.totals()["frames"] == 112
+    _assert_same_report(got.to_dict(), want.to_dict())
+    assert got_rep.scheduler.n_shards == want_rep.scheduler.n_shards == 2
+    assert {n: e.shard_occupancy() for n, e in got_rep.scheduler.engines.items()} == \
+        {n: e.shard_occupancy() for n, e in want_rep.scheduler.engines.items()} == \
+        {"two_stage": [0, 0], "one_stage": [2, 2], "early_exit@0.5": [0, 0]}
+    assert [e.trace_count for e in want_rep.scheduler.engines.values()] == [1, 1, 1]
+
+
+def test_shard_loss_buckets_per_tick_match_the_oracle(shard_loss):
+    """Per tick, each rung's members and their split over the two shards:
+    the kill at tick 8 moves shard 1's streams to shard 0 in that tick; the
+    revive at 20 lets the rebalance move them back, one a tick."""
+    runs, port_log, _, ref_log = shard_loss
+    n = runs[0][0].n_ticks
+    assert port_log[:n] == port_log[n:] == ref_log and len(ref_log) == n
+    one = [sb.get("one_stage", {}) for _, sb in ref_log]
+    assert all(set(sb) == {0} for sb in one[8:20]) and set(one[-1]) == {0, 1}
+
+
+def test_shard_loss_captures_once_per_shard_and_replays_byte_identically(shard_loss):
+    runs = shard_loss[0]
+    for _, _, _, at in runs:
+        # two captures per engine (one per shard) by the warm-up, none after
+        assert at == [[2, 2, 2], [2, 2, 2]]
+    a, b = runs[0][0], runs[1][0]
+    assert a.to_json(indent=2) == b.to_json(indent=2)
+
+
+def test_cli_runs_shard_loss_at_two_cpu_shards(tmp_path, capsys):
+    out = tmp_path / "chaos.json"
+    assert chaos_main(["--episode", "shard_loss_rush_hour", "--mesh", "data=2",
+                       "--mesh-devices", "cpu,cpu", "--device", "cpu", "--check",
+                       "--json-out", str(out)]) == 0
+    text = capsys.readouterr().out
+    assert "[chaos] all gates passed" in text and "2 shard(s)" in text
+    doc = json.loads(out.read_text())
+    assert doc["gates"] == {"checked": True, "problems": []}
+    assert doc["n_shards"] == 2 and doc["mesh"] == "data=2"
+    assert doc["mesh_devices"] == ["cpu", "cpu"]
+    assert set(doc["trace_counts"].values()) == {2}
+    assert doc["ledger_counts"]["failover"] >= 1 and doc["reseat_ticks"] <= 3
+    assert doc["report"]["chaos"]["counts"]["failover"] >= 1
+
+
 # ------------------------------------------------------------------ CLIs ---
 def test_cli_check_passes_on_the_cpu(tmp_path, capsys):
     out = tmp_path / "chaos.json"
@@ -504,20 +622,32 @@ def test_cli_check_passes_on_the_cpu(tmp_path, capsys):
     assert doc["report"]["chaos"]["counts"] == doc["ledger_counts"]
 
 
-@pytest.mark.parametrize("argv", [["--episode", "sensor_stall_storm", "--mesh", "data=2"],
-                                  ["--episode", "shard_loss_rush_hour"]],
-                         ids=["mesh", "two-shard-episode"])
-def test_cli_refuses_more_than_one_shard(argv, capsys):
-    with pytest.raises(SystemExit):
+@pytest.mark.parametrize("argv,msg", [
+    (["--episode", "shard_loss_rush_hour", "--mesh", "data=2"], "name more devices"),
+    (["--episode", "shard_loss_rush_hour"], "pass --mesh data=2"),
+    (["--episode", "sensor_stall_storm", "--mesh-devices", "cpu,cpu"], "needs --mesh"),
+    (["--episode", "sensor_stall_storm", "--mesh", "data=1,model=2"], "cannot be honored")],
+    ids=["mesh", "two-shard-episode", "devices-without-mesh", "model-overflow"])
+def test_cli_refuses_more_than_one_shard(argv, msg, capsys):
+    """More shards than the mesh gives exit before anything runs: a
+    two-shard episode without --mesh (as the reference's CLI) or on a mesh
+    over the one CPU device (``--mesh-devices`` names more)."""
+    with pytest.raises(SystemExit) as exc:
         chaos_main(argv + ["--device", "cpu"])
-    assert "step 8" in capsys.readouterr().err
+    assert exc.value.code == 2 and msg in capsys.readouterr().err
 
 
 def test_run_chaos_episode_refuses_more_than_one_shard(pool):
-    with pytest.raises(NotImplementedError, match="step 8"):
+    """On a one-shard scheduler the two-shard episode's kill of shard 1
+    raises, as the reference's does; a reused scheduler keeps its mesh."""
+    with pytest.raises(ValueError, match=r"shard 1 out of range \[0, 1\)"):
         run_chaos_episode("shard_loss_rush_hour", scheduler=pool["port"])
-    with pytest.raises(NotImplementedError, match="step 8"):
-        run_chaos_episode("sensor_stall_storm", mesh=object(), scheduler=pool["port"])
+    with pytest.raises(ValueError, match=r"shard 1 out of range \[0, 1\)"):
+        rchaos.run_chaos_episode("shard_loss_rush_hour", scheduler=pool["ref"])
+    report, replayer, _ = run_chaos_episode(
+        "sensor_stall_storm", scheduler=pool["port"],
+        mesh=make_local_mesh(data=2, devices=["cpu", "cpu"]))
+    assert replayer.scheduler is pool["port"] and replayer.scheduler.n_shards == 1
 
 
 def test_entry_points_without_a_card_raise(monkeypatch):
@@ -553,7 +683,7 @@ def test_serve_fleet_with_chaos_runs_on_the_cpu(tmp_path, capsys):
     serve.main(["--fleet", "--streams", "3", "--ticks", "20", "--device", "cpu",
                 "--chaos", str(plan_path), "--json-out", str(path)])
     assert json.loads(path.read_text())["chaos"] == doc["chaos"]
-    with pytest.raises(SystemExit, match="step 8"):
+    with pytest.raises(SystemExit, match="wants 2 data shards, the fleet has 1: pass --mesh"):
         serve.main(["--fleet", "--streams", "3", "--device", "cpu",
                     "--chaos", "shard_loss_rush_hour"])
     with pytest.raises(SystemExit, match="neither"):

@@ -535,6 +535,136 @@ def test_chaos_storm_on_card_equals_cpu(dev, tf32_default):
         [1, 1, 1]
 
 
+# ------------------------------------------------------ two-shard fleet --
+# Two shards on one card (a mesh naming the device twice): each shard's block
+# of the slot batch is captured in its own graph (at batch capacity/2) and
+# replayed on its own stream.  cuDNN may choose other algorithms at batch 4
+# than at 8, so per-slot outputs are held against one shard in the batched
+# phase's bands (counts equal, boxes within 1e-3 px), not bit for bit.
+
+@contextlib.contextmanager
+def _no_sync_captures(sched, at):
+    """A replay sentinel: the tick loop under set_sync_debug_mode("error"),
+    each engine's captures read as it starts and as it ends."""
+    torch.cuda.synchronize()
+    at.append([e.executor.step_captures for e in sched.engines.values()])
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        at.append([e.executor.step_captures for e in sched.engines.values()])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["two_stage", "one_stage", "lane_static"])
+@pytest.mark.parametrize("depth", [1, 2])
+def test_two_shards_on_one_card_match_one_shard(dev, tf32_default, name, depth):
+    from repro_torch.batched import BatchedPerceptionEngine
+    from repro_torch.launch.mesh import make_local_mesh
+
+    frames = _scene_images(18, seed0=90)
+    results = {}
+    for shards, d in ((1, 1), (2, depth)):
+        eng = BatchedPerceptionEngine(name, capacity=8, depth=d, device=dev,
+                                      mesh=make_local_mesh(data=shards, devices=[dev] * shards))
+        for s in range(6):
+            eng.join(f"cam{s}")
+        eng.probe(frames[:8])          # builds the steps and the post's host copies
+        seq = []
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for t in range(3):
+                _, outs = eng.tick({f"cam{s}": frames[6 * t + s] for s in range(6)})
+                seq += [outs[k] for k in sorted(outs)]
+            for _, outs, _ in eng.flush():
+                seq += [outs[k] for k in sorted(outs)]
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert eng.trace_count == shards and eng.replay_count == 4 * shards
+        if shards == 2:
+            assert eng.shard_occupancy() == [3, 3]
+        results[shards] = seq
+    assert len(results[1]) == len(results[2]) == 18
+    for a, b in zip(results[2], results[1]):
+        assert (a.num_objects, a.num_proposals) == (b.num_objects, b.num_proposals)
+        assert a.boxes.shape == b.boxes.shape
+        if a.boxes.size:
+            assert float(np.abs(a.boxes - b.boxes).max()) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_shard_loss_at_two_shards_on_card_equals_cpu(dev, tf32_default):
+    """shard_loss_rush_hour at two shards on one card against two CPU
+    shards: the same report (exact but mean_quality) and ledger, the tick
+    loop free of host syncs, and two captures per engine (one per shard)
+    by the warm-up with none added through the kill, the failover, the
+    revive and the rebalance."""
+    from repro_torch.batched import RungBucketScheduler
+    from repro_torch.chaos import CHAOS_CATALOG, run_chaos_episode
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.scenarios import compare_reports, replay_ladder
+
+    sched = RungBucketScheduler(replay_ladder(), capacity=CHAOS_CATALOG[
+        "shard_loss_rush_hour"].capacity, device=dev,
+        mesh=make_local_mesh(data=2, devices=[dev, dev]))
+    at = []
+    card, card_rep, _ = run_chaos_episode("shard_loss_rush_hour", scheduler=sched,
+                                          sentinel=_no_sync_captures(sched, at))
+    cpu, cpu_rep, _ = run_chaos_episode("shard_loss_rush_hour", device="cpu",
+                                        mesh=make_local_mesh(data=2, devices=["cpu", "cpu"]))
+    got, want = card.to_dict(), cpu.to_dict()
+    assert compare_reports(got, want, _exact_but_quality()) == []
+    assert got["chaos"] == want["chaos"] and got["chaos"]["counts"]["failover"] >= 1
+    assert card_rep.injector.ledger.reseat_ticks() <= 3
+    assert at == [[2, 2, 2], [2, 2, 2]]
+    assert {n: e.shard_occupancy() for n, e in card_rep.scheduler.engines.items()} == \
+        {n: e.shard_occupancy() for n, e in cpu_rep.scheduler.engines.items()}
+
+
+@pytest.mark.cuda
+def test_shards_on_distinct_cards_match_one_card(dev, tf32_default):
+    """Where the machine has two cards or more, a mesh over every visible
+    card (``make_local_mesh(data=n)``) puts each shard's block, its copy of
+    the weights and its graph on its own card; outputs match one shard on
+    one card in the bands above, and shard_loss_rush_hour over two cards
+    equals two CPU shards."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two CUDA devices or more")
+    from repro_torch.batched import BatchedPerceptionEngine
+    from repro_torch.chaos import run_chaos_episode
+    from repro_torch.launch.mesh import make_local_mesh
+
+    data = 4 if n >= 4 else 2
+    mesh = make_local_mesh(data=data)
+    assert [str(d) for d in mesh.devices[:, 0]] == [f"cuda:{k}" for k in range(data)]
+    frames = _scene_images(16, seed0=120)
+    results = {}
+    for m in (None, mesh):
+        eng = BatchedPerceptionEngine("two_stage", capacity=8, device=dev, mesh=m)
+        for s in range(8):
+            eng.join(f"cam{s}")
+        eng.probe(frames[:8])
+        seq = []
+        for t in range(2):
+            _, outs = eng.tick({f"cam{s}": frames[8 * t + s] for s in range(8)})
+            seq += [outs[k] for k in sorted(outs)]
+        results[m is None] = seq
+        assert eng.trace_count == eng.executor.n_shards
+    assert [sh.device.index for sh in eng.executor._shards] == list(range(data))
+    for a, b in zip(results[False], results[True]):
+        assert (a.num_objects, a.num_proposals) == (b.num_objects, b.num_proposals)
+        if a.boxes.size:
+            assert float(np.abs(a.boxes - b.boxes).max()) <= 1e-3
+    card, _, _ = run_chaos_episode("shard_loss_rush_hour", device=dev,
+                                   mesh=make_local_mesh(data=2, devices=["cuda:0", "cuda:1"]))
+    cpu, _, _ = run_chaos_episode("shard_loss_rush_hour", device="cpu",
+                                  mesh=make_local_mesh(data=2, devices=["cpu", "cpu"]))
+    assert card.to_dict()["chaos"] == cpu.to_dict()["chaos"]
+    assert card.totals() == cpu.totals()
+
+
 # ----------------------------------------------------- multi-tenant serving --
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["qwen3-4b", "rwkv6-3b"])

@@ -488,7 +488,8 @@ def test_fleet_cli_runs_on_the_cpu(capsys, tmp_path):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--fleet", "--streams", "2", "--mesh", "data=2"], "step 8"),
+    (["--arch", "rwkv6-3b", "--mesh", "data=2"], "--mesh only applies to --fleet"),
+    (["--fleet", "--streams", "2", "--mesh-devices", "cpu,cpu"], "--mesh-devices needs --mesh"),
     (["--arch", "rwkv6-3b", "--chaos", "sensor_stall_storm"], "--chaos only applies to --fleet"),
     (["--arch", "rwkv6-3b", "--streams", "2", "--anytime"], "--slo-ms"),
     (["--arch", "rwkv6-3b", "--streams", "2", "--anytime", "--slo-ms", "1",

@@ -351,12 +351,19 @@ def test_run_anytime_accepts_trace_profiles():
 
 
 # --------------------------------------------------------- API guards ------
-def test_chaos_and_mesh_raise_until_ported():
-    """``chaos=`` is ported (tests/test_torch_chaos.py); ``mesh=`` still
-    raises, naming the multi-device fleet's step."""
+def test_chaos_and_mesh_raise_until_ported(pool):
+    """``chaos=`` and ``mesh=`` are ported (tests/test_torch_chaos.py,
+    tests/test_torch_fleet.py); a mesh raises only where it cannot be
+    honoured: on a reused scheduler (it keeps the mesh it was built with)
+    and where the capacity does not divide over its data axis."""
+    from repro_torch.launch.mesh import make_local_mesh
+
     trace = _golden_trace("urban_rush_hour")
-    with pytest.raises(NotImplementedError, match="step 8"):
-        ScenarioReplayer(trace, mesh=object(), device="cpu")
+    two = make_local_mesh(data=2, devices=["cpu", "cpu"])
+    with pytest.raises(ValueError, match="mesh belong to its construction"):
+        ScenarioReplayer(trace, scheduler=pool["port"], mesh=two)
+    with pytest.raises(ValueError, match="divisible by the data axis"):
+        ScenarioReplayer(trace, capacity=GOLDEN_CAPACITY + 1, mesh=two, device="cpu")
 
 
 def test_reused_scheduler_rejects_construction_arguments(pool, ref_params):

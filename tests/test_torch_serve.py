@@ -282,6 +282,13 @@ def test_port_imports_no_jax_and_no_reference(path):
             assert top not in ("jax", "jaxlib", "repro"), f"{path}: imports {name}"
 
 
+def test_the_scan_covers_every_port_package():
+    names = {p.relative_to(REPO / "src" / "repro_torch").as_posix()
+             for p in _port_files() if "repro_torch" in p.parts}
+    assert {"distributed/__init__.py", "distributed/sharding.py", "launch/mesh.py",
+            "chaos/__main__.py", "batched/executor.py"} <= names
+
+
 def test_importing_the_port_loads_no_jax():
     code = (
         "import pkgutil, sys, importlib, repro_torch\n"

@@ -362,7 +362,8 @@ def test_trainer_init_and_refusals():
     assert all(p.requires_grad for _, p in _walk(params))
     assert int(state.step) == 0 and float(state.loss_scale) == 1.0
     for kw in (dict(fsdp=True), dict(rules=object())):
-        with pytest.raises(NotImplementedError, match="step 8"):
+        with pytest.raises(NotImplementedError,
+                           match=r"sharded training \(ROADMAP.md Queue 1 step 8\)"):
             Trainer(model, "cpu", **kw)
 
 
@@ -470,9 +471,12 @@ def test_train_module_entry_point_on_cpu():
     assert "family=dense" in res.stdout and "step latency" in res.stdout
 
 
-@pytest.mark.parametrize("argv,msg", [(["--mesh", "single"], "step 8"),
-                                      (["--mesh", "multi"], "step 8"),
-                                      (["--fsdp"], "step 8")])
+_SHARDED = "sharded training (ROADMAP.md Queue 1 step 8)"
+
+
+@pytest.mark.parametrize("argv,msg", [(["--mesh", "single"], _SHARDED),
+                                      (["--mesh", "multi"], _SHARDED),
+                                      (["--fsdp"], _SHARDED)])
 def test_train_cli_refuses_what_is_not_ported(capsys, argv, msg):
     with pytest.raises(SystemExit) as exc:
         train_cli.main(["--arch", "qwen3-4b", "--smoke", "--device", "cpu", *argv])
