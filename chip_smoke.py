@@ -8,9 +8,9 @@ forwards and the flash attention backward), the perception frame path,
 batched multi-camera perception and scenario replay (which run none of
 them), chaos at one shard (none either),
 multi-tenant decode serving (decode_attention in every shared
-step) and training (every family: the flash forward and backward
+step), training (every family: the flash forward and backward
 kernels, and the scans' forward kernels with their chunked forms'
-gradients): qwen3-4b
+gradients) and sharded training (two ranks on the card): qwen3-4b
 (dense: flash_attention, decode_attention), rwkv6-3b (ssm: rwkv6_wkv),
 zamba2-2.7b (hybrid: mamba2_ssd, and flash/decode attention at head_dim 80
 in the shared block), olmoe-1b-7b (moe, 64 experts top-8: the moe, vlm and
@@ -221,15 +221,28 @@ Phases (each raises on failure; none is caught):
              backward; for zamba2-2.7b the bf16 model against its f32 copy
              at the training batch.  Then on smoke models a checkpoint round
              trip on the card, and rwkv6-3b and zamba2-2.7b's loss and every
-             gradient leaf on the card against the CPU.
+             gradient leaf on the card against the CPU;
+10. sharded — sharded training (Trainer on a TrainMesh,
+             distributed/layout.py): a 1 x 1 mesh with FSDP against the
+             one-device trainer bit for bit; two ranks spawned on the one
+             card over gloo (CUDA tensors), qwen3-4b at full width cut to
+             SHARD_LAYERS layers, FSDP at data=2, against one rank of the
+             same cut: each rank's parameter and moment bytes exactly half
+             (but for the leaves no rule splits), the loss within
+             SHARD_BAND, the launches of train_launches on each rank, peak
+             memory, step wall and the collectives' share of a step; f32
+             smoke qwen3-4b, hubert-xlarge and olmoe-1b-7b at two ranks
+             against one; olmoe-1b-7b at full depth over NCCL with two
+             cards or more (skipped, with a line that says so, on one).
 
 The build phase prints each kernel's registers, static shared memory and
 spill bytes from the compiler's -Xptxas -v report, and the scan kernels'
 blocks per SM from the occupancy API.  Prints the card's name
 and power limit, one ``{"kernels": [...]}`` line (each row also names the
 kernel's design and splits ``launches`` by path: each arch's prefill and
-Engine.generate, the multi-tenant drain and each training path,
-"train:<arch>"), and as the last line ``{"ok": true, "device": {...}}``.
+Engine.generate, the multi-tenant drain, each training path,
+"train:<arch>", and the two-rank run, "train_sharded:qwen3-4b", summed
+over its ranks), and as the last line ``{"ok": true, "device": {...}}``.
 (Phase 4, times, runs last.)
 Exits non-zero, with no result, when there is no CUDA device or no
 ``src/repro_torch`` beside it.
@@ -2618,6 +2631,384 @@ def phase_train(dev, smi: str) -> dict:
     return res
 
 
+# sharded training (phase 10).  Two ranks share the one card over gloo
+# (NCCL refuses two ranks of one communicator on one GPU); SHARD_LAYERS of
+# qwen3-4b's 36 layers at full width (bf16 weights, f32 moments), FSDP at
+# data=2, SHARD_STEPS steps of SHARD_B x SHARD_S, against one rank of the
+# same cut.  SHARD_BAND: each step's loss against the one rank's, relative
+# (step 0, later steps).  Step 0 comes before any update, so only the
+# forward over each rank's rows shows there; after it bf16 GEMMs over one
+# rank's rows round otherwise than over both ranks' rows, and the bf16
+# weights move apart by a rounding here and there.  Each limit sits between
+# the sound run's readings (7.985e-8; 9.212e-4 and 1.338e-3) and those of a
+# control whose ranks skip the reduction (1.397e-2 and 2.494e-2 after step
+# 0): tools/shard_band_controls.py on an H100 80GB HBM3 at 700 W.  At two
+# ranks a reduction in bf16 gives the f32 one's losses bit for bit (a sum
+# of two rounds once either way), so no band sees it there; the CPU tests
+# hold the f32 reduction over four ranks.  The f32 smoke runs take the CPU
+# tests' optimizer (tests/test_torch_sharded_train.py): at the default
+# eps = 1e-8 AdamW turns last-bit differences of gradient elements near eps
+# into a good part of lr.
+SHARD_LAYERS = 8
+SHARD_B, SHARD_S, SHARD_STEPS = 2, 1024, 3
+SHARD_BAND = (1e-6, 4e-3)
+SHARD_SMOKE = ("qwen3-4b", "hubert-xlarge", "olmoe-1b-7b")
+SHARD_SMOKE_STEPS = 2
+SHARD_OPT32 = dict(lr=1e-4, eps=1e-6, warmup_steps=1, total_steps=8)
+SHARD_TOL32 = dict(loss=1e-5, leaf=1e-4)
+
+
+def _resident(*trees) -> int:
+    """Bytes of the tensors of nested dicts (blocks, moments)."""
+    from repro_torch.train.optimizer import _walk
+    return sum(t.numel() * t.element_size() for tree in trees for _, t in _walk(tree))
+
+
+def _np_tree(tree) -> dict:
+    from repro_torch.train.optimizer import _walk
+    return {"/".join(k): v.detach().float().cpu().numpy() for k, v in _walk(tree)}
+
+
+def _shard_width(rank: int, job: dict, device: str) -> dict:
+    """One rank of the full-width two-rank run: init, the launch counters
+    around fit, resident bytes, peak memory, step wall, and one more step
+    under the profiler for the collectives' share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import kernels as K
+    from repro_torch.launch.mesh import make_train_mesh
+    from repro_torch.models import Model
+    from repro_torch.train import DataConfig, TrainConfig, Trainer, make_batch_np, synthetic_batches
+
+    dev = torch.device(device)
+    cfg = job["cfg"]
+    model = Model(cfg)
+    mesh = make_train_mesh(data=job["data"], device=dev)
+    tr = Trainer(model, mesh, TrainConfig(opt=job["opt"], log_every=1), fsdp=True)
+    t0 = time.perf_counter()
+    params, state = tr.init(0)
+    init_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(dev)
+    data = DataConfig(job["batch"], job["seq"])
+    metrics = []
+    K.reset_launch_counts()
+    params, state = tr.fit(params, state, synthetic_batches(cfg, data), job["steps"],
+                           log=lambda i, m: metrics.append(m))
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    st = tr.latency_summary()
+    batch = make_batch_np(cfg, data, job["steps"])
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        params, state = tr.fit(params, state, iter([batch]), 1)
+        wall_ms = (time.perf_counter() - t1) * 1e3
+    from torch.autograd import DeviceType
+    coll, busy_us, copy_us, nccl_us = {}, 0.0, 0.0, 0.0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CPU and e.key.startswith("collective:"):
+            coll[e.key] = (e.cpu_time_total / 1e3, e.count)
+        elif e.device_type != DeviceType.CPU:
+            busy_us += _device_us(e)
+            copy_us += _device_us(e) if "memcpy" in e.key.lower() else 0.0
+            nccl_us += _device_us(e) if "nccl" in e.key.lower() else 0.0
+    return dict(busy_ms=busy_us / 1e3, copy_ms=copy_us / 1e3, nccl_ms=nccl_us / 1e3,
+                metrics=metrics, counts=counts, peak=peak, step_ms=st.mean * 1e3,
+                step_cv=st.cv, init_s=init_s, resident=_resident(params, state.mu, state.nu),
+                prof_wall_ms=wall_ms, collectives=coll)
+
+
+def _shard_smoke(rank: int, job: dict, device: str) -> dict:
+    """One rank of an f32 smoke run: metrics and (rank 0) the gathered
+    final parameters."""
+    from repro_torch import kernels as K
+    from repro_torch.launch.mesh import make_train_mesh
+    from repro_torch.models import Model
+    from repro_torch.train import DataConfig, TrainConfig, Trainer, synthetic_batches
+
+    model = Model(job["cfg"])
+    mesh = make_train_mesh(data=job["data"], device=torch.device(device))
+    tr = Trainer(model, mesh, TrainConfig(opt=job["opt"], log_every=1), fsdp=True)
+    params, state = tr.init(0)
+    metrics = []
+    K.reset_launch_counts()
+    params, state = tr.fit(params, state, synthetic_batches(model.cfg, DataConfig(
+        job["batch"], job["seq"])), job["steps"], log=lambda i, m: metrics.append(m))
+    counts = K.launch_counts()
+    full = _np_tree(tr.full_params(params))
+    return dict(metrics=metrics, counts=counts, full=full if rank == 0 else None)
+
+
+def _sharded_ranks(rank: int, jobs: list, devices: list) -> list:
+    """A spawned rank of phase 10 on the card ``devices[rank]``: each job
+    in turn (children run this module as ``__mp_main__``)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(torch.device(devices[rank]))
+    kinds = {"width": _shard_width, "smoke": _shard_smoke}
+    return [kinds[job["kind"]](rank, job, devices[rank]) for job in jobs]
+
+
+def one_rank_width(dev):
+    """One rank of phase 10's full-width cut on the card: the model, the
+    optimizer config, every step's metrics, the bytes of parameters and
+    moments, the launch counts, the step summary and the peak memory."""
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.train import AdamWConfig, DataConfig, TrainConfig, Trainer, synthetic_batches
+
+    model = Model(get_config("qwen3-4b").replace(num_layers=SHARD_LAYERS))
+    opt = AdamWConfig(lr=TRAIN_LR, warmup_steps=min(20, SHARD_STEPS // 5 + 1),
+                      total_steps=SHARD_STEPS)
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(model, dev, TrainConfig(opt=opt, log_every=1))
+    p, st = tr.init(0)
+    one_bytes = _resident(p, st.mu, st.nu)
+    one = []
+    K.reset_launch_counts()
+    p, st = tr.fit(p, st, synthetic_batches(model.cfg, DataConfig(SHARD_B, SHARD_S)),
+                   SHARD_STEPS, log=lambda i, m: one.append(m))
+    counts = K.launch_counts()
+    step = tr.latency_summary()
+    peak = torch.cuda.max_memory_allocated()
+    del p, st, tr
+    torch.cuda.empty_cache()
+    return model, opt, one, one_bytes, counts, step, peak
+
+
+def band_readings(metrics: list, one: list) -> list:
+    """Each step's loss against the one rank's, relative."""
+    return [abs(m["loss"] - m1["loss"]) / abs(m1["loss"]) for m, m1 in zip(metrics, one)]
+
+
+def _one_rank_smoke(dev, arch: str, steps: int, batch: int, seq: int):
+    """The one-device Trainer on an f32 smoke model: metrics and final
+    parameters."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.train import AdamWConfig, DataConfig, TrainConfig, Trainer, synthetic_batches
+
+    model = Model(get_config(arch, smoke=True))
+    tr = Trainer(model, dev, TrainConfig(opt=AdamWConfig(**SHARD_OPT32), log_every=1))
+    params, state = tr.init(0)
+    metrics = []
+    params, state = tr.fit(params, state, synthetic_batches(model.cfg, DataConfig(batch, seq)),
+                           steps, log=lambda i, m: metrics.append(m))
+    return metrics, _np_tree(params)
+
+
+def phase_sharded_train(dev, smi: str) -> dict:
+    """Sharded training (repro_torch.train.Trainer on a TrainMesh):
+
+    1. a world of one — a 1 x 1 training mesh with FSDP against the
+       one-device Trainer on the card, qwen3-4b smoke f32, 3 steps: every
+       step's metrics and every final leaf equal bit for bit;
+    2. two ranks on the card (spawned, gloo with CUDA tensors): qwen3-4b at
+       full width cut to SHARD_LAYERS layers, FSDP at data=2, global batch
+       SHARD_B x SHARD_S, SHARD_STEPS steps, seed 0, against one rank of
+       the same cut: each rank's resident bytes of parameter and moment
+       blocks exactly half the one rank's but for the leaves no rule
+       splits (q_norm/k_norm), each step's loss within SHARD_BAND, launch
+       counts held to steps x train_launches on each rank; per-rank peak
+       memory, step wall, and the collectives' share of a step (the
+       layout's ``collective:*`` ranges in torch.profiler).  Then at f32 on
+       smoke qwen3-4b, hubert-xlarge and olmoe-1b-7b, two ranks against one
+       rank on the card: loss within 1e-5 relative, every leaf within 1e-4
+       of its largest element after SHARD_SMOKE_STEPS steps;
+    3. with two cards or more, olmoe-1b-7b at full depth (16 layers), FSDP
+       with data = the card count over NCCL; on one card one line says
+       that it was skipped and why.
+
+    Returns the two-rank run's launches, summed over the ranks, under
+    ``train_sharded:qwen3-4b``."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import default_rules, layout, shard_params_spec
+    from repro_torch.distributed.spawn import run_ranks
+    from repro_torch.launch.mesh import LogicalMesh, make_train_mesh
+    from repro_torch.models import Model
+    from repro_torch.train import (AdamWConfig, DataConfig, TrainConfig, Trainer,
+                                   synthetic_batches)
+    from repro_torch.train.optimizer import _walk
+
+    t0 = time.perf_counter()
+    tag = f"[sharded] ({smi})"
+
+    # ---- 1. a world of one against the one-device trainer, bit for bit
+    small = Model(get_config("qwen3-4b", smoke=True))
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4)
+    runs = {}
+    for name, target, kw in (("device", dev, {}),
+                             ("mesh 1x1", make_train_mesh(device=dev), dict(fsdp=True))):
+        tr = Trainer(small, target, TrainConfig(opt=opt, log_every=1), **kw)
+        p, st = tr.init(0)
+        ms = []
+        p, st = tr.fit(p, st, synthetic_batches(small.cfg, DataConfig(2, 64)), 3,
+                       log=lambda i, m: ms.append(m))
+        runs[name] = (ms, dict(_walk(p)))
+    same_m = runs["device"][0] == runs["mesh 1x1"][0]
+    same_p = all(torch.equal(runs["device"][1][k], runs["mesh 1x1"][1][k])
+                 for k in runs["device"][1])
+    if not (same_m and same_p):
+        worst = max(((runs["device"][1][k] - runs["mesh 1x1"][1][k]).abs().max().item())
+                    for k in runs["device"][1])
+        raise AssertionError(f"sharded: a world of one differs from the one-device trainer: "
+                             f"metrics equal {same_m}, leaves equal {same_p} (worst {worst:.3e}); "
+                             f"{runs['device'][0]} vs {runs['mesh 1x1'][0]}")
+    log(f"{tag} world of one (1 x 1 mesh, FSDP) against the one-device Trainer, qwen3-4b smoke "
+        f"f32, 3 steps: metrics and {len(runs['device'][1])} leaves equal bit for bit "
+        f"(losses {[round(m['loss'], 6) for m in runs['device'][0]]})")
+    del runs
+    torch.cuda.empty_cache()
+
+    # ---- 2. two ranks on the one card against one rank of the same cut
+    full = get_config("qwen3-4b")
+    model, opt, one, one_bytes, one_counts, one_step, one_peak = one_rank_width(dev)
+    cfg = model.cfg
+    # each rank's bytes from the specs: every leaf's block in the param dtype and
+    # its two f32 moments
+    lm = LogicalMesh((2, 1), ("data", "model"))
+    specs = dict(_walk(shard_params_spec(model, default_rules(cfg, lm, fsdp=True))))
+    item = torch.empty((), dtype=getattr(torch, cfg.param_dtype)).element_size() + 2 * 4
+    shapes = dict(_walk(model.specs()))
+    want_bytes = sum(math.prod(layout.block_shape(shapes[k].shape, specs[k], lm)) * item
+                     for k in specs)
+    whole_bytes = sum(math.prod(shapes[k].shape) * item for k in specs if not any(specs[k]))
+    if one_bytes != sum(math.prod(s.shape) * item for s in shapes.values()):
+        raise AssertionError(f"sharded: one rank holds {one_bytes} bytes of params and moments")
+    log(f"{tag} one rank: qwen3-4b at full width cut to {SHARD_LAYERS} of {full.num_layers} "
+        f"layers ({model.num_params() / 1e9:.3f}B params), {SHARD_B} x {SHARD_S}, "
+        f"{SHARD_STEPS} steps: losses {[round(m['loss'], 6) for m in one]}; step mean "
+        f"{one_step.mean * 1e3:.3f} ms; params+moments {one_bytes / 1e9:.3f} GB; peak "
+        f"{one_peak / 1e9:.3f} GB")
+
+    smoke_jobs = [dict(kind="smoke", cfg=get_config(a, smoke=True),
+                       opt=AdamWConfig(**SHARD_OPT32), data=2, batch=4, seq=64,
+                       steps=SHARD_SMOKE_STEPS) for a in SHARD_SMOKE]
+    jobs = [dict(kind="width", cfg=cfg, opt=opt, data=2, batch=SHARD_B, seq=SHARD_S,
+                 steps=SHARD_STEPS)] + smoke_jobs
+    with tempfile.TemporaryDirectory() as d:
+        t1 = time.perf_counter()
+        ranks = run_ranks(_sharded_ranks, 2, init_file=str(Path(d) / "pg"), backend="gloo",
+                          args=(jobs, [str(dev)] * 2), timeout=600)
+        spawn_s = time.perf_counter() - t1
+    per_step = train_launches(model)
+    want = {k: SHARD_STEPS * v for k, v in per_step.items()}
+    total = dict.fromkeys(KERNELS, 0)
+    for r, res in enumerate(ranks):
+        w = res[0]
+        if w["counts"] != want:
+            raise AssertionError(f"sharded: rank {r} launches {w['counts']}, expected {want}")
+        for k in KERNELS:
+            total[k] += w["counts"][k]
+        if w["resident"] != want_bytes:
+            raise AssertionError(f"sharded: rank {r} holds {w['resident']} bytes of parameter "
+                                 f"and moment blocks, expected {want_bytes} (one rank "
+                                 f"{one_bytes}, {whole_bytes} of them in unsplit leaves)")
+        rel = band_readings(w["metrics"], one)
+        for i, (x, m, m1) in enumerate(zip(rel, w["metrics"], one)):
+            band = SHARD_BAND[0] if i == 0 else SHARD_BAND[1]
+            if not x <= band:
+                raise AssertionError(f"sharded: rank {r} step {i} loss {m['loss']} vs one rank "
+                                     f"{m1['loss']} (band {band})")
+        coll_ms = sum(v[0] for v in w["collectives"].values())
+        rel = [f"{x:.2e}" for x in rel]
+        log(f"{tag} rank {r} of 2 on {dev}: resident params+moments {w['resident'] / 1e9:.3f} "
+            f"GB ({w['resident'] / one_bytes:.6f} of one rank's; {whole_bytes} bytes in leaves "
+            f"no rule splits); losses {[round(m['loss'], 6) for m in w['metrics']]} (relative "
+            f"to one rank {rel}, band {SHARD_BAND}); step mean {w['step_ms']:.3f} ms (cv {w['step_cv']:.4f}; one rank "
+            f"{one_step.mean * 1e3:.3f} ms); peak {w['peak'] / 1e9:.3f} GB; init {w['init_s']:.1f}s")
+        log(f"{tag} rank {r} profiled step {w['prof_wall_ms']:.3f} ms wall: device busy "
+            f"{w['busy_ms']:.3f} ms ({w['busy_ms'] / w['prof_wall_ms']:.3f}; {w['copy_ms']:.3f} ms "
+            f"of it copies), collectives "
+            f"{coll_ms:.3f} ms ({coll_ms / w['prof_wall_ms']:.3f} of the step): "
+            + ", ".join(f"{k[11:]} {v[0]:.3f} ms x{v[1]}"
+                        for k, v in sorted(w["collectives"].items()))
+            + " (gloo on CUDA tensors)")
+    nz = lambda c: {k: v for k, v in c.items() if v}  # noqa: E731
+    log(f"{tag} two ranks: launches {nz(total)} (a rank a step: {nz(per_step)}); one rank's "
+        f"{nz(one_counts)}; spawn to results {spawn_s:.1f}s")
+
+    # ---- f32 smoke: two ranks against one rank on the card
+    for j, arch in enumerate(SHARD_SMOKE):
+        m1, p1 = _one_rank_smoke(dev, arch, SHARD_SMOKE_STEPS, 4, 64)
+        got = ranks[0][1 + j]
+        worst_loss = 0.0
+        for r in range(2):
+            for a, b in zip(ranks[r][1 + j]["metrics"], m1):
+                rel = abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                worst_loss = max(worst_loss, rel)
+                if not rel <= SHARD_TOL32["loss"]:
+                    raise AssertionError(f"sharded: {arch} smoke rank {r} loss {a['loss']} vs "
+                                         f"one rank {b['loss']}")
+        worst = max(float(np.abs(got["full"][k] - p1[k]).max()) / max(float(np.abs(p1[k]).max()),
+                                                                       1e-30) for k in p1)
+        if not worst <= SHARD_TOL32["leaf"]:
+            raise AssertionError(f"sharded: {arch} smoke leaves differ by {worst:.3e} of a "
+                                 f"leaf's largest element")
+        log(f"{tag} {arch} smoke f32, two ranks against one on the card, {SHARD_SMOKE_STEPS} "
+            f"steps: loss within {worst_loss:.2e} relative (band 1e-5), every leaf within "
+            f"{worst:.2e} of its largest element (band 1e-4); launches a rank "
+            f"{nz(got['counts'])}")
+
+    # ---- 3. olmoe-1b-7b at full depth over every card
+    n = torch.cuda.device_count()
+    if n < 2:
+        log(f"{tag} olmoe-1b-7b at full depth over NCCL: skipped, {n} card (it needs two or more: "
+            f"the whole model needs about 83 GB on one)")
+    else:
+        sharded_many_cards(smi, n)
+    log(f"{tag} phase {time.perf_counter() - t0:.1f}s")
+    return {"train_sharded:qwen3-4b": total}
+
+
+def sharded_many_cards(smi: str, n: int) -> None:
+    """olmoe-1b-7b at full depth (16 layers, 6.919 B) with FSDP at
+    data = n, one rank per card over NCCL, global batch n x SHARD_S,
+    SHARD_STEPS steps at TRAIN_LR: launches held to steps x
+    train_launches on every rank, every metric finite and equal on every
+    rank; per rank resident bytes, peak memory, step wall and the
+    collectives' share of a profiled step."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.spawn import run_ranks
+    from repro_torch.models import Model
+    from repro_torch.train import AdamWConfig
+
+    t0 = time.perf_counter()
+    moe = get_config("olmoe-1b-7b")
+    opt = AdamWConfig(lr=TRAIN_LR, warmup_steps=min(20, SHARD_STEPS // 5 + 1),
+                      total_steps=SHARD_STEPS)
+    job = dict(kind="width", cfg=moe, opt=opt, data=n, batch=n, seq=SHARD_S, steps=SHARD_STEPS)
+    with tempfile.TemporaryDirectory() as d:
+        res = run_ranks(_sharded_ranks, n, init_file=str(Path(d) / "pg"), backend="nccl",
+                        args=([job], [f"cuda:{r}" for r in range(n)]), timeout=900)
+    pm = Model(moe)
+    want = {k: SHARD_STEPS * v for k, v in train_launches(pm).items()}
+    for r, rr in enumerate(res):
+        w = rr[0]
+        if w["counts"] != want:
+            raise AssertionError(f"sharded: olmoe rank {r} launches {w['counts']}, expected {want}")
+        if not all(math.isfinite(v) for m in w["metrics"] for v in m.values()):
+            raise AssertionError(f"sharded: olmoe rank {r} metrics not finite: {w['metrics']}")
+        if w["metrics"] != res[0][0]["metrics"]:
+            raise AssertionError(f"sharded: olmoe ranks 0 and {r} report other metrics")
+        coll_ms = sum(v[0] for v in w["collectives"].values())
+        log(f"[sharded] ({smi}) olmoe-1b-7b at full depth ({moe.num_layers} layers, "
+            f"{pm.num_params() / 1e9:.3f}B params), FSDP data={n} over NCCL, rank {r} on "
+            f"cuda:{r}: losses {[round(m['loss'], 6) for m in w['metrics']]}; "
+            f"drop_fraction {[round(m['drop_fraction'], 4) for m in w['metrics']]}; resident "
+            f"params+moments {w['resident'] / 1e9:.3f} GB; peak {w['peak'] / 1e9:.3f} GB; step "
+            f"mean {w['step_ms']:.3f} ms (cv {w['step_cv']:.4f}); profiled step "
+            f"{w['prof_wall_ms']:.3f} ms, device busy {w['busy_ms']:.3f} ms ({w['copy_ms']:.3f} ms "
+            f"copies, {w['nccl_ms']:.3f} ms NCCL kernels); collectives' host ranges "
+            f"{coll_ms:.3f} ms (NCCL returns once enqueued); launches "
+            f"{({k: v for k, v in w['counts'].items() if v})}")
+    log(f"[sharded] ({smi}) olmoe-1b-7b over {n} cards {time.perf_counter() - t0:.1f}s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
@@ -2669,6 +3060,10 @@ def main() -> int:
         for name in KERNELS:
             launches[name] += res["counts"][name]
             by_path[name][f"train:{arch}"] = res["counts"][name]
+    for path, counts in phase_sharded_train(dev, smi).items():
+        for name in KERNELS:
+            launches[name] += counts[name]
+            by_path[name][path] = counts[name]
     times = phase_times(dev)
 
     rows = []

@@ -1,7 +1,28 @@
-"""Distribution helpers (the part of the reference's ``repro.distributed``
-that the camera fleet needs): how many slot-batch shards a mesh provides
-and the slot batch's split over them.  The logical-axis rulesets for
-sharded training come with that slice (ROADMAP.md Queue 1 step 8)."""
-from .sharding import axis_size, data_shards, slot_batch_spec
+"""Distribution: the logical-axis sharding rules (``sharding``, the port of
+the reference's ``repro.distributed``), the training meshes (``mesh``:
+``LogicalMesh``, ``TrainMesh``) and the port's layout mechanics on a
+training mesh (``layout``): a rank's blocks, gathers and gradient
+reductions over ``torch.distributed``."""
+from .sharding import (
+    Ruleset,
+    axis_size,
+    batch_specs,
+    data_shards,
+    decode_state_spec,
+    default_rules,
+    shard_params_spec,
+    slot_batch_spec,
+    specs_from_axes,
+)
 
-__all__ = ["axis_size", "data_shards", "slot_batch_spec"]
+__all__ = [
+    "Ruleset",
+    "batch_specs",
+    "decode_state_spec",
+    "default_rules",
+    "shard_params_spec",
+    "specs_from_axes",
+    "axis_size",
+    "data_shards",
+    "slot_batch_spec",
+]

@@ -1,6 +1,7 @@
-"""Local device meshes for the camera fleet (the port of
+"""Meshes: the camera fleet's local device meshes (the port of
 ``make_local_mesh`` and ``parse_mesh_spec`` of the reference's
-``repro/launch/mesh.py``).
+``repro/launch/mesh.py``), the production mesh shapes and the training
+mesh over a process group.
 
 A ``Mesh`` names its axes (``("data", "model")``), their sizes
 (``mesh.shape["data"]``) and its devices, an array shaped (data, model) of
@@ -9,8 +10,16 @@ on that row's first device.  A device may appear more than once: a
 ``data=2`` mesh over ``["cuda:0", "cuda:0"]`` runs two shards on one card,
 each on its own CUDA stream — the port's counterpart of the reference's
 ``--xla_force_host_platform_device_count`` — and ``["cpu", "cpu"]`` runs
-two shards on the CPU.  The production pod shapes wait for the dry-run and
-lowering slice (ROADMAP.md Queue 1 step 9).
+two shards on the CPU.
+
+``PROD_SHAPE`` and ``MULTIPOD_SHAPE`` are the reference's production
+layouts, (data=16, model=16) and (pod=2, data=16, model=16): the logical
+layouts the sharding rules are computed for.  ``LogicalMesh`` holds such a
+layout with no devices; ``TrainMesh`` lays the ranks of an initialized
+``torch.distributed`` process group out on one (both defined in
+``distributed/mesh.py``).  ``make_train_mesh`` builds a training mesh of
+any shape, ``make_production_mesh`` one at the production shapes, which
+raises, naming the ranks it needs, in a world of another size.
 """
 from __future__ import annotations
 
@@ -19,9 +28,14 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from ..distributed.mesh import LogicalMesh, TrainMesh
 from ..perception.detector import canonical_device, resolve_device
 
-__all__ = ["Mesh", "make_local_mesh", "parse_mesh_spec"]
+__all__ = ["Mesh", "make_local_mesh", "parse_mesh_spec", "LogicalMesh", "TrainMesh",
+           "make_train_mesh", "make_production_mesh", "PROD_SHAPE", "MULTIPOD_SHAPE"]
+
+PROD_SHAPE = (16, 16)            # 256 ranks: (data, model)
+MULTIPOD_SHAPE = (2, 16, 16)     # 512 ranks: (pod, data, model)
 
 
 class Mesh:
@@ -98,3 +112,25 @@ def parse_mesh_spec(spec: str) -> dict[str, int]:
     if not out:
         raise ValueError(f"empty mesh spec {spec!r}")
     return out
+
+
+def make_train_mesh(data: int = 1, model: int = 1, *, pod: Optional[int] = None,
+                    device: str | torch.device = "cuda") -> TrainMesh:
+    """A (data, model) training mesh, or (pod, data, model) with ``pod``,
+    over the initialized process group (none is needed for 1 x 1).  A
+    CUDA device without a card raises."""
+    device = resolve_device(device)
+    if pod is None:
+        return TrainMesh((data, model), ("data", "model"), device)
+    return TrainMesh((pod, data, model), ("pod", "data", "model"), device)
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device: str | torch.device = "cuda") -> TrainMesh:
+    """The target deployment mesh over the process group: (data=16,
+    model=16), or (pod=2, data=16, model=16) across two pods.  The ``pod``
+    axis composes with ``data`` for batch sharding.  Raises in a world of
+    another size than 256 (512) ranks; it never shrinks the mesh."""
+    shape = MULTIPOD_SHAPE if multi_pod else PROD_SHAPE
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return TrainMesh(shape, axes, resolve_device(device))

@@ -18,6 +18,7 @@ import torch
 
 __all__ = [
     "ParamSpec",
+    "axes_tree",
     "init_params",
     "stack_specs",
     "count_params",
@@ -96,6 +97,16 @@ def init_params(specs: Mapping[str, Any], gen: torch.Generator,
             else:
                 out[name] = walk(sub)
         return out
+
+    return walk(specs)
+
+
+def axes_tree(specs: Mapping[str, Any]) -> dict:
+    """The mirror tree of logical-axis tuples (one name or None per dim)."""
+    def walk(node: Any) -> Any:
+        if isinstance(node, ParamSpec):
+            return node.axes
+        return {k: walk(v) for k, v in node.items()}
 
     return walk(specs)
 

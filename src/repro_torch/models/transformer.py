@@ -46,7 +46,7 @@ from .attention import (
 )
 from .mamba2 import SSMState, init_ssm_state, mamba2_block, mamba2_decode_step, mamba2_specs
 from .moe import moe_block, moe_specs
-from .params import ParamSpec, count_params, count_params_from_specs, init_params, \
+from .params import ParamSpec, axes_tree, count_params, count_params_from_specs, init_params, \
     resolve_dtype, stack_specs
 from .rwkv6 import RWKVState, init_rwkv_state, rwkv6_block, rwkv6_decode_step, rwkv6_specs
 
@@ -173,6 +173,11 @@ class Model:
         gen.manual_seed(seed)
         return init_params(self.specs(), gen, resolve_dtype(self.cfg.param_dtype), device)
 
+    def axes(self) -> dict:
+        """Each leaf's logical axes, a tree like the params (the sharding
+        rules map them onto a mesh: ``distributed.shard_params_spec``)."""
+        return axes_tree(self.specs())
+
     def num_params(self, params: Optional[dict] = None) -> int:
         if params is not None:
             return count_params(params)
@@ -295,6 +300,15 @@ class Model:
             tot = tot + nll
             cnt = cnt + args[3].sum()
         return tot / torch.clamp(cnt, min=1.0)
+
+    def ce_targets(self, batch: dict) -> torch.Tensor:
+        """The count ``loss``'s cross-entropy divides by (f32, before the
+        clamp to 1): the masked frames (``labels >= 0``) for the encoder,
+        else each row's next-token targets (text only for vlm)."""
+        if self.cfg.encoder_only:
+            return (batch["labels"] >= 0).sum().float()
+        t = batch["tokens"]
+        return torch.tensor(float(t.shape[0] * (t.shape[1] - 1)), device=t.device)
 
     def loss(self, params: dict, batch: dict) -> tuple[torch.Tensor, dict]:
         """The training loss and its metrics: next-token CE (for vlm over

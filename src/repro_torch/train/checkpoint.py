@@ -8,6 +8,14 @@ cannot hold, stored as its uint16 bits).  A step is written into a
 ``.tmp`` directory and renamed into place, and the ``latest`` pointer is
 replaced atomically, so a crash never leaves a half-written step behind
 it.  A checkpoint written by either package loads into the other.
+
+A sharded state (a tree of each rank's blocks, with its
+``layout.Sharding``: the training mesh and a spec tree shaped like the
+tree, ``Trainer.state_sharding()``) is saved whole: every rank takes part
+in gathering each leaf and rank 0 writes the full tree, in the same format.
+Loading with a ``Sharding`` reads the full leaves on every rank and keeps
+each rank's block.  So a sharded run's checkpoint loads into the
+one-device trainer, and the other way round.
 """
 from __future__ import annotations
 
@@ -18,6 +26,8 @@ from typing import Any
 
 import numpy as np
 import torch
+
+from repro_torch.distributed import layout
 
 __all__ = ["save_checkpoint", "load_checkpoint", "latest_step"]
 
@@ -59,17 +69,53 @@ def _to_numpy(leaf: Any) -> tuple[np.ndarray, str]:
     return arr, str(arr.dtype)
 
 
-def save_checkpoint(path: str, step: int, tree: Any) -> str:
-    """Atomically write ``{path}/step_{step:08d}`` and update ``latest``."""
+def _spec_map(tree: Any, sharding) -> dict[str, Any]:
+    """Each leaf path of ``tree`` → its spec in ``sharding.specs`` (a tree
+    shaped like ``tree`` whose leaves are spec tuples)."""
+    out = {}
+
+    def walk(node, spec, prefix):
+        if isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k], spec[k], f"{prefix}/{k}")
+        elif hasattr(node, "_fields"):
+            for name in node._fields:
+                walk(getattr(node, name), getattr(spec, name), f"{prefix}/{name}")
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(v, spec[i], f"{prefix}/{i}")
+        else:
+            out[prefix] = spec
+
+    walk(tree, sharding.specs, "")
+    return out
+
+
+def save_checkpoint(path: str, step: int, tree: Any, sharding: Any = None) -> str:
+    """Atomically write ``{path}/step_{step:08d}`` and update ``latest``.
+    With ``sharding`` (``tree`` holds this rank's blocks) every rank
+    gathers each leaf, rank 0 writes, and every rank returns once the step
+    is in place."""
     step_dir = os.path.join(path, f"step_{step:08d}")
-    tmp_dir = step_dir + ".tmp"
-    os.makedirs(tmp_dir, exist_ok=True)
+    writer = sharding is None or sharding.mesh.rank == 0
     arrays = {}
     manifest = {"step": step, "leaves": {}}
+    specs = _spec_map(tree, sharding) if sharding is not None else {}
     for k, leaf in _flatten(tree).items():
+        if sharding is not None:
+            block = leaf.detach()
+            full = layout.full_shape(tuple(block.shape), specs[k], sharding.mesh)
+            leaf = layout.gather(block, specs[k], full, sharding.mesh)
+        if not writer:
+            continue
         arr, dtype = _to_numpy(leaf)
         manifest["leaves"][k] = {"shape": list(arr.shape), "dtype": dtype}
         arrays[k.replace("/", "|")] = arr
+    if not writer:
+        sharding.mesh.barrier()
+        return step_dir
+    tmp_dir = step_dir + ".tmp"
+    os.makedirs(tmp_dir, exist_ok=True)
     np.savez(os.path.join(tmp_dir, _ARRAYS), **arrays)
     with open(os.path.join(tmp_dir, _MANIFEST), "w") as f:
         json.dump(manifest, f)
@@ -79,6 +125,8 @@ def save_checkpoint(path: str, step: int, tree: Any) -> str:
     with open(os.path.join(path, "latest.tmp"), "w") as f:
         f.write(str(step))
     os.replace(os.path.join(path, "latest.tmp"), os.path.join(path, "latest"))
+    if sharding is not None:
+        sharding.mesh.barrier()
     return step_dir
 
 
@@ -90,21 +138,20 @@ def latest_step(path: str) -> int | None:
         return int(f.read().strip())
 
 
-def _from_numpy(arr: np.ndarray, dtype: str, like: Any) -> torch.Tensor:
-    """A stored array as a tensor of the manifest's dtype, on the device
-    of the template's leaf (the CPU for a non-tensor leaf)."""
+def _from_numpy(arr: np.ndarray, dtype: str) -> torch.Tensor:
+    """A stored array as a CPU tensor of the manifest's dtype."""
     if dtype == "bfloat16":
-        t = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)).view(torch.bfloat16)
-    else:
-        t = torch.from_numpy(np.array(arr))
-    device = like.device if isinstance(like, torch.Tensor) else "cpu"
-    return t.to(device)
+        return torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(np.array(arr))
 
 
-def load_checkpoint(path: str, template: Any, step: int | None = None) -> Any:
+def load_checkpoint(path: str, template: Any, step: int | None = None,
+                    sharding: Any = None) -> Any:
     """Restore into the structure of ``template`` (validating shapes); each
     leaf comes back in the checkpoint's dtype on the template leaf's
-    device."""
+    device.  With ``sharding`` the template holds this rank's blocks: each
+    stored leaf must have the full shape they make, and the rank keeps its
+    block of it."""
     if step is None:
         step = latest_step(path)
         if step is None:
@@ -113,14 +160,27 @@ def load_checkpoint(path: str, template: Any, step: int | None = None) -> Any:
     with open(os.path.join(step_dir, _MANIFEST)) as f:
         manifest = json.load(f)
     out = {}
+    specs = _spec_map(template, sharding) if sharding is not None else {}
     with np.load(os.path.join(step_dir, _ARRAYS)) as data:
         for k, tmpl in _flatten(template).items():
             meta = manifest["leaves"].get(k)
             if meta is None:
                 raise KeyError(f"checkpoint missing leaf {k}")
-            if list(np.shape(tmpl)) != meta["shape"]:
-                raise ValueError(f"{k}: shape {meta['shape']} != template {list(np.shape(tmpl))}")
-            out[k] = _from_numpy(data[k.replace("/", "|")], meta["dtype"], tmpl)
+            want = list(np.shape(tmpl))
+            if sharding is not None:
+                layout.check_spec(specs[k], tuple(meta["shape"]), sharding.mesh, k)
+                want = list(layout.block_shape(tuple(meta["shape"]), specs[k], sharding.mesh))
+                if want != list(np.shape(tmpl)):
+                    raise ValueError(f"{k}: the checkpoint's {meta['shape']} makes blocks of "
+                                     f"{want} under {specs[k]}, the template holds "
+                                     f"{list(np.shape(tmpl))}")
+            elif want != meta["shape"]:
+                raise ValueError(f"{k}: shape {meta['shape']} != template {want}")
+            t = _from_numpy(data[k.replace("/", "|")], meta["dtype"])
+            if sharding is not None:
+                t = layout.take_block(t, specs[k], sharding.mesh)
+            device = tmpl.device if isinstance(tmpl, torch.Tensor) else "cpu"
+            out[k] = t.to(device)
 
     def rebuild(node, prefix):
         if isinstance(node, dict):

@@ -6,7 +6,8 @@ draws as the reference, so a batch is equal bit for bit in the two
 packages.  Structured like a real pipeline: an index-based sampler, a
 prefetch buffer, and per-batch read-stage timing so the paper's
 I/O-variance analysis applies to training input pipelines too.
-``to_device`` moves a batch onto the card from pinned memory.
+``to_device`` moves a batch onto the card from pinned memory;
+``batch_rows`` takes a rank's rows of a global batch on a training mesh.
 """
 from __future__ import annotations
 
@@ -20,8 +21,10 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import _data_or_replicated
 
-__all__ = ["DataConfig", "synthetic_batches", "PrefetchIterator", "make_batch_np", "to_device"]
+__all__ = ["DataConfig", "synthetic_batches", "PrefetchIterator", "make_batch_np", "to_device",
+           "batch_rows"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,6 +80,33 @@ def to_device(batch: dict[str, Any], device: str | torch.device) -> dict[str, to
         if device.type == "cuda" and t.device.type == "cpu":
             t = t.pin_memory().to(device, non_blocking=True)
         out[k] = t.to(device)
+    return out
+
+
+def batch_rows(batch: dict[str, Any], mesh, rules, grad_accum: int = 1) -> dict[str, Any]:
+    """This rank's rows of a global batch (NumPy arrays or tensors) on a
+    training mesh.  The batch is first cut into ``grad_accum`` microbatches
+    along its leading dim, as the train step cuts it, and each microbatch's
+    rows split over the data axes by ``batch_specs``' rule
+    (``_data_or_replicated``): rank ``r`` of ``n`` takes rows ``[:, r]`` of
+    the batch seen as ``(grad_accum, n, rows / (grad_accum * n), ...)``, so
+    its own microbatches are its share of the global ones.  Rows that do
+    not divide over the data axes (a global batch of 1) are whole on every
+    rank; a prefix of the data axes (``pod``) is tried first."""
+    out = {}
+    for k, v in batch.items():
+        b = v.shape[0]
+        if b % grad_accum:
+            raise ValueError(f"batch {k!r} of {b} rows does not split into {grad_accum} "
+                             f"microbatches")
+        micro = b // grad_accum
+        axes = _data_or_replicated(mesh, rules, micro)
+        n = mesh.axis_size(axes)
+        if n == 1:
+            out[k] = v
+            continue
+        rows = v.reshape(grad_accum, n, micro // n, *v.shape[1:])[:, mesh.index(axes)]
+        out[k] = rows.reshape(grad_accum * (micro // n), *v.shape[1:])
     return out
 
 

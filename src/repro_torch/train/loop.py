@@ -3,11 +3,28 @@ gradient accumulation, and a trainer that records every step's wall time
 through the paper's instrumentation stack (a ``TimelineRecorder``), so
 deadline policies and c_v are first-class training metrics too.
 
-The reference jits the step with mesh shardings; the port runs it eagerly
-on one device.  The gradient comes from ``torch.autograd.grad`` of
-``Model.loss``: on the card through the flash attention kernels' forward
-and backward and the scans' forward kernels (their gradients the chunked
-forms' under autograd), on the CPU through the plain versions.
+The reference jits the step with mesh shardings; the port runs it eagerly,
+on one device or on the ranks of a training mesh.  The gradient comes from
+``torch.autograd.grad`` of ``Model.loss``: on the card through the flash
+attention kernels' forward and backward and the scans' forward kernels
+(their gradients the chunked forms' under autograd), on the CPU through
+the plain versions.
+
+On a mesh (``distributed.mesh.TrainMesh``) parameters, gradients and AdamW
+moments are laid out by the reference's ruleset (``default_rules``, with
+``embed`` over the data axes under FSDP): each rank keeps its blocks
+(``distributed/layout.py``).  A step gathers every leaf to full, runs
+``Model.loss`` and ``autograd.grad`` on the rank's rows of the batch,
+reduces the gradients over the data ranks to the rank's blocks (in f32,
+cast back) and updates its blocks and moments.  It gives the one-device
+trajectory: each rank's cross-entropy gradient is weighted by its share
+of the global target count (hubert's masked frames differ per rank), the
+MoE aux terms (means over equal group counts) by one over the data ranks,
+and the clip's norm is global.  In this slice the ``model`` axis splits
+storage only: the ranks of one data row compute the same step on
+gathered weights.  Tensor-parallel compute (heads and mlp split inside
+the layer with its all-reduces, a vocab-parallel cross-entropy, experts
+over ``model``) is ROADMAP.md Queue 1 step 8b.
 """
 from __future__ import annotations
 
@@ -15,13 +32,19 @@ import dataclasses
 from typing import Any, Callable, Iterator, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.timing import StageTimer, TimelineRecorder, fence
+from repro_torch.distributed import layout
+from repro_torch.distributed.layout import Sharding
+from repro_torch.distributed.mesh import TrainMesh
+from repro_torch.distributed.sharding import Ruleset, default_rules, shard_params_spec
 from repro_torch.models import Model
-from .data import to_device
-from .optimizer import AdamWConfig, AdamWState, _walk, adamw_init, adamw_update
+from repro_torch.models.moe import group_size
+from .data import batch_rows, to_device
+from .optimizer import AdamWConfig, AdamWState, _walk, adamw_init, adamw_update, global_norm
 
-__all__ = ["TrainConfig", "Trainer", "make_train_step"]
+__all__ = ["TrainConfig", "Trainer", "make_train_step", "make_sharded_train_step"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,44 +106,220 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig, grad_accum: int = 1) -> 
     return train_step
 
 
-class Trainer:
-    """Trains on one device: initialises weights and optimizer state there,
-    moves each batch there (from pinned memory for a card) and records
-    per-step latency through the paper's instrumentation stack."""
+def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    if group is not None:
+        with torch.profiler.record_function("collective:all_reduce"):
+            dist.all_reduce(x, group=group)
+    return x
 
-    def __init__(self, model: Model, device: str | torch.device = "cuda",
-                 train_cfg: Optional[TrainConfig] = None, rules: Any = None,
+
+def make_sharded_train_step(model: Model, opt_cfg: AdamWConfig, mesh: TrainMesh,
+                            rules: Ruleset, param_spec: dict, grad_accum: int = 1) -> Callable:
+    """The train step on a mesh: ``(param blocks, opt_state of blocks,
+    this rank's rows) → (param blocks, opt_state, metrics)``, updating the
+    blocks and moments in place.  Metrics are the global ones: ``loss`` and
+    ``ce`` over all ranks' targets, the MoE aux the mean over the data
+    ranks, as the one-device step on the whole batch gives them; with
+    ``grad_accum > 1`` their means over the microbatches."""
+    data = rules.lookup("batch")
+    data_axes = () if data is None else ((data,) if isinstance(data, str) else tuple(data))
+    dgroup = mesh.group(data_axes)
+    n_data = mesh.axis_size(data_axes)
+    items = list(_walk(param_spec))
+    shapes = _shapes(model)
+    norm_groups = {}
+    for path, spec in items:
+        layout.check_spec(spec, shapes[path], mesh, "/".join(path))
+        node = norm_groups
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = mesh.group(layout.split_axes(spec, mesh))
+
+    def one(full: dict, leaves: list, mb: dict, weight: torch.Tensor):
+        with torch.enable_grad():
+            loss, metrics = model.loss(full, mb)
+            ce = metrics["ce"]
+            obj = weight * ce
+            if "load_balance_loss" in metrics:
+                # the MoE aux terms: means over the rank's groups, as many
+                # on every rank, so the global value is their mean
+                obj = obj + (loss - ce) / n_data
+            grads = torch.autograd.grad(obj, leaves)
+        aux = {k: v.detach() / n_data for k, v in metrics.items() if k not in ("ce", "loss")}
+        return obj.detach(), (weight * ce).detach(), aux, list(grads)
+
+    def train_step(params: dict, opt_state: AdamWState, batch: dict):
+        leaves = [layout.gather(p, spec, shapes[path], mesh).detach().requires_grad_()
+                  for (path, spec), (_, p) in zip(items, _walk(params))]
+        full = _rebuild(params, iter(leaves))
+        if grad_accum <= 1:
+            micro = [batch]
+        else:
+            split = {k: v.reshape(grad_accum, v.shape[0] // grad_accum, *v.shape[1:])
+                     for k, v in batch.items()}
+            micro = [{k: v[i] for k, v in split.items()} for i in range(grad_accum)]
+        counts = torch.stack([model.ce_targets(mb) for mb in micro])
+        totals = _all_reduce(counts.clone(), dgroup)
+        weights = counts / torch.clamp(totals, min=1.0)
+        gsum, objs, ces, auxs = None, [], [], []
+        for i, mb in enumerate(micro):
+            o, c, a, g = one(full, leaves, mb, weights[i])
+            if grad_accum <= 1:
+                gsum = g
+            elif gsum is None:
+                gsum = [x.float() for x in g]
+            else:
+                for acc, x in zip(gsum, g):
+                    acc.add_(x)
+            objs.append(o)
+            ces.append(c)
+            auxs.append(a)
+        del full, leaves
+        grads = gsum if grad_accum <= 1 else [g / grad_accum for g in gsum]
+        del gsum
+        blocks = []
+        for i, (path, spec) in enumerate(items):
+            blocks.append(layout.reduce_grad(grads[i], spec, mesh, data_axes))
+            grads[i] = None
+        keys = sorted(auxs[0])
+        vec = torch.stack([torch.stack(objs), torch.stack(ces)]
+                          + [torch.stack([a[k] for a in auxs]) for k in keys])
+        vec = _all_reduce(vec, dgroup)
+        if grad_accum <= 1:
+            loss, ce = vec[0, 0], vec[1, 0]
+            metrics = {k: vec[2 + j, 0] for j, k in enumerate(keys)}
+        else:
+            loss, ce = vec[0].sum() / grad_accum, vec[1].mean()
+            metrics = {k: vec[2 + j].mean() for j, k in enumerate(keys)}
+        metrics["ce"] = ce
+        gtree = _rebuild(params, iter(blocks))
+        gnorm = global_norm(gtree, norm_groups)
+        params, opt_state, opt_metrics = adamw_update(opt_cfg, params, gtree, opt_state,
+                                                      gnorm=gnorm)
+        metrics.update(opt_metrics)
+        metrics["loss"] = loss
+        return params, opt_state, metrics
+
+    return train_step
+
+
+def _shapes(model: Model) -> dict:
+    """Each parameter's full shape by key path."""
+    return {path: tuple(spec.shape) for path, spec in _walk(model.specs())}
+
+
+class Trainer:
+    """Trains on one device, or on the ranks of a training mesh.
+
+    ``Trainer(model, device)``: weights and optimizer state on the device;
+    each batch moves there (from pinned memory for a card).
+    ``Trainer(model, mesh)`` with a ``distributed.mesh.TrainMesh``: as the
+    reference's meshed trainer, ``rules or default_rules(cfg, mesh,
+    fsdp=fsdp)`` lays the parameters and moments out; each rank holds its
+    blocks on ``mesh.device``, takes its rows of each global batch
+    (``batch_rows``) and runs ``make_sharded_train_step``; ``rules`` and
+    ``fsdp`` need a mesh.  Either way every step's wall time goes to a
+    ``TimelineRecorder`` (the paper's instrumentation stack)."""
+
+    def __init__(self, model: Model, device: str | torch.device | TrainMesh = "cuda",
+                 train_cfg: Optional[TrainConfig] = None, rules: Optional[Ruleset] = None,
                  fsdp: bool = False) -> None:
-        if rules is not None or fsdp:
-            raise NotImplementedError(
-                "sharding rules and FSDP come with sharded training (ROADMAP.md Queue 1 "
-                "step 8); the port trains on one device")
         self.model = model
+        self.cfg = train_cfg if train_cfg is not None else TrainConfig()
+        self.recorder = TimelineRecorder()
+        if isinstance(device, TrainMesh):
+            self.mesh = device
+            self.device = device.device
+            self.rules = rules or default_rules(model.cfg, device, fsdp=fsdp)
+            self.param_spec = shard_params_spec(model, self.rules)
+            self._shapes = _shapes(model)
+            self._step_fn = make_sharded_train_step(model, self.cfg.opt, device, self.rules,
+                                                    self.param_spec, self.cfg.grad_accum)
+            return
+        if rules is not None or fsdp:
+            raise TypeError("rules= and fsdp= lay the parameters out over a training mesh: "
+                            "pass a TrainMesh (repro_torch.launch.mesh.make_train_mesh), not "
+                            f"the device {str(device)!r}")
+        self.mesh = None
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Trainer(device='cuda') needs a CUDA device; pass device='cpu' "
                                "to train on the CPU")
-        self.cfg = train_cfg if train_cfg is not None else TrainConfig()
-        self.recorder = TimelineRecorder()
         self._step_fn = make_train_step(model, self.cfg.opt, self.cfg.grad_accum)
 
     def init(self, seed: int = 0) -> tuple[dict, AdamWState]:
         """Seeded weights on the device, each leaf requiring grad, and a
-        fresh optimizer state."""
+        fresh optimizer state; on a mesh each rank's blocks of the
+        one-device init for ``seed`` (``shard``)."""
         params = self.model.init(seed, device=self.device)
+        if self.mesh is not None:
+            return self.shard(params)
         for _, p in _walk(params):
             p.requires_grad_(True)
         return params, adamw_init(params)
 
+    def shard(self, params: dict) -> tuple[dict, AdamWState]:
+        """This rank's blocks of full ``params`` (moved to the mesh's
+        device) and a fresh optimizer state for them."""
+        blocks = {}
+        for path, spec in _walk(self.param_spec):
+            full = _get(params, path)
+            layout.check_spec(spec, tuple(full.shape), self.mesh, "/".join(path))
+            b = layout.take_block(full.detach().to(self.device), spec, self.mesh)
+            node = blocks
+            for k in path[:-1]:
+                node = node.setdefault(k, {})
+            node[path[-1]] = b
+        return blocks, adamw_init(blocks)
+
+    def full_params(self, params: dict) -> dict:
+        """The full parameters gathered from every rank's blocks (each rank
+        takes part; every rank gets them)."""
+        return _rebuild(params, iter(
+            layout.gather(p, spec, self._shapes[path], self.mesh)
+            for (path, spec), (_, p) in zip(_walk(self.param_spec), _walk(params))))
+
+    def state_sharding(self) -> Sharding:
+        """The layout of ``{"params": params, "opt": opt_state}`` (the tree
+        the launcher checkpoints) for ``save_checkpoint`` and
+        ``load_checkpoint``."""
+        ps = self.param_spec
+        return Sharding(self.mesh, {"params": ps, "opt": AdamWState(step=(), mu=ps, nu=ps,
+                                                                     loss_scale=())})
+
+    def _local_batch(self, batch: dict) -> dict:
+        """This rank's rows of a global batch.  For moe, raises where a rank's microbatch tokens do not
+        make whole global dispatch groups (its routing would differ from
+        the global batch's)."""
+        rows = batch_rows(batch, self.mesh, self.rules, self.cfg.grad_accum)
+        if self.model.cfg.family == "moe":
+            ga = self.cfg.grad_accum
+            b, s = batch["tokens"].shape[:2]
+            b_r = rows["tokens"].shape[0]
+            t, t_r = (b // ga) * s, (b_r // ga) * s
+            if group_size(t, self.model.cfg) != group_size(t_r, self.model.cfg):
+                raise ValueError(
+                    f"moe dispatch groups: a rank's microbatch of {b_r // ga} x {s} tokens "
+                    f"({t_r}) routes in groups of {group_size(t_r, self.model.cfg)}, the "
+                    f"global microbatch of {b // ga} x {s} ({t}) in groups of "
+                    f"{group_size(t, self.model.cfg)} (moe_group_size "
+                    f"{self.model.cfg.moe_group_size}): capacity, drops and the load-balance "
+                    f"loss would differ from the global batch's")
+        return rows
+
     def fit(self, params: dict, opt_state: AdamWState, batches: Iterator[Any], steps: int,
             log: Callable[[int, dict], None] | None = None) -> tuple[dict, AdamWState]:
         """``steps`` train steps on ``batches`` (dicts of NumPy arrays or
-        tensors).  Each step is timed as the ``train_step`` stage up to a
-        fence on its loss; step 0 (kernel builds and warm-up, where the
-        reference compiles) is not recorded.  ``log(i, metrics as floats)``
-        every ``log_every`` steps and at the last."""
+        tensors; on a mesh the global batches, the same on every rank).
+        Each step is timed as the ``train_step`` stage up to a fence on its
+        loss; step 0 (kernel builds and warm-up, where the reference
+        compiles) is not recorded.  ``log(i, metrics as floats)`` every
+        ``log_every`` steps and at the last."""
         for i in range(steps):
-            batch = to_device(next(batches), self.device)
+            batch = next(batches)
+            if self.mesh is not None:
+                batch = self._local_batch(batch)
+            batch = to_device(batch, self.device)
             timer = StageTimer()
             with timer.stage("train_step"):
                 params, opt_state, metrics = self._step_fn(params, opt_state, batch)
@@ -134,3 +333,9 @@ class Trainer:
 
     def latency_summary(self):
         return self.recorder.summary("train_step")
+
+
+def _get(tree: dict, path: tuple) -> Any:
+    for k in path:
+        tree = tree[k]
+    return tree

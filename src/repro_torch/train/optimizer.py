@@ -12,6 +12,12 @@ time for the stacked leaves), so the f32 temporaries stay small: a whole
 ``layers/mlp`` leaf of qwen3-4b is 0.9 G elements, 3.6 GB in f32.  Every
 scalar (step, lr, clip, bias corrections) stays a tensor on the
 parameters' device, so a step never waits on the host.
+
+On a training mesh the same update runs on each rank's blocks of the
+parameters, gradients and moments (a block keeps its leaf's rank, so
+``_decay_mask`` holds); only the gradients' norm needs the other ranks:
+``global_norm(grads, groups)`` all-reduces each split leaf's sum of
+squares over the ranks that hold its other blocks, once.
 """
 from __future__ import annotations
 
@@ -20,6 +26,7 @@ import math
 from typing import Any, Callable, Iterator, NamedTuple
 
 import torch
+import torch.distributed as dist
 
 __all__ = ["AdamWConfig", "AdamWState", "adamw_init", "adamw_update", "cosine_schedule",
            "global_norm"]
@@ -81,13 +88,30 @@ def _pieces(t: torch.Tensor) -> tuple[torch.Tensor, ...]:
     return t.split(max(1, PIECE // row), dim=0)
 
 
-def global_norm(tree: Any) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in f32."""
+def global_norm(tree: Any, groups: Any = None) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, in f32.
+
+    ``groups`` (a tree like ``tree``, or None) gives for a leaf that is a
+    block of a larger one the process group of the ranks holding its other
+    blocks, or None for a whole leaf.  A whole leaf is counted once, as it
+    is; a block's sum of squares is all-reduced over its group (one
+    all-reduce per group for all its leaves), so every leaf counts once on
+    every rank."""
     total = None
-    for _, leaf in _walk(tree):
+    split: dict[int, tuple[Any, list]] = {}
+    for path, leaf in _walk(tree):
+        group = None if groups is None else _leaf(groups, path)
+        sums = split.setdefault(id(group), (group, []))[1] if group is not None else None
         for piece in _pieces(leaf):
             sq = piece.float().square().sum()
-            total = sq if total is None else total + sq
+            if sums is not None:
+                sums.append(sq)
+            else:
+                total = sq if total is None else total + sq
+    for group, sums in split.values():
+        v = torch.stack(sums)
+        dist.all_reduce(v, group=group)
+        total = v.sum() if total is None else total + v.sum()
     return torch.sqrt(total)
 
 
@@ -120,13 +144,16 @@ def _leaf(tree: Any, path: tuple) -> torch.Tensor:
 
 
 @torch.no_grad()
-def adamw_update(cfg: AdamWConfig, params: Any, grads: Any,
-                 state: AdamWState) -> tuple[Any, AdamWState, dict]:
+def adamw_update(cfg: AdamWConfig, params: Any, grads: Any, state: AdamWState,
+                 gnorm: Any = None) -> tuple[Any, AdamWState, dict]:
     """One AdamW step: updates ``params`` and the moments of ``state`` in
-    place and returns (params, the new state, {"lr", "grad_norm"})."""
+    place and returns (params, the new state, {"lr", "grad_norm"}).  The
+    clip takes ``gnorm`` where given (a sharded trainer's global norm of
+    the gradients' blocks), else ``global_norm(grads)``."""
     step = state.step + 1
     lr = cosine_schedule(cfg)(step)
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     clip = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
     stepf = step.to(torch.float32)
     b1c = 1 - torch.pow(torch.tensor(cfg.b1, dtype=torch.float32, device=stepf.device), stepf)

@@ -1,0 +1,348 @@
+"""Sharded training in the port (``Trainer(model, TrainMesh)``,
+``distributed/layout.py``, the sharded checkpoint) on real ranks of
+spawned gloo process groups, on the CPU.
+
+The oracle is the one-device trajectory: the port's one-device
+``Trainer`` from the same seed (which ``tests/test_torch_train.py`` holds
+against the reference jitted without a mesh), and, for one run started
+from the reference's own weights, the reference jitted without a mesh
+directly.  (The reference's meshed ``Trainer`` cannot be the oracle: under
+this JAX its sharded embedding gather raises ``ShardingTypeError``.)
+
+Three groups are spawned for the whole file, each running its jobs in
+turn (``tests/torch_sharded_ranks.py``, which imports no JAX): two ranks
+for qwen3-4b at data=2 with and without FSDP and at data=1 x model=2,
+hubert-xlarge at data=2 (its ranks' masked-frame counts differ),
+olmoe-1b-7b at data=2, grad_accum=2 at data=2, a run from the reference's
+weights whose checkpoint the one-device trainer loads, a one-device
+checkpoint loaded by the two ranks, and the raises; four ranks for the
+(pod=2, data=2, model=1) mesh (``embed`` split pod-major over
+("pod", "data")), data=2 x model=2, and a bf16 gradient reduced over
+data=4; two ranks on one thread each for AdamW's default lr and eps.
+Smoke configs at f32, global batches of make_batch_np, 4 steps.
+
+Tolerances: every step's loss within 1e-6 relative of the one-device
+loss, and every parameter leaf within 1e-5 of its largest element after
+the last step.  The CPU's embedding backward sums a token's rows in an
+order that depends on its threads, so two runs of the one-device trainer
+itself differ in the last bits of the embedding gradient, and
+data-parallel sums differ from the one batch's in the last bits too.
+AdamW's update divides by sqrt(v) + eps: where a gradient element is near
+eps = 1e-8 (a sum that nearly cancels, shrunk by the clip) such a
+difference moves the update by a good part of lr, and after 4 steps at lr
+3e-4 the embedding table of two runs of the same one-device trainer lies
+about 2e-4 of its largest element apart, from run to run another figure.
+The trajectory runs therefore take lr 1e-4 and eps 1e-6.  The default lr
+and eps are held on one thread a rank, where the order is fixed: two
+data-parallel ranks against the same rows' gradients summed in one
+process (``split_rows_run``).  Init blocks, gathers and checkpoints are
+exact.  Against the reference jitted without a mesh: 1e-5 relative a
+step.
+"""
+import re
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+jnp = jax.numpy
+
+from repro.configs import get_config as jax_get_config  # noqa: E402
+from repro.models import Model as JaxModel  # noqa: E402
+from repro.train import data as jax_data  # noqa: E402
+from repro.train import loop as jax_loop  # noqa: E402
+from repro.train import optimizer as jax_opt  # noqa: E402
+
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.distributed import default_rules, shard_params_spec  # noqa: E402
+from repro_torch.distributed.spawn import run_ranks  # noqa: E402
+from repro_torch.launch.mesh import LogicalMesh  # noqa: E402
+from repro_torch.models import Model, from_numpy  # noqa: E402
+from repro_torch.train import (AdamWConfig, DataConfig, TrainConfig, Trainer,  # noqa: E402
+                               adamw_init, load_checkpoint, make_batch_np, save_checkpoint,
+                               synthetic_batches)
+from repro_torch.train.optimizer import _walk  # noqa: E402
+
+import torch_sharded_ranks  # noqa: E402
+
+OPT = dict(lr=1e-4, eps=1e-6, warmup_steps=1, total_steps=8)
+# AdamW's own lr and eps (3e-4, 1e-8), over 4 steps
+DEFAULT_OPT = dict(warmup_steps=1, total_steps=8)
+B, S, STEPS = 4, 64, 4
+LOSS_RTOL, LEAF_TOL, REF_RTOL = 1e-6, 1e-5, 1e-5
+
+
+def _job(arch, mesh, fsdp=True, **kw):
+    return {**dict(kind="train", arch=arch, mesh=mesh, fsdp=fsdp, opt=OPT, batch=B, seq=S,
+                   steps=STEPS), **kw}
+
+
+TWO = {
+    "qwen3-dp": _job("qwen3-4b", dict(data=2), fsdp=False),
+    "qwen3-fsdp": _job("qwen3-4b", dict(data=2)),
+    "qwen3-model2": _job("qwen3-4b", dict(data=1, model=2)),
+    "hubert-masks": _job("hubert-xlarge", dict(data=2)),
+    "olmoe": _job("olmoe-1b-7b", dict(data=2)),
+    "accum2": _job("hubert-xlarge", dict(data=2), grad_accum=2, batch=8),
+    "bridged": _job("qwen3-4b", dict(data=2)),
+}
+FOUR = {
+    "qwen3-pod": _job("qwen3-4b", dict(pod=2, data=2, model=1)),
+    "qwen3-2x2": _job("qwen3-4b", dict(data=2, model=2)),
+}
+TRAIN = {**TWO, **FOUR}
+EPS8 = _job("qwen3-4b", dict(data=2), fsdp=False, opt=DEFAULT_OPT)
+
+
+def _np(tree):
+    return {"/".join(k): v.detach().cpu().numpy().copy() for k, v in _walk(tree)}
+
+
+def _reference_params(arch):
+    return jax.tree.map(np.asarray, JaxModel(jax_get_config(arch, smoke=True)).init(
+        jax.random.PRNGKey(0)))
+
+
+def _one_device(job, params=None):
+    """The port's one-device Trainer on the job's batches: its init, every
+    step's metrics and the final params."""
+    model = Model(get_config(job["arch"], smoke=True))
+    tr = Trainer(model, "cpu", TrainConfig(opt=AdamWConfig(**job["opt"]), log_every=1,
+                                           grad_accum=job.get("grad_accum", 1)))
+    if params is None:
+        p, st = tr.init(0)
+    else:
+        p = from_numpy(params, "cpu")
+        for _, leaf in _walk(p):
+            leaf.requires_grad_(True)
+        st = adamw_init(p)
+    init = _np(p)
+    metrics = []
+    p, st = tr.fit(p, st, synthetic_batches(model.cfg, DataConfig(job["batch"], job["seq"])),
+                   job["steps"], log=lambda i, m: metrics.append(m))
+    return {"init": init, "metrics": metrics, "final": _np(p), "params": p, "state": st}
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("sharded")
+    # a one-device checkpoint (qwen3-4b after 2 steps) for the ranks to load
+    one = _one_device(dict(_job("qwen3-4b", {}), steps=2))
+    save_checkpoint(str(tmp / "one"), 2, {"params": one["params"], "opt": one["state"]})
+    ref = _reference_params("qwen3-4b")
+    jobs = [dict(TWO[k], **({"params": ref, "save": str(tmp / "two")} if k == "bridged" else {}))
+            for k in TWO]
+    extra = {"load": dict(kind="load", arch="qwen3-4b", mesh=dict(data=2), fsdp=True,
+                          path=str(tmp / "one")), "raises": dict(kind="raises")}
+    two = run_ranks(torch_sharded_ranks.run_jobs, 2, init_file=str(tmp / "pg2"),
+                    args=(jobs + list(extra.values()),), threads=2, timeout=300)
+    # one thread a rank: the CPU's embedding backward sums in a fixed order
+    eps8 = run_ranks(torch_sharded_ranks.run_jobs, 2, init_file=str(tmp / "pg1"),
+                     args=([EPS8, dict(EPS8, kind="split")],), threads=1, timeout=300)
+    four_jobs = list(FOUR.values()) + [dict(kind="reduce", mesh=dict(data=4), shape=(8, 64))]
+    four = run_ranks(torch_sharded_ranks.run_jobs, 4, init_file=str(tmp / "pg4"),
+                     args=(four_jobs,), threads=1, timeout=300)
+    out = {name: [r[i] for r in two] for i, name in enumerate(list(TWO) + list(extra))}
+    out.update({name: [r[i] for r in four] for i, name in enumerate(list(FOUR) + ["reduce"])})
+    out["eps8"], out["split"] = [r[0] for r in eps8], [r[1] for r in eps8]
+    out["one_ckpt"] = one
+    out["ref"] = ref
+    out["tmp"] = tmp
+    return out
+
+
+@pytest.fixture(scope="module")
+def one_device(runs):
+    return {name: _one_device(job, runs["ref"] if name == "bridged" else None)
+            for name, job in TRAIN.items()}
+
+
+def _leaf_err(got, want):
+    return max(float(np.abs(got[k] - want[k]).max()) / max(float(np.abs(want[k]).max()), 1e-30)
+               for k in want)
+
+
+@pytest.mark.parametrize("name", list(TRAIN))
+def test_sharded_trajectory_matches_one_device(runs, one_device, name):
+    ranks, want = runs[name], one_device[name]
+    for r in ranks:        # every rank reports the same global metrics
+        assert [m.keys() for m in r["metrics"]] == [m.keys() for m in want["metrics"]]
+        for got_m, want_m in zip(r["metrics"], want["metrics"]):
+            for k in ("loss", "ce", "grad_norm", "lr", "load_balance_loss", "router_z_loss"):
+                if k in want_m:
+                    assert abs(got_m[k] - want_m[k]) <= LOSS_RTOL * abs(want_m[k]) + 1e-9, (
+                        k, got_m, want_m)
+        assert r["metrics"] == ranks[0]["metrics"]
+    assert _leaf_err(ranks[0]["full"], want["final"]) <= LEAF_TOL
+
+
+def test_default_eps_matches_a_split_batch_run(runs):
+    """At AdamW's default lr and eps, two ranks (qwen3-4b, data=2) against
+    ``split_rows_run`` in the rank's own process: the same row blocks'
+    gradients summed in rank order, then the one-device update, whose
+    norm sums the same whole leaves.  (Against the one-device trainer,
+    whose gradient sums the whole batch in one order, eps = 1e-8 magnifies
+    the last bits; see the module docstring.  Under FSDP the clip's norm
+    sums the leaves' blocks, in another order, and that last bit is
+    magnified the same way.)"""
+    for got, split in zip(runs["eps8"], runs["split"]):
+        np.testing.assert_allclose([m["loss"] for m in got["metrics"]], split["losses"],
+                                   rtol=LOSS_RTOL)
+    assert _leaf_err(runs["eps8"][0]["full"], runs["split"][0]["final"]) <= LEAF_TOL
+
+
+def test_bf16_gradients_reduce_in_f32_over_four_ranks(runs):
+    """``layout.reduce_grad`` of bf16 gradients over four data ranks equals
+    their exact sum rounded to bf16 once, by reduce-scatter (split along
+    dim 0) and by all-reduce (whole); a sum in bf16, rounded at each
+    addition, differs from it."""
+    res = runs["reduce"]
+    xs = np.stack([r["input"] for r in sorted(res, key=lambda r: r["coords"]["data"])])
+    exact = torch.from_numpy(xs.astype(np.float64).sum(0)).float().bfloat16().float().numpy()
+    b = exact.shape[0] // 4
+    for r in res:
+        i = r["coords"]["data"]
+        np.testing.assert_array_equal(r["split"], exact[i * b:(i + 1) * b])
+        np.testing.assert_array_equal(r["whole"], exact)
+    seq = torch.from_numpy(xs[0]).bfloat16()
+    for x in xs[1:]:
+        seq = seq + torch.from_numpy(x).bfloat16()
+    assert (seq.float().numpy() != exact).any()
+
+
+def _expected_block(full, spec, mesh_shape, coords):
+    """The block a rank at ``coords`` holds, written out: along each dim
+    the split axes' mixed-radix index, the first axis major."""
+    sl = []
+    for n, e in zip(full.shape, spec):
+        axes = () if e is None else ((e,) if isinstance(e, str) else e)
+        k, i = 1, 0
+        for a in axes:
+            k *= mesh_shape[a]
+            i = i * mesh_shape[a] + coords[a]
+        sl.append(slice(i * (n // k), (i + 1) * (n // k)))
+    return full[tuple(sl)]
+
+
+def _specs(name):
+    job = TRAIN[name]
+    shape = {"pod": job["mesh"].get("pod"), "data": job["mesh"].get("data", 1),
+             "model": job["mesh"].get("model", 1)}
+    shape = {a: n for a, n in shape.items() if n is not None}
+    cfg = get_config(job["arch"], smoke=True)
+    mesh = LogicalMesh(tuple(shape.values()), tuple(shape))
+    rules = default_rules(cfg, mesh, fsdp=job["fsdp"])
+    return dict(_walk_specs(shard_params_spec(Model(cfg), rules))), shape
+
+
+def _walk_specs(tree, path=()):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _walk_specs(tree[k], path + (k,))
+    else:
+        yield "/".join(path), tree
+
+
+@pytest.mark.parametrize("name", list(TRAIN))
+def test_init_blocks_are_slices_of_the_one_device_init(runs, one_device, name):
+    want = one_device[name]["init"]
+    specs, shape = _specs(name)
+    split = 0
+    for r in runs[name]:
+        for k, full in want.items():
+            blk = _expected_block(full, specs[k], shape, r["coords"])
+            np.testing.assert_array_equal(r["init"][k], blk, err_msg=k)
+            split += blk.size < full.size
+    job = TRAIN[name]
+    assert (split > 0) == (job["fsdp"] or job["mesh"].get("model", 1) > 1)
+    for k in want:
+        np.testing.assert_array_equal(runs[name][0]["full_init"][k], want[k], err_msg=k)
+
+
+def test_fsdp_ranks_hold_half_the_bytes(runs, one_device):
+    """data=2 with FSDP: every leaf with an ``embed`` dim is split in two;
+    qwen3-4b's q_norm/k_norm scales (``head_dim`` only) stay whole."""
+    specs, _ = _specs("qwen3-fsdp")
+    one = one_device["qwen3-fsdp"]["final"]
+    whole = sum(v.nbytes for v in one.values())
+    kept = sum(v.nbytes for k, v in one.items() if not any(specs[k]))
+    assert 0 < kept < whole / 100
+    for r in runs["qwen3-fsdp"]:
+        assert r["resident"] == 3 * ((whole - kept) // 2 + kept)
+
+
+def test_hubert_ranks_see_uneven_mask_counts():
+    """The runs' hubert batches give the two ranks different numbers of
+    masked frames (so the ranks' CE means weigh differently), in the
+    plain and in the grad_accum=2 split."""
+    cfg = get_config("hubert-xlarge", smoke=True)
+    counts = [[int((make_batch_np(cfg, DataConfig(B, S), step)["labels"][r * 2:(r + 1) * 2]
+                    >= 0).sum()) for r in range(2)] for step in range(STEPS)]
+    assert sum(c[0] != c[1] for c in counts) >= STEPS - 1, counts
+    micro = make_batch_np(cfg, DataConfig(8, S), 0)["labels"].reshape(2, 2, 2, S)
+    assert len({int((micro[i, r] >= 0).sum()) for i in range(2) for r in range(2)}) > 1
+
+
+def test_bridged_run_matches_the_reference_without_a_mesh(runs):
+    """Two ranks from the reference's weights against the reference's
+    make_train_step jitted without a mesh on the same batches."""
+    jmodel = JaxModel(jax_get_config("qwen3-4b", smoke=True))
+    params = jax.tree.map(jnp.asarray, runs["ref"])
+    step = jax.jit(jax_loop.make_train_step(jmodel, jax_opt.AdamWConfig(**OPT)))
+    state = jax_opt.adamw_init(params)
+    want = []
+    for i, b in zip(range(STEPS), jax_data.synthetic_batches(jmodel.cfg,
+                                                             jax_data.DataConfig(B, S))):
+        params, state, m = step(params, state, {k: jnp.asarray(v) for k, v in b.items()})
+        want.append(float(m["loss"]))
+    got = [m["loss"] for m in runs["bridged"][0]["metrics"]]
+    np.testing.assert_allclose(got, want, rtol=REF_RTOL)
+
+
+def test_checkpoint_saved_by_two_ranks_loads_on_one_device(runs):
+    model = Model(get_config("qwen3-4b", smoke=True))
+    tr = Trainer(model, "cpu")
+    p, st = tr.init(3)
+    back = load_checkpoint(str(runs["tmp"] / "two"), {"params": p, "opt": st})
+    assert int(back["opt"].step) == STEPS
+    for k, v in _np(back["params"]).items():
+        np.testing.assert_array_equal(v, runs["bridged"][0]["full"][k], err_msg=k)
+    for k, v in _np(back["opt"].mu).items():
+        np.testing.assert_array_equal(v, runs["bridged"][0]["mu"][k], err_msg=k)
+
+
+def test_checkpoint_saved_on_one_device_loads_into_two_ranks(runs):
+    one = runs["one_ckpt"]
+    params, mu = _np(one["params"]), _np(one["state"].mu)
+    specs, shape = _specs("qwen3-fsdp")
+    for r in runs["load"]:
+        assert r["step"] == 2
+        for k, full in params.items():
+            np.testing.assert_array_equal(r["blocks"][k],
+                                          _expected_block(full, specs[k], shape, r["coords"]))
+            np.testing.assert_array_equal(r["full"][k], full)
+            np.testing.assert_array_equal(r["mu"][k], mu[k])
+
+
+@pytest.mark.parametrize("what,match", [
+    ("split", r"layers/attn/wk: dim 2 of shape \(2, 256, 1, 32\) \(1\) does not divide over "
+              r"\('data',\) \(2 ranks\)"),
+    ("moe", r"a rank's microbatch of 1 x 48 tokens \(48\) routes in groups of 24, the global "
+            r"microbatch of 2 x 48 \(96\) in groups of 32"),
+    ("world", r"the mesh \(data=16, model=16\) needs a process group of 256 ranks .*world has "
+              r"2 ranks"),
+])
+def test_sharded_trainer_raises(runs, what, match):
+    for r in runs["raises"]:
+        assert re.search(match, r[what]), r[what]
+
+
+def test_ranks_sit_row_major_on_the_mesh(runs):
+    """Rank r at the row-major coordinates of r: on (pod, data, model) =
+    (2, 2, 1) rank 2 is (pod 1, data 0), whose ``("pod", "data")`` block
+    is number 2 of 4 (pod-major)."""
+    coords = [r["coords"] for r in runs["qwen3-pod"]]
+    assert coords == [{"pod": p, "data": d, "model": 0} for p in range(2) for d in range(2)]
+    assert [r["coords"] for r in runs["qwen3-2x2"]] == [
+        {"data": d, "model": m} for d in range(2) for m in range(2)]
