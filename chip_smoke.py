@@ -233,7 +233,28 @@ Phases (each raises on failure; none is caught):
              memory, step wall and the collectives' share of a step; f32
              smoke qwen3-4b, hubert-xlarge and olmoe-1b-7b at two ranks
              against one; olmoe-1b-7b at full depth over NCCL with two
-             cards or more (skipped, with a line that says so, on one).
+             cards or more (skipped, with a line that says so, on one);
+11. cert    — the static certifier on the card (repro_torch.analysis.cert):
+             for each batched rung at one and two shards (cuda:0 twice), a
+             real engine whose step is wrapped by a signature recorder runs
+             the envelope's occupancy and churn sweep, capturing and
+             replaying its step: one capture per shard, no new signature
+             after warmup, the signatures the committed
+             analysis/torch_certificate.json names; then each (rung, batch
+             size) step of an engine at that capacity is measured (device
+             time of a whole-capacity submit: upload, replay, readback) and
+             printed beside its committed roofline floor; a floor above its
+             measurement raises;
+12. roofline — qwen3-4b's prefill (4 x 1024), decode step (batch 4,
+             context 1024) and train step (2 x 1024) built at those shapes
+             on one rank (launch.lowering.build_lowered) and counted
+             (launch.roofline.analyze): counted flops, model_flops, the
+             compute and memory floors against the device ms (profiler)
+             and wall ms that phases 3 and 9 measured, and
+             mfu = model_flops / (wall s x 989e12); a floor above the
+             device time raises.  The dry-run sweep
+             (python -m repro_torch.launch.dryrun --all) takes minutes and
+             runs on its own.
 
 The build phase prints each kernel's registers, static shared memory and
 spill bytes from the compiler's -Xptxas -v report, and the scan kernels'
@@ -262,12 +283,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM3 rate and tensor-core /
-# CUDA-core rates by input type
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12, "tf32": 495e12}
-# the scans multiply in split TF32: three tensor-core passes per product
-TF32_PASSES = 3
+# Bounds: each kernel's work from its declared cost (repro_torch.kernels.cost)
+# at the H100 SXM's peaks (repro_torch.analysis.cert.roofline.H100_SXM: the
+# data sheet's dense rates by unit and the HBM3 rate); the scans multiply in
+# split TF32, three tensor-core passes per product (their costs' ``passes``)
 # Both kernels compute in f32 (bf16 flash: products of bf16 values summed in
 # f32, and P carried as bf16 hi + lo, within 2**-16 of p) and round the
 # output to q's dtype once, so each is held against its plain version
@@ -923,13 +942,15 @@ def _device_us(evt) -> float:
 def phase_profile(model, params, dev, step_s: float, prefill_s: float):
     """Device time by kernel for one prefill and a few decode steps
     (torch.profiler); the device's busy share is its summed kernel time
-    over the unprofiled wall time of the same work."""
+    over the unprofiled wall time of the same work.  Returns, per run, its
+    device ms (the summed kernel time of one) and wall ms."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     toks = torch.from_numpy(np.random.default_rng(3).integers(
         0, model.cfg.vocab_size, (B, S_PREFILL)).astype(np.int32)).to(dev)
     n_steps = 4
+    out = {}
     with torch.inference_mode():
         state = model.init_decode_state(B, CONTEXT, device=dev)
         for t in range(PROMPT):
@@ -951,11 +972,13 @@ def phase_profile(model, params, dev, step_s: float, prefill_s: float):
                     if e.device_type != DeviceType.CPU and _device_us(e) > 0]
             rows.sort(key=lambda r: -r[1])
             total_ms = sum(r[1] for r in rows) / 1e3
+            out[name] = dict(busy_ms=total_ms, wall_ms=wall_s * 1e3)
             log(f"[profile] {model.cfg.name} {name}: device busy {total_ms:.3f} ms of {wall_s * 1e3:.3f} ms wall "
                 f"({total_ms / (wall_s * 1e3):.3f} busy, {1 - total_ms / (wall_s * 1e3):.3f} idle); "
                 f"{sum(r[2] for r in rows)} kernels")
             for key, us, count in rows[:8]:
                 log(f"[profile]   {us / 1e3:9.3f} ms  x{count:<5d} {key[:90]}")
+    return out
 
 
 def prefill_ms(model, params, batch, iters=3):
@@ -977,9 +1000,13 @@ def sdpa(q, k, v, **kw):
     return F.scaled_dot_product_attention(q, k, v, enable_gqa=True, **kw)
 
 
-def bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+def bound(cost) -> tuple[float, str]:
+    """The least ms of a kernel's declared cost on the H100 SXM, and what
+    bounds it ("bytes" or "operations")."""
+    from repro_torch.analysis.cert.roofline import H100_SXM
+
+    t, by = cost.seconds(H100_SXM)
+    return t * 1e3, by
 
 
 def time_flash(K, R, gen, dev, h, kv, d):
@@ -994,10 +1021,9 @@ def time_flash(K, R, gen, dev, h, kv, d):
     plain = graph_ms(lambda: R.flash_attention_ref(q, k, v, True, None), 3)
     lib_err = (sdpa(qt, kt, vt, is_causal=True).transpose(1, 2).float()
                - K.flash_attention(q, k, v).float()).abs().max().item()
-    esz = q.element_size()
-    pairs = S_PREFILL * (S_PREFILL + 1) // 2
-    b_ms, b_by = bound((2 * q.numel() + k.numel() + v.numel()) * esz,
-                       4.0 * B * h * d * pairs, dt)
+    from repro_torch.kernels.cost import flash_attention_cost
+
+    b_ms, b_by = bound(flash_attention_cost(q.shape, k.shape, dt, causal=True))
     log(f"[times] flash_attention q {tuple(q.shape)} kv {tuple(k.shape)} bf16 causal: kernel "
         f"{ms:.4f} ms, plain {plain:.4f} ms, sdpa {lib:.4f} ms (|sdpa - kernel| {lib_err:.2e}), "
         f"bound {b_ms:.4f} ms ({b_by}); {b_ms / ms:.3f} of bound")
@@ -1034,8 +1060,9 @@ def time_decode(K, R, gen, dev, h, kv, d, B=B):
     plain = graph_ms(cyc(lambda i: R.decode_attention_ref(qd, *caches[i], pos, npos)), 40)
     lib_err = (sdpa(qdt, *caches_t[0], attn_mask=mask).view(B, h, d).float()
                - K.decode_attention(qd, *caches[0], pos, npos).float()).abs().max().item()
-    nbytes = (2 * qd.numel() + 2 * caches[0][0].numel()) * qd.element_size() + 4 * (CONTEXT + 1)
-    b_ms, b_by = bound(nbytes, 4.0 * B * h * d * CONTEXT, dt)
+    from repro_torch.kernels.cost import decode_attention_cost
+
+    b_ms, b_by = bound(decode_attention_cost(qd.shape, caches[0][0].shape, dt))
     from repro_torch.kernels.decode_attention import TILE, splits_for
     splits, tiles = splits_for(dev.index, B, h, kv, CONTEXT, d, dt), -(-CONTEXT // TILE)
     log(f"[times] decode_attention at these shapes: {splits} splits of "
@@ -1097,6 +1124,7 @@ def time_flash_bwd(K, R, gen, dev):
     Bound: the five products of the causal half at the bf16 tensor-core
     rate, against q, k, v, o and dO read once and dq, dk, dv written once
     (the lse the forward hands over is not counted)."""
+    from repro_torch.kernels.cost import flash_attention_bwd_cost
     from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda, \
         flash_attention_cuda
 
@@ -1119,12 +1147,11 @@ def time_flash_bwd(K, R, gen, dev):
     plain = event_ms(lambda: R.flash_attention_bwd_ref(q, k, v, o, do, True, None), 2)
     lib_err = max((x.transpose(1, 2).float() - y.float()).abs().max().item()
                   for x, y in zip(library(), kernel()))
-    pairs = s * (s + 1) // 2
-    b_ms, b_by = bound((4 * q.numel() + 4 * k.numel()) * q.element_size(),
-                       5 * 2.0 * b * h * pairs * d, dt)
+    cost = flash_attention_bwd_cost(q.shape, k.shape, dt, causal=True)
+    b_ms, b_by = bound(cost)
     log(f"[times] flash_attention_bwd q {tuple(q.shape)} kv {tuple(k.shape)} bf16 causal: kernel "
         f"{ms:.4f} ms, plain {plain:.4f} ms, sdpa backward {lib:.4f} ms (|sdpa - kernel| "
-        f"{lib_err:.2e}), bound {b_ms:.4f} ms ({b_by}: {5 * 2.0 * b * h * pairs * d:.3e} FLOP "
+        f"{lib_err:.2e}), bound {b_ms:.4f} ms ({b_by}: {cost.flops:.3e} FLOP "
         f"at 989 TFLOP/s); {b_ms / ms:.3f} of bound")
     log(f"[times]   {ROUNDS} rounds: kernel {spread(ks)}; sdpa backward {spread(ls)}")
     launch = dict(BWD_LAUNCH_MS)
@@ -1152,64 +1179,55 @@ def time_scans(K, R, gen, dev):
     495 TFLOP/s (the f32 CUDA-core rate, 67 TFLOP/s, is logged beside it).
     The decays fold into these in the chunked form.  No single PyTorch call
     computes either scan."""
+    from repro_torch.analysis.cert.roofline import H100_SXM
+    from repro_torch.kernels.cost import mamba2_ssd_cost, rwkv6_wkv_cost
+
     res = {}
     for name, shape in (("rwkv6_wkv", RWKV_FULL), ("mamba2_ssd", MAMBA_FULL)):
         if name == "rwkv6_wkv":
-            b, s, h, dk = shape
             args = rwkv6_inputs(gen, shape, 0.5, dev)
             call = lambda: K.rwkv6_wkv(*args, RWKV_CHUNK)  # noqa: E731
             plain = lambda: R.rwkv6_wkv_ref(*args)  # noqa: E731
-            nbytes = (5 * args[0].numel() + args[4].numel()) * 4
-            flops = 4.0 * b * s * h * dk * dk
+            cost = rwkv6_wkv_cost(args[0].shape)
             what = f"{shape} f32 chunk {RWKV_CHUNK}"
         else:
-            b, s, h, p, n = shape
+            n = shape[4]
             args = mamba2_inputs(gen, shape, dev)
             call = lambda: K.mamba2_ssd(*args, MAMBA_CHUNK, MAMBA_HB)  # noqa: E731
             plain = lambda: R.mamba2_ssd_ref(*args)  # noqa: E731
-            nbytes = (2 * args[0].numel() + sum(x.numel() for x in args[1:])) * 4
-            flops = 4.0 * b * s * h * p * n
+            cost = mamba2_ssd_cost(args[0].shape, n)
             what = f"x {shape[:4]} N {n} f32 chunk {MAMBA_CHUNK} head_block {MAMBA_HB}"
         ks = kernel_rounds(call, 20)
         ms = statistics.median(ks)
         plain_ms = graph_ms(plain, 1, replays=2)
-        b_ms, b_by = bound(nbytes, TF32_PASSES * flops, "tf32")
-        f32_ms = flops / PEAK_FLOPS[torch.float32] * 1e3
+        b_ms, b_by = bound(cost)
+        nbytes, flops = cost.bytes, cost.flops
+        f32_ms = flops / H100_SXM.peak("f32") * 1e3
         res[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by)
         log(f"[times] {name} {what}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
             f"{b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.1f} MB at 3.35 TB/s = "
-            f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms; {flops / 1e9:.2f} GFLOP x {TF32_PASSES} "
-            f"split-TF32 passes at 495 TFLOP/s = {TF32_PASSES * flops / PEAK_FLOPS['tf32'] * 1e3:.4f}"
+            f"{nbytes / H100_SXM.mem_bw * 1e3:.4f} ms; {flops / 1e9:.2f} GFLOP x {cost.passes} "
+            f"split-TF32 passes at 495 TFLOP/s = "
+            f"{cost.passes * flops / H100_SXM.peak('tf32') * 1e3:.4f}"
             f" ms; at the f32 CUDA-core rate it would read {f32_ms:.4f} ms); "
             f"{b_ms / ms:.3f} of bound")
         log(f"[times]   {ROUNDS} rounds: kernel {spread(ks)}")
     return res
 
 
-def scan_grad_work(name: str, shape: tuple, chunk: int) -> tuple[float, float]:
-    """Bytes and f32 operations of a scan's gradient through its chunked
-    form at ``shape`` and ``chunk``: each input and the output's gradient
-    read once, each input's gradient written once; twice the chunked
-    forward's arithmetic (a product's backward is two products), counting
-    the intra-chunk terms over the triangle that the data needs.  RWKV6 per
-    pair (t > u), head and column: the decay difference, its exp, two
-    products and the sum into A, and A·v (7); per position and head the
-    state's inflow and readout (4 K^2) and the elementwise terms (8 K).
-    Mamba2 per pair (t >= u): C·B (2 N), the decay difference and exp and
-    the gating (4 per head), the product with x (2 P per head); per
-    position and head the state's inflow and readout (4 P N) and the
-    elementwise terms (4 P)."""
+def scan_grad_work(name: str, shape: tuple, chunk: int):
+    """The declared cost of a scan's gradient through its chunked form at
+    ``shape`` and ``chunk`` (``kernels.cost.rwkv6_wkv_grad_cost`` /
+    ``mamba2_ssd_grad_cost``: each input and the output's gradient read
+    once, each input's gradient written once; twice the chunked forward's
+    arithmetic, the intra-chunk terms over the triangle the data needs), at
+    the f32 CUDA-core rate."""
+    from repro_torch.kernels.cost import mamba2_ssd_grad_cost, rwkv6_wkv_grad_cost
+
     if name == "rwkv6_wkv":
-        b, s, h, k = shape
-        pairs = s // chunk * (chunk * (chunk - 1) // 2)
-        fwd = 7 * b * pairs * h * k + 4 * b * s * h * k * k + 8 * b * s * h * k
-        nbytes = (9 * b * s * h * k + 2 * h * k) * 4
-    else:
-        b, s, h, p, n = shape
-        pairs = s // chunk * (chunk * (chunk + 1) // 2)
-        fwd = 2 * b * pairs * n + (4 + 2 * p) * b * pairs * h + (4 * p * n + 4 * p) * b * s * h
-        nbytes = (3 * b * s * h * p + 2 * b * s * h + 4 * b * s * n + 2 * h) * 4
-    return nbytes, 2.0 * fwd
+        return rwkv6_wkv_grad_cost(shape, chunk)
+    b, s, h, p, n = shape
+    return mamba2_ssd_grad_cost((b, s, h, p), n, chunk)
 
 
 def time_scan_grads(K, gen, dev) -> dict:
@@ -1243,8 +1261,9 @@ def time_scan_grads(K, gen, dev) -> dict:
             with torch.no_grad():
                 fwd.append(event_ms(lambda: call(*ins), 5))
             bwd.append(event_ms(lambda: torch.autograd.grad(y, leaves, dy, retain_graph=True), 3))
-        nbytes, flops = scan_grad_work(name, shape, chunk)
-        b_ms, b_by = bound(nbytes, flops, torch.float32)
+        cost = scan_grad_work(name, shape, chunk)
+        nbytes, flops = cost.bytes, cost.flops
+        b_ms, b_by = bound(cost)
         ms, f_ms = statistics.median(bwd), statistics.median(fwd)
         res[name] = dict(library_ms=ms, fwd_ms=f_ms, bound_ms=b_ms, bound_by=b_by)
         log(f"[times] {name} gradient {shape} f32, chunk {chunk}: autograd backward (the "
@@ -3009,6 +3028,91 @@ def sharded_many_cards(smi: str, n: int) -> None:
     log(f"[sharded] ({smi}) olmoe-1b-7b over {n} cards {time.perf_counter() - t0:.1f}s")
 
 
+# ---------------------------------------------------------------- phase 11
+def phase_cert(dev, smi: str) -> None:
+    """The static certifier's claims on the card (module docstring, phase
+    11): each batched rung of the default envelope at each declared shard
+    count swept through a real engine on the card whose step runs behind a
+    signature recorder (``certify_rung(..., execute=True)``): one capture
+    per shard, no new signature after warmup, the committed signatures;
+    then ``measure_steps`` for every (rung, batch size) against the
+    committed floor, which must not exceed it."""
+    from repro_torch.analysis.cert import certify_rung, default_envelope, load_certificate, \
+        measure_steps
+    from repro_torch.analysis.cert.certificate import DEFAULT_CERT_PATH
+
+    prev_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True        # torch's default, as phases 5 to 7b
+    t0 = time.perf_counter()
+    try:
+        env = default_envelope()
+        cert = load_certificate(Path(__file__).resolve().parent / DEFAULT_CERT_PATH)
+        for k in env.fleet_shards:
+            for point in env.rungs:
+                trace = certify_rung(point, env, shards=k, device=dev, execute=True)
+                (name, prog), = trace.programs.items()
+                want = cert["programs"][name]["signatures"]
+                if trace.violations or trace.step_captures != k or prog.signatures != want:
+                    raise AssertionError(
+                        f"cert {name}: violations {trace.violations}, captures "
+                        f"{trace.step_captures} (want {k}), signatures {prog.signatures} "
+                        f"(committed {want})")
+                log(f"[cert] {name} on the card: {prog.calls} step calls over the envelope's "
+                    f"occupancy and churn sweep, {trace.step_captures} capture(s) for {k} "
+                    f"shard(s), 0 new signatures after warmup, signatures {prog.signatures}")
+        bench = measure_steps(env, dev)
+        for row in cert["cost_table"]:
+            key = (row["rung"], row["batch_size"])
+            floor, meas = row["floor_s"] * 1e3, bench[key] * 1e3
+            log(f"[cert] {key[0]}/batch{key[1]}: floor {floor:.4f} ms (flops {row['flops']:.0f}, "
+                f"bytes {row['bytes_min']:.0f}, h2d {row['h2d_bytes']:.0f} on "
+                f"{cert['hardware']['name']}), measured {meas:.4f} ms (device time of a "
+                f"whole-capacity submit, median), floor / measured {floor / meas:.4f}; "
+                f"committed p50 {row['bench_p50_s'] * 1e3 if row['bench_p50_s'] else 0.0:.4f} "
+                f"ms; card {smi}")
+            if floor > meas:
+                raise AssertionError(f"cert {key}: floor {floor} ms above the measured {meas} ms")
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev_tf32
+    log(f"[cert] {time.perf_counter() - t0:.1f}s")
+
+
+# ---------------------------------------------------------------- phase 12
+ROOFLINE_ARCH = "qwen3-4b"
+
+
+def phase_roofline(smi: str, measured: dict) -> None:
+    """qwen3-4b's prefill, decode step and train step counted at the shapes
+    phases 3 and 9 measured them (module docstring, phase 12), against
+    ``measured`` (per path: device ms, the profiler's summed kernel time of
+    one, and wall ms)."""
+    from repro_torch.configs import InputShape
+    from repro_torch.distributed.mesh import LogicalMesh
+    from repro_torch.launch.lowering import build_lowered
+    from repro_torch.launch.roofline import H100_SXM, analyze
+
+    t0 = time.perf_counter()
+    one = LogicalMesh((1, 1), ("data", "model"))
+    shapes = {"prefill": InputShape(f"prefill_{B}x{S_PREFILL}", S_PREFILL, B, "prefill"),
+              "decode step": InputShape(f"decode_{B}x{CONTEXT}", CONTEXT, B, "decode"),
+              "train step": InputShape(f"train_{TRAIN_B}x{TRAIN_S}", TRAIN_S, TRAIN_B, "train")}
+    for name, shape in shapes.items():
+        rep = analyze(build_lowered(ROOFLINE_ARCH, shape, one))
+        busy, wall = measured[name]["busy_ms"], measured[name]["wall_ms"]
+        mfu = rep.model_flops_global / (wall / 1e3 * H100_SXM.peak("bf16"))
+        comp, mem = rep.compute_s * 1e3, rep.memory_s * 1e3
+        log(f"[roofline] {ROOFLINE_ARCH} {name} ({shape.global_batch} x {shape.seq_len}, "
+            f"{rep.kind}): counted {rep.flops_per_device:.4e} flops (kernels {rep.kernels}), "
+            f"model_flops {rep.model_flops_global:.4e}; floors compute {comp:.3f} ms, memory "
+            f"{mem:.3f} ms (raw {rep.memory_raw_s * 1e3:.3f}); measured device {busy:.3f} ms, "
+            f"wall {wall:.3f} ms; floor / device {max(comp, mem) / busy:.4f}; mfu {mfu:.4f}; "
+            f"card {smi}")
+        if max(comp, mem) > busy:
+            raise AssertionError(f"roofline {name}: floor {max(comp, mem)} ms above the device "
+                                 f"time {busy} ms")
+    log(f"[roofline] {time.perf_counter() - t0:.1f}s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
@@ -3028,6 +3132,7 @@ def main() -> int:
         f"{torch.version.cuda}; python {sys.version.split()[0]}")
 
     t_all = time.perf_counter()
+    roof_measured = {}
     phase_build()
     errs = phase_kernels(dev)
     launches = dict.fromkeys(KERNELS, 0)
@@ -3042,7 +3147,9 @@ def main() -> int:
         log(f"[times] {arch} Model.{'forward' if model.cfg.encoder_only else 'prefill'} "
             f"({what}): {', '.join(f'{t:.3f}' for t in pre)} ms")
         if PATHS[arch].get("profile", True):
-            phase_profile(model, params, dev, rep["mean_s"], min(pre) / 1e3)
+            measured = phase_profile(model, params, dev, rep["mean_s"], min(pre) / 1e3)
+            if arch == ROOFLINE_ARCH:
+                roof_measured = measured
         del model, params, batch
         torch.cuda.empty_cache()
     for arch in SMOKE_ONLY:
@@ -3060,10 +3167,14 @@ def main() -> int:
         for name in KERNELS:
             launches[name] += res["counts"][name]
             by_path[name][f"train:{arch}"] = res["counts"][name]
+        if arch == ROOFLINE_ARCH:
+            roof_measured["train step"] = dict(busy_ms=res["busy_ms"], wall_ms=res["step_ms"])
     for path, counts in phase_sharded_train(dev, smi).items():
         for name in KERNELS:
             launches[name] += counts[name]
             by_path[name][path] = counts[name]
+    phase_cert(dev, smi)
+    phase_roofline(smi, roof_measured)
     times = phase_times(dev)
 
     rows = []

@@ -53,6 +53,17 @@ stream: the same program as the executor had before shards.
 On the CPU, which a caller asks for explicitly, each shard's step runs
 eagerly on its block and ``step_captures`` counts each shard's one build.
 
+**Programs** (``PROGRAMS``): the executor has one, ``step``.  The
+reference also jits ``assemble``, ``pack`` and ``slot_update`` to write the
+resident batch; here slot writes are pinned host-to-device copies into the
+static block (``_Shard.upload``) and a slot blank is one ``zero_``, so
+those programs have no counterpart by design (the certifier counts the
+copies as ``h2d_bytes``).  ``instrument(wrap)`` replaces the step before
+``warmup`` builds a shard: the certifier passes recorders that count the
+step on fake tensors instead of running it.  ``DECLARED_MUTATIONS`` names
+the step's inputs it writes in place (none: it only reads the block),
+which the certificate checks against the writes it traces.
+
 Every submission carries a ``payload`` that ``drain`` echoes, so a caller
 can re-associate a result with the (stale) tick that produced it: at depth
 k, a drained result is k−1 ticks old.  Results drain oldest first.
@@ -228,6 +239,10 @@ class PipelinedExecutor:
     the batch lives on ``device``.
     """
 
+    PROGRAMS = ("step",)
+    # input positions each program writes in place (``instrument``)
+    DECLARED_MUTATIONS = {"step": ()}
+
     def __init__(
         self,
         step_fn: Callable[[torch.Tensor], Any],
@@ -266,6 +281,23 @@ class PipelinedExecutor:
         self._queue: deque[_InFlight] = deque()
         self._seq = 0
         self._built = False
+
+    def programs(self) -> dict:
+        """The live program per short name in ``PROGRAMS``."""
+        return {name: getattr(self, f"_{name}_fn") for name in self.PROGRAMS}
+
+    def instrument(self, wrap) -> dict:
+        """Replace every program with ``wrap(name, fn)`` and return the
+        wrappers keyed by short name.  Call it before ``warmup``: a built
+        shard has already captured (on the card) the step it was given."""
+        if self._built:
+            raise RuntimeError("instrument() after warmup: the shards already hold their step")
+        out = {}
+        for name, fn in self.programs().items():
+            wrapped = wrap(name, fn)
+            setattr(self, f"_{name}_fn", wrapped)
+            out[name] = wrapped
+        return out
 
     def shard_of_slot(self, slot: int) -> int:
         """Which shard owns a slot (contiguous block partition)."""

@@ -27,8 +27,8 @@ import torch
 from . import _build
 from . import ref as _ref
 
-__all__ = ["mamba2_ssd_cuda", "Mamba2SSD", "check_mamba2_inputs", "occupancy", "MAX_DIM",
-           "SUB_TILE", "STATE_ROWS"]
+__all__ = ["mamba2_ssd_cuda", "Mamba2SSD", "ssd_chunked_grads", "check_mamba2_inputs", "occupancy",
+           "MAX_DIM", "SUB_TILE", "STATE_ROWS"]
 
 MAX_DIM = 64         # the kernel's largest head width P and state size N (multiples of 4)
 SUB_TILE = 64        # rows the kernel walks at a time, whatever the chunk
@@ -126,9 +126,15 @@ class Mamba2SSD(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy: torch.Tensor):
-        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
-        with torch.enable_grad():
-            y, _ = _ref.mamba2_ssd_chunked(*inputs, ctx.chunk)
-        grads = torch.autograd.grad(y, inputs, dy)
+        grads = ssd_chunked_grads(ctx.saved_tensors, ctx.chunk, dy)
         return (*(g if need else None for g, need in zip(grads, ctx.needs_input_grad)),
                 None, None)
+
+
+def ssd_chunked_grads(saved, chunk: int, dy: torch.Tensor) -> tuple:
+    """(dx, ddt, da, dB, dC): ``ref.mamba2_ssd_chunked`` at ``chunk``
+    recomputed on the saved inputs and differentiated against ``dy``."""
+    inputs = [t.detach().requires_grad_() for t in saved]
+    with torch.enable_grad():
+        y, _ = _ref.mamba2_ssd_chunked(*inputs, chunk)
+    return torch.autograd.grad(y, inputs, dy)

@@ -17,10 +17,18 @@ plain versions, so the CPU runs the backward that the card runs.
 a CUDA tensor under grad, since its ctypes launch would hand autograd an
 output cut from its inputs (decode runs without grad).  Without grad every
 op makes its plain launch.
+
+``count_hook`` is None except inside the static cost counter
+(``repro_torch.analysis.cert.costs``), which sets it while it traces a
+program on fake tensors: each entry point then hands ``(name, args,
+flags)`` to the hook and returns what the hook returns (fake outputs of
+the kernel's shapes), so a kernel call is counted by its declared cost
+(``kernels/cost.py``) and neither launches nor counts a launch.  The hook
+raises on any tensor that is not fake.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -31,7 +39,9 @@ from .mamba2_ssd import Mamba2SSD, check_mamba2_inputs, mamba2_ssd_cuda
 from .rwkv6_scan import RWKV6WKV, check_rwkv6_inputs, rwkv6_wkv_cuda
 
 __all__ = ["flash_attention", "decode_attention", "rwkv6_wkv", "mamba2_ssd",
-           "launch_counts", "reset_launch_counts"]
+           "launch_counts", "reset_launch_counts", "count_hook"]
+
+count_hook: Optional[Callable] = None
 
 _WRAPPERS = {
     "flash_attention": flash_attention_cuda,
@@ -67,6 +77,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True,
                     window: Optional[int] = None) -> torch.Tensor:
     """q (B,S,H,D), k/v (B,S,K,D) → (B,S,H,D) in q's dtype."""
+    if count_hook is not None:
+        return count_hook("flash_attention", (q, k, v), {"causal": causal, "window": window})
     if _on_cuda(q):
         if _needs_grad(q, k, v):
             return FlashAttention.apply(q, k, v, causal, window)
@@ -79,6 +91,9 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
                      window: Optional[int] = None) -> torch.Tensor:
     """q (B,H,D) over caches (B,C,K,D), masked by ``positions`` (C,) and
     ``next_pos`` () → (B,H,D) in q's dtype."""
+    if count_hook is not None:
+        return count_hook("decode_attention", (q, k_cache, v_cache, positions, next_pos),
+                          {"window": window})
     if _on_cuda(q):
         _no_backward("decode_attention", q, k_cache, v_cache)
         return decode_attention_cuda(q, k_cache, v_cache, positions, next_pos,
@@ -93,6 +108,10 @@ def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Ten
     (H,K) → y (B,S,H,K) float32.  ``chunk`` is checked on every device;
     under grad the gradient is the chunked form's at ``grad_chunk``
     (default ``chunk``), which must divide S."""
+    if count_hook is not None:
+        return count_hook("rwkv6_wkv", (r, k, v, logw, u),
+                          {"chunk": chunk, "grad_chunk": chunk if grad_chunk is None
+                           else grad_chunk})
     check_rwkv6_inputs(r, k, v, logw, u, chunk)
     on_cuda = _on_cuda(r)
     if _needs_grad(r, k, v, logw, u):
@@ -111,6 +130,9 @@ def mamba2_ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, bmat: torch.T
     dt (B,S,H), a (H,), B/C (B,S,N) → y (B,S,H,P) float32 without the
     D-skip term.  ``chunk`` and ``head_block`` are checked on every device;
     under grad the gradient is the chunked form's at ``chunk``."""
+    if count_hook is not None:
+        return count_hook("mamba2_ssd", (x, dt, a, bmat, cmat),
+                          {"chunk": chunk, "head_block": head_block})
     check_mamba2_inputs(x, dt, a, bmat, cmat, chunk, head_block)
     on_cuda = _on_cuda(x)
     if _needs_grad(x, dt, a, bmat, cmat):

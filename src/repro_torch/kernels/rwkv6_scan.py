@@ -30,8 +30,8 @@ import torch
 from . import _build
 from . import ref as _ref
 
-__all__ = ["rwkv6_wkv_cuda", "RWKV6WKV", "check_rwkv6_inputs", "occupancy", "STATE_TILE",
-           "FOLD_TILE", "SUB_BLOCK", "STATE_COLUMNS", "MAX_HEAD_DIM"]
+__all__ = ["rwkv6_wkv_cuda", "RWKV6WKV", "wkv_chunked_grads", "check_rwkv6_inputs", "occupancy",
+           "STATE_TILE", "FOLD_TILE", "SUB_BLOCK", "STATE_COLUMNS", "MAX_HEAD_DIM"]
 
 STATE_TILE = 32      # the TPU kernel's _STATE_TILE, which its chunk check names
 FOLD_TILE = 32       # rows the kernel folds into the state at once
@@ -131,12 +131,18 @@ class RWKV6WKV(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy: torch.Tensor):
-        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
-        r = inputs[0]
-        b, _, h, dk = r.shape
-        s0 = torch.zeros((b, h, dk, dk), dtype=torch.float32, device=r.device)
-        with torch.enable_grad():
-            y, _ = _ref.rwkv6_wkv_chunked(*inputs, ctx.grad_chunk, s0)
-        grads = torch.autograd.grad(y, inputs, dy)
+        grads = wkv_chunked_grads(ctx.saved_tensors, ctx.grad_chunk, dy)
         return (*(g if need else None for g, need in zip(grads, ctx.needs_input_grad)),
                 None, None)
+
+
+def wkv_chunked_grads(saved, grad_chunk: int, dy: torch.Tensor) -> tuple:
+    """(dr, dk, dv, dlogw, du): ``ref.rwkv6_wkv_chunked`` at ``grad_chunk``
+    recomputed on the saved inputs and differentiated against ``dy``."""
+    inputs = [t.detach().requires_grad_() for t in saved]
+    r = inputs[0]
+    b, _, h, dk = r.shape
+    s0 = torch.zeros((b, h, dk, dk), dtype=torch.float32, device=r.device)
+    with torch.enable_grad():
+        y, _ = _ref.rwkv6_wkv_chunked(*inputs, grad_chunk, s0)
+    return torch.autograd.grad(y, inputs, dy)

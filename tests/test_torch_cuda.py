@@ -1010,3 +1010,61 @@ def test_scan_launches_per_train_step(dev, arch, layers, remat):
     assert want["rwkv6_wkv" if arch == "rwkv6-3b" else "mamba2_ssd"] == (2 if remat else 1) * layers
     assert torch.isfinite(loss) and all(torch.isfinite(g).all() for g in grads)
     assert all(g.abs().max() > 0 for g in grads)
+
+
+# ------------------------------------------- the static certifier on the card
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shards", [1, 2])
+def test_cert_sweep_captures_once_per_shard_on_the_card(dev, shards):
+    """The envelope's occupancy and churn sweep through a real engine on the
+    card (its step captured and replayed behind a signature recorder): one
+    capture per shard, no new signature after warmup."""
+    from repro_torch.analysis.cert import InputEnvelope, RungPoint, certify_rung
+    from repro_torch.perception.data import H, W
+
+    env = InputEnvelope(capacity=4, occupancies=(1, 2, 3, 4), batch_sizes=(1,),
+                        image_shape=(H, W, 3), rungs=(RungPoint("early_exit", "early_exit"),),
+                        ladder_rungs=(), kernels=(), fleet_shards=(shards,))
+    trace = certify_rung(env.rungs[0], env, shards=shards, device="cuda:0", execute=True)
+    (prog,) = trace.programs.values()
+    assert trace.violations == [] and trace.step_captures == shards
+    assert prog.signatures == [f"(f32[{4 // shards},96,320,3])"]
+
+
+@pytest.mark.cuda
+def test_cert_floors_stay_below_the_card_s_step(dev):
+    """Each (rung, batch size) step measured on the card is at or above its
+    static floor on the H100 model."""
+    from repro_torch.analysis.cert import InputEnvelope, RungPoint, measure_steps
+    from repro_torch.analysis.cert.certificate import _cost_row
+    from repro_torch.analysis.cert.roofline import H100_SXM
+    from repro_torch.perception.data import H, W
+
+    env = InputEnvelope(capacity=2, occupancies=(1, 2), batch_sizes=(1, 2),
+                        image_shape=(H, W, 3), rungs=(RungPoint("one_stage", "one_stage"),),
+                        ladder_rungs=(), kernels=())
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        bench = measure_steps(env, "cuda")
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    for b in env.batch_sizes:
+        row = _cost_row(env.rungs[0], b, env, H100_SXM)
+        assert 0.0 < row["floor_s"] <= bench[("one_stage", b)]
+
+
+@pytest.mark.cuda
+def test_counting_hook_never_stands_in_for_a_launch(dev):
+    """Under the counter's hook a CUDA tensor raises; without it the entry
+    point launches its kernel and counts the launch, as before."""
+    from repro_torch.analysis.cert.costs import Counts, counting
+
+    q = torch.randn(1, 128, 4, 32, device="cuda")
+    K.reset_launch_counts()
+    with counting(Counts()):
+        with pytest.raises(RuntimeError, match="real tensor"):
+            K.flash_attention(q, q, q)
+    assert K.launch_counts()["flash_attention"] == 0
+    K.flash_attention(q, q, q)
+    assert K.launch_counts()["flash_attention"] == 1

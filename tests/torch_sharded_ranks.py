@@ -19,11 +19,15 @@ and reference trajectories in its own process.  A job is a dict:
 - ``reduce``: ``layout.reduce_grad`` of a bf16 gradient (seeded by the
   rank) over the data ranks, split along dim 0 (reduce-scatter) and
   whole (all-reduce), with the rank's input;
-- ``raises``: the errors the sharded trainer must raise here.
+- ``raises``: the errors the sharded trainer must raise here;
+- ``collectives``: one ``train`` step (seed 0) with counters around
+  ``layout``'s collectives and ``dist.all_reduce``: each op's calls and
+  result bytes on the rank (``launch.lowering``'s table, measured).
 """
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import get_config
 from repro_torch.distributed import default_rules, layout
@@ -151,8 +155,36 @@ def _raises(rank: int, job: dict) -> dict:
     return msgs
 
 
+def _collectives(rank: int, job: dict) -> dict:
+    model = Model(get_config(job["arch"], smoke=True))
+    mesh = make_train_mesh(device="cpu", **job["mesh"])
+    tr = Trainer(model, mesh, TrainConfig(grad_accum=job.get("grad_accum", 1)),
+                 fsdp=job.get("fsdp", False))
+    params, state = tr.init(0)
+    table: dict = {}
+    real = (layout.all_gather_flat, layout.reduce_scatter_flat, dist.all_reduce)
+
+    def counted(op, fn):
+        def call(t, *a, **kw):
+            rec = table.setdefault(op, {"count": 0, "bytes": 0.0})
+            rec["count"] += 1
+            rec["bytes"] += float(t.numel() * t.element_size())
+            return fn(t, *a, **kw)
+        return call
+
+    layout.all_gather_flat = counted("all_gather", real[0])
+    layout.reduce_scatter_flat = counted("reduce_scatter", real[1])
+    dist.all_reduce = counted("all_reduce", real[2])
+    try:
+        tr.fit(params, state, synthetic_batches(model.cfg, DataConfig(job["batch"],
+                                                                      job["seq"])), 1)
+    finally:
+        layout.all_gather_flat, layout.reduce_scatter_flat, dist.all_reduce = real
+    return table
+
+
 JOBS = {"train": _train, "split": split_rows_run, "reduce": _reduce, "load": _load,
-        "raises": _raises}
+        "raises": _raises, "collectives": _collectives}
 
 
 def run_jobs(rank: int, jobs: list) -> list:
