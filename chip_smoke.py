@@ -117,7 +117,7 @@ Phases (each raises on failure; none is caught):
              the engine on the CPU (counts equal, boxes within BOX_TOL_PX);
              depths 2 and 3 against depth 1 bit for bit (every output
              leaf); a join/leave churn with one capture and one replay a
-             tick, run under torch.cuda.set_sync_debug_mode("error");
+             tick, run under TraceSentinel (no build, no host sync);
              per rung at 1, 2, 4 and 8 streams and depths 1 and 2 the host
              API calls a tick (graph launches, copies, others), the device's
              kernels, copies and busy share of a tick (torch.profiler); the
@@ -136,7 +136,7 @@ Phases (each raises on failure; none is caught):
              with the port's seed-7 weights; the reports must agree on
              every count, rung histogram, fusion count and modeled latency,
              mean_quality within QUALITY_TOL; each card episode's tick loop
-             runs under torch.cuda.set_sync_debug_mode("error") and is
+             runs under TraceSentinel (no build, no host sync) and is
              timed; each rung engine is captured once across both
              episodes.  Then the obs contract of repro_torch.obs on the
              card (trace schema, no dropped span, the report byte-identical
@@ -158,7 +158,7 @@ Phases (each raises on failure; none is caught):
              storm gates (fault_inject >= 10, nan_drop, watchdog and retry
              >= 1, every recovery within 20 ticks); one capture per engine
              through all four replays, each tick loop under
-             set_sync_debug_mode("error"), the storm's and its base's tick
+             TraceSentinel, the storm's and its base's tick
              wall printed with the card's name and power limit; then
              python -m repro_torch.chaos --episode sensor_stall_storm --check
              on the card, and the one-shard fleet under the storm (at most
@@ -173,7 +173,7 @@ Phases (each raises on failure; none is caught):
              ledgers event for event, the same final occupancy; two
              captures per engine by the warm-up and none added through the
              kill, failover, revive and rebalance (read as the tick loop,
-             under set_sync_debug_mode("error"), starts and ends); then
+             under TraceSentinel, starts and ends); then
              python -m repro_torch.chaos --episode shard_loss_rush_hour
              --mesh data=2 --mesh-devices cuda:0,cuda:0 --check on the
              card; both goldens on a one-shard mesh byte-equal to their
@@ -184,6 +184,20 @@ Phases (each raises on failure; none is caught):
              intervals over FLEET_PROFILE_TICKS ticks under torch.profiler,
              so two streams' overlap counts once), with the card's name and
              power limit;
+7d. analysis — the timing-hazard lint and the trace sentinel
+             (repro_torch.analysis): tvlint over src/repro_torch on the
+             card's host against analysis/torch_baseline.json must exit 0;
+             then controls that prove the sentinel's guard is armed on the
+             card: under transfer_guard "disallow" an .item() of a CUDA
+             tensor and a pageable torch.as_tensor(..., device=cuda) raise,
+             a pinned non_blocking copy does not; under "allow" the .item()
+             passes; a fresh engine's warmup() inside compile_budget=0
+             raises TimingHazardError with compiles >= 1 (its step_captures'
+             rise); the sync debug mode is back at its default after each.
+             Every tick loop of phases 6 to 7c ran under such a sentinel
+             (compile budget 0, "disallow"): each region must read 0
+             builds.  One [analysis] line carries the lint summary, every
+             region's SentinelReport and the card's name and power limit;
 8. multi_tenant — the multi-tenant runtime (repro_torch.runtime): the smoke
              qwen3-4b and rwkv6-3b engines in f32 on the card against the
              CPU (one queued workload, AlwaysAdmit: the same tokens, slots
@@ -1674,9 +1688,7 @@ def phase_batched(dev):
         img = generate_scene(SceneConfig("city", seed=21), 1).image
         eng = BatchedPerceptionEngine("early_exit", capacity=4, device=dev)
         eng.compile()
-        torch.cuda.synchronize()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
+        with TimedSentinel("batched: join/leave churn"):
             eng.join("a")
             eng.join("b")
             eng.tick({"a": img, "b": img})
@@ -1688,15 +1700,13 @@ def phase_batched(dev):
             eng.leave("c")
             eng.join("d")
             eng.tick({"d": img})
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
         ex = eng.executor
         if (eng.trace_count, eng.replay_count, eng.ticks) != (1, 4, 4):
             raise AssertionError(f"batched churn: captures {eng.trace_count}, replays "
                                  f"{eng.replay_count}, ticks {eng.ticks}")
         log(f"[batched] churn (join, join mid-run, leave, rejoin): step_captures "
             f"{ex.step_captures}, step_replays {ex.step_replays} == ticks {eng.ticks}; the "
-            f"ticks ran under torch.cuda.set_sync_debug_mode('error') (the drain's event wait "
+            f"ticks ran under TraceSentinel (0 builds; no host sync: the drain's event wait "
             f"is the only wait); staging waits {ex.stage_waits}")
 
         # ---- per-tick launches and the device's busy share, per rung
@@ -1800,7 +1810,6 @@ def phase_batched(dev):
                 for r in ladder))
     finally:
         torch.backends.cudnn.allow_tf32 = prev_tf32
-        torch.cuda.set_sync_debug_mode("default")
     counts = K.launch_counts()
     if any(counts.values()):
         raise AssertionError(f"batched: the batched path launched kernels {counts}")
@@ -1816,26 +1825,38 @@ FLEET_STREAMS, FLEET_TICKS = 8, 40      # as launch/serve.py --fleet's defaults
 REPLAY_TOL = dict(rel=0.0, abs_ms=0.0, rate=0.0, quality=QUALITY_TOL, count_frac=0.0, count_abs=0)
 
 
-class TickLoopGuard:
-    """The replayer's ``sentinel``: wall time of the episode's tick loop
-    alone (the warm-up with its captures happens before it is entered),
-    run under ``torch.cuda.set_sync_debug_mode("error")`` so any implicit
-    host synchronisation in a tick raises."""
+# (region, SentinelReport, wall seconds) of every tick loop run under a
+# TimedSentinel; phase_analysis prints them
+SENTINEL_REGIONS: list = []
 
-    def __init__(self):
+
+class TimedSentinel:
+    """A tick loop's guard: the package's ``TraceSentinel`` (compile budget
+    0, transfer_guard "disallow": no step built anew, and any host
+    synchronisation in a tick raises) composed with the loop's wall time.
+    The warm-up with its captures happens before it is entered.  The
+    sentinel synchronises before it arms the guard; after it restores the
+    mode, the device is synchronised again and the clock read."""
+
+    def __init__(self, region: str):
+        from repro_torch.analysis import TraceSentinel
+
+        self.region = region
+        self.sentinel = TraceSentinel(compile_budget=0, transfer_guard="disallow")
         self.seconds = 0.0
 
     def __enter__(self):
-        torch.cuda.synchronize()
-        torch.cuda.set_sync_debug_mode("error")
+        self.sentinel.__enter__()
         self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc):
-        torch.cuda.set_sync_debug_mode("default")
+        out = self.sentinel.__exit__(*exc)      # restores the mode; raises over budget
         torch.cuda.synchronize()
         self.seconds = time.perf_counter() - self._t0
-        return False
+        if exc[0] is None:
+            SENTINEL_REGIONS.append((self.region, self.sentinel.report(), self.seconds))
+        return out
 
 
 def phase_scenarios(dev):
@@ -1858,7 +1879,7 @@ def phase_scenarios(dev):
         for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
             sched = None
             for name in GOLDEN_EPISODES:
-                guard = TickLoopGuard() if where == "card" else None
+                guard = TimedSentinel(f"golden {name}") if where == "card" else None
                 rep, sched = golden_replay(name, scheduler=sched, sentinel=guard,
                                            device=None if sched else d)
                 reports[(where, name)] = rep
@@ -1881,7 +1902,7 @@ def phase_scenarios(dev):
                 f"{tot['misses']}, clock {card.clock_s:.6f} s virtual); max |mean_quality "
                 f"card - cpu| {dq:.3e} (bound {QUALITY_TOL}); tick loop {loops[name]:.3f} s wall "
                 f"for {card.n_ticks} ticks ({loops[name] / card.n_ticks * 1e3:.3f} ms a tick) "
-                f"under set_sync_debug_mode('error'); {n_golden} violation(s) of "
+                f"under TraceSentinel (0 builds, no host sync); {n_golden} violation(s) of "
                 f"tests/golden/{name}.json with the port's seed-7 weights (information)")
         caps = {n: e.executor.step_captures for n, e in scheds["card"].engines.items()}
         if any(c != 1 for c in caps.values()):
@@ -1904,7 +1925,6 @@ def phase_scenarios(dev):
             f"({doc['frames'] / doc['wall_s']:.1f} frames per wall second)")
     finally:
         torch.backends.cudnn.allow_tf32 = prev_tf32
-        torch.cuda.set_sync_debug_mode("default")
     counts = K.launch_counts()
     if any(counts.values()):
         raise AssertionError(f"scenarios: the replay path launched kernels {counts}")
@@ -1940,11 +1960,12 @@ def phase_chaos(dev, smi: str):
     try:
         # ---- an empty plan attached is pure observation, on the card
         name = "urban_rush_hour"
-        plain, sched = golden_replay(name, sentinel=TickLoopGuard(), device=str(dev))
+        plain, sched = golden_replay(name, sentinel=TimedSentinel(f"chaos: golden {name}"),
+                                     device=str(dev))
         trace = compile_trace(get_episode(name), seed=GOLDEN_EPISODES[name],
                               tick_scale=GOLDEN_TICK_SCALE)
         empty = ScenarioReplayer(trace, scheduler=sched, chaos=FaultPlan.empty()).run(
-            sentinel=TickLoopGuard())
+            sentinel=TimedSentinel(f"chaos: {name} with an empty plan"))
         if empty.chaos is not None or empty.to_json(indent=2) != plain.to_json(indent=2):
             raise AssertionError(f"chaos: {name} with an empty plan differs from its plain "
                                  f"replay on the card")
@@ -1952,9 +1973,9 @@ def phase_chaos(dev, smi: str):
         # ---- the storm's fault-free base, then the storm, on the card and the CPU
         ep = get_chaos_episode(CHAOS_EPISODE)
         base = compile_trace(get_episode(ep.base), seed=ep.seed, tick_scale=ep.tick_scale)
-        base_guard = TickLoopGuard()
+        base_guard = TimedSentinel(f"chaos: {ep.base}, the storm's base")
         ScenarioReplayer(base, scheduler=sched).run(sentinel=base_guard)
-        storms, guard = {}, TickLoopGuard()
+        storms, guard = {}, TimedSentinel(f"chaos: {CHAOS_EPISODE}")
         cpu_sched = RungBucketScheduler(replay_ladder(), capacity=GOLDEN_CAPACITY, device="cpu")
         for where, sch, g in (("card", sched, guard), ("cpu", cpu_sched, None)):
             report, replayer, plan = run_chaos_episode(CHAOS_EPISODE, scheduler=sch, sentinel=g)
@@ -1985,7 +2006,7 @@ def phase_chaos(dev, smi: str):
             f"clock {card.clock_s:.6f} s virtual); an empty plan on {name} byte-equal to its "
             f"plain replay; step_captures per engine through golden, empty plan, base and "
             f"storm {caps}")
-        log(f"[chaos] tick loop under set_sync_debug_mode('error'), {smi}: storm "
+        log(f"[chaos] tick loop under TraceSentinel (0 builds, no host sync), {smi}: storm "
             f"{guard.seconds:.3f} s wall for {card.n_ticks} ticks ({ms_tick:.3f} ms a tick); "
             f"its fault-free base {ep.base} (seed {ep.seed}) {base_guard.seconds:.3f} s for "
             f"{base.n_ticks} ticks ({base_ms:.3f} ms a tick)")
@@ -2005,7 +2026,6 @@ def phase_chaos(dev, smi: str):
             f"frames, {doc['wall_s']:.3f} s wall")
     finally:
         torch.backends.cudnn.allow_tf32 = prev_tf32
-        torch.cuda.set_sync_debug_mode("default")
     counts = K.launch_counts()
     if any(counts.values()):
         raise AssertionError(f"chaos: the chaos path launched kernels {counts}")
@@ -2096,12 +2116,12 @@ def phase_fleet(dev, smi: str):
         cap = CHAOS_CATALOG[name].capacity
         runs, at = {}, []
 
-        class Captures(TickLoopGuard):
+        class Captures(TimedSentinel):
             """The tick loop's guard, reading each engine's captures as it
             starts and as it ends."""
 
             def __init__(self, sched):
-                super().__init__()
+                super().__init__(f"fleet: {name} at {FLEET_SHARDS} shards")
                 self.sched = sched
 
             def read(self):
@@ -2149,7 +2169,8 @@ def phase_fleet(dev, smi: str):
             f"({len(card_ledger)} ledger events, counts {counts}, worst reseat {reseat} ticks, "
             f"{card.totals()['frames']} frames, clock {card.clock_s:.6f} s virtual, final "
             f"occupancy {occ}); step_captures per engine {at[0]} at the tick loop's start and "
-            f"{at[1]} at its end; tick loop under set_sync_debug_mode('error'), {smi}: "
+            f"{at[1]} at its end; tick loop under TraceSentinel (0 builds, no host sync), "
+            f"{smi}: "
             f"{guard.seconds:.3f} s wall for {card.n_ticks} ticks "
             f"({guard.seconds / card.n_ticks * 1e3:.3f} ms a tick)")
 
@@ -2169,7 +2190,7 @@ def phase_fleet(dev, smi: str):
                                   tick_scale=GOLDEN_TICK_SCALE)
             one = ScenarioReplayer(trace, capacity=GOLDEN_CAPACITY, device=str(dev),
                                    mesh=make_local_mesh(data=1, devices=[dev])).run(
-                sentinel=TickLoopGuard())
+                sentinel=TimedSentinel(f"fleet: {episode} on a one-shard mesh"))
             if one.to_json(indent=2) != plain.to_json(indent=2):
                 raise AssertionError(f"fleet: {episode} on a one-shard mesh differs from its "
                                      f"meshless replay on the card")
@@ -2192,11 +2213,97 @@ def phase_fleet(dev, smi: str):
                 f"scenes made beforehand: {tick_ms:.3f} ms a tick, device busy {busy:.3f} of it")
     finally:
         torch.backends.cudnn.allow_tf32 = prev_tf32
-        torch.cuda.set_sync_debug_mode("default")
     counts = K.launch_counts()
     if any(counts.values()):
         raise AssertionError(f"fleet: the fleet path launched kernels {counts}")
     log(f"[fleet] kernel launch counters over the phase: {counts}; phase "
+        f"{time.perf_counter() - t0:.1f}s")
+
+
+# ---- phase 7d: the timing-hazard lint and the trace sentinel (repro_torch.analysis)
+def phase_analysis(dev, smi: str):
+    """tvlint against the committed baseline on the card's host, the
+    sentinel's controls on the card, and every tick-loop region's report
+    (module docstring, phase 7d)."""
+    import contextlib
+    import io
+
+    from repro_torch.analysis import TimingHazardError, TraceSentinel
+    from repro_torch.analysis.__main__ import main as tvlint_main
+    from repro_torch.batched import BatchedPerceptionEngine
+
+    t0 = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = tvlint_main([str(root / "src" / "repro_torch"), "--root", str(root / "src"),
+                          "--baseline", str(root / "analysis" / "torch_baseline.json")])
+    lint = out.getvalue().strip().splitlines()[-1]
+    if rc != 0:
+        raise AssertionError(f"analysis: tvlint exited {rc} against the baseline:\n"
+                             f"{out.getvalue()}")
+
+    def default_mode():
+        if torch.cuda.get_sync_debug_mode() != 0:
+            raise AssertionError("analysis: a sentinel left the sync debug mode armed")
+
+    controls = {}
+    x = torch.ones(4, device=dev)
+    for what, fn in (("item", lambda: x.sum().item()),
+                     ("pageable as_tensor", lambda: torch.as_tensor(
+                         np.ones(4, np.float32), device=dev))):
+        try:
+            with TraceSentinel(compile_budget=0, transfer_guard="disallow"):
+                fn()
+        except RuntimeError as exc:
+            controls[what] = f"raised ({str(exc).splitlines()[0][:60]})"
+        else:
+            raise AssertionError(f"analysis: {what} inside transfer_guard='disallow' did not "
+                                 f"raise on the card")
+        default_mode()
+    pinned = torch.ones(1 << 20, pin_memory=True)
+    with TraceSentinel(compile_budget=0, transfer_guard="disallow") as sent:
+        dst = torch.empty(pinned.shape, device=dev)
+        dst.copy_(pinned, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record()
+        ev.synchronize()
+    default_mode()
+    controls["pinned non_blocking copy"] = f"passed ({sent.report().render()})"
+    with TraceSentinel(compile_budget=0, transfer_guard="allow"):
+        v = x.sum().item()
+    default_mode()
+    if v != 4.0:
+        raise AssertionError(f"analysis: .item() under 'allow' read {v}")
+    controls["item under allow"] = "passed"
+    eng = BatchedPerceptionEngine("early_exit", capacity=4, device=dev)
+    before = eng.executor.step_captures
+    sent = TraceSentinel(compile_budget=0, transfer_guard="allow")
+    try:
+        with sent:
+            eng.executor.warmup()
+    except TimingHazardError:
+        pass
+    else:
+        raise AssertionError("analysis: a fresh engine's warmup inside compile_budget=0 did "
+                             "not raise TimingHazardError")
+    default_mode()
+    rep = sent.report()
+    rise = eng.executor.step_captures - before
+    if rep.compiles < 1 or rep.compiles != rise:
+        raise AssertionError(f"analysis: warmup read {rep.render()}, step_captures rose {rise}")
+    controls["fresh warmup under compile_budget=0"] = f"raised ({rep.render()})"
+
+    if not SENTINEL_REGIONS:
+        raise AssertionError("analysis: no tick loop ran under a sentinel")
+    bad = [(r, rep.render()) for r, rep, _ in SENTINEL_REGIONS
+           if rep.compiles != 0 or rep.transfer_guard != "disallow" or not rep.ok]
+    if bad:
+        raise AssertionError(f"analysis: tick-loop regions over budget: {bad}")
+    regions = "; ".join(f"{r}: {rep.render()} ({sec:.3f} s wall)"
+                        for r, rep, sec in SENTINEL_REGIONS)
+    log(f"[analysis] {lint}; controls: " + "; ".join(f"{k} {v}" for k, v in controls.items())
+        + f"; {len(SENTINEL_REGIONS)} tick-loop regions: {regions}; {smi}; phase "
         f"{time.perf_counter() - t0:.1f}s")
 
 
@@ -3159,6 +3266,7 @@ def main() -> int:
     phase_scenarios(dev)
     phase_chaos(dev, smi)
     phase_fleet(dev, smi)
+    phase_analysis(dev, smi)
     mt_decode = phase_multi_tenant(dev)
     launches["decode_attention"] += mt_decode
     for name in KERNELS:

@@ -137,6 +137,8 @@ def build_static(env: InputEnvelope | None = None, hw: Hardware = H100_SXM,
         summary = trace_kernel(kp)
         programs[summary.name] = summary.to_dict()
 
+    # tvlint: disable=TV002,TV005 (analysis-time counting: _cost_row runs the
+    # step on meta tensors under count_program — nothing launches on a device)
     cost_table = [_cost_row(point, b, env, hw) for point in env.rungs for b in env.batch_sizes]
     return {
         "version": CERT_VERSION,

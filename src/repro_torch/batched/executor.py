@@ -79,6 +79,7 @@ from typing import Any, Callable, Mapping, Optional
 import numpy as np
 import torch
 
+from ..core.monitoring import BUILD_EVENT, TRACE_EVENT, record_event_duration_secs
 from ..core.timing import _map_tensors, _tensors
 from ..distributed.sharding import data_shards, slot_batch_spec
 from ..perception.detector import canonical_device, resolve_device
@@ -125,6 +126,15 @@ def _runs(slots: list[int]) -> list[tuple[int, int]]:
         else:
             runs.append((s, s + 1))
     return runs
+
+
+def _traced(step_fn: Callable[[torch.Tensor], Any], raw: torch.Tensor) -> Any:
+    """One run of the step's Python body during a build, reported as a
+    ``TRACE_EVENT`` of its host seconds (launches only, on the card)."""
+    t0 = time.perf_counter()
+    out = step_fn(raw)
+    record_event_duration_secs(TRACE_EVENT, time.perf_counter() - t0)
+    return out
 
 
 def _cat(trees: list) -> Any:
@@ -199,9 +209,13 @@ class _Shard:
     def build(self, step_fn: Callable[[torch.Tensor], Any]) -> None:
         """CPU: one eager run.  Card: eager warm-up runs on a side stream,
         then the capture of one CUDA graph over the static block; raises if
-        the step cannot be captured."""
+        the step cannot be captured.  Every run of ``step_fn`` here is
+        reported as a ``TRACE_EVENT`` and the finished build as one
+        ``BUILD_EVENT`` (``core.monitoring``), with their host seconds."""
+        t_build = time.perf_counter()
         if not self.cuda:
-            step_fn(self.raw.clone())
+            _traced(step_fn, self.raw.clone())
+            record_event_duration_secs(BUILD_EVENT, time.perf_counter() - t_build)
             return
         with torch.cuda.device(self.device):
             home = self.stream if self.stream is not None else torch.cuda.current_stream()
@@ -209,7 +223,7 @@ class _Shard:
             side.wait_stream(home)
             with torch.cuda.stream(side):
                 for _ in range(WARMUP_RUNS):
-                    step_fn(self.raw)
+                    _traced(step_fn, self.raw)
             home.wait_stream(side)
             graph = torch.cuda.CUDAGraph()
             try:
@@ -218,13 +232,14 @@ class _Shard:
                 with torch.cuda.graph(graph, stream=side):
                     # contiguous outputs: each readback is then one plain copy
                     # (a strided source would cost a kernel outside the graph)
-                    out = _map_tensors(torch.Tensor.contiguous, step_fn(self.raw))
+                    out = _map_tensors(torch.Tensor.contiguous, _traced(step_fn, self.raw))
             except RuntimeError as exc:
                 raise RuntimeError(
                     "the batched step could not be captured in a CUDA graph; on the card the "
                     f"executor runs no step eagerly: {exc}") from exc
         self.graph, self.out = graph, out
         self.out_leaves = list(_tensors(out))
+        record_event_duration_secs(BUILD_EVENT, time.perf_counter() - t_build)
 
 
 class PipelinedExecutor:
@@ -482,6 +497,8 @@ class PipelinedExecutor:
         self._queue.append(_InFlight(
             host=host, entry=entry, payload=payload, seq=seq, submitted_at=self._seq,
             h2d_bytes=len(frames) * self.frame_bytes,
+            # tvlint: disable=TV006 (dispatch_s deliberately measures async
+            # enqueue cost, not execution; drain() waits on the events before latency_s)
             dispatch_s=time.perf_counter() - t0, t_submit=t0))
         return seq
 

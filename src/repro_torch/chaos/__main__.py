@@ -18,11 +18,13 @@ more data shards than the mesh gives exits before anything runs.
 ``--check`` asserts the reference's recovery gates: every killed-shard
 stream re-seated within ``--reseat-bound`` ticks with a populated failover
 ledger (shard-loss plans), at least one completed recovery within
-``--recovery-bound`` ticks (plans that degrade streams), and every rung
-engine's step captured exactly once per shard over the whole episode (in
-place of the reference's zero-compile ``TraceSentinel``: membership churn,
+``--recovery-bound`` ticks (plans that degrade streams), and the replay's
+tick loop under ``TraceSentinel(compile_budget=0)`` (membership churn,
 stalls, dropped corrupt frames, aborted buckets, failover and rebalance
-must never build a step anew).
+must never build a step anew, and on the card no tick may synchronise with
+the host), with every rung engine's step captured exactly once per shard
+over the whole episode.  ``--json-out`` carries the sentinel's report under
+``"sentinel"``.
 """
 from __future__ import annotations
 
@@ -33,6 +35,7 @@ from typing import Optional
 
 import torch
 
+from ..analysis.sentinel import TraceSentinel
 from ..distributed.sharding import data_shards
 from ..launch.mesh import make_local_mesh, parse_mesh_spec
 from .catalog import chaos_episode_names, get_chaos_episode, run_chaos_episode
@@ -59,7 +62,8 @@ def main(argv: Optional[list] = None) -> int:
     ap.add_argument("--json-out", default=None,
                     help="write the report + gate outcomes here")
     ap.add_argument("--check", action="store_true",
-                    help="one capture per engine + recovery gates; exit 1 on violation")
+                    help="zero-build sentinel, one capture per engine and shard + recovery "
+                         "gates; exit 1 on violation")
     ap.add_argument("--reseat-bound", type=int, default=3,
                     help="max ticks from shard kill to last failover")
     ap.add_argument("--recovery-bound", type=int, default=20,
@@ -89,9 +93,10 @@ def main(argv: Optional[list] = None) -> int:
                      f"{mesh} gives {data_shards(mesh)}: name more devices with "
                      f"--mesh-devices (one may repeat)")
 
+    sentinel = TraceSentinel(compile_budget=0) if args.check else None
     report, replayer, plan = run_chaos_episode(
-        args.episode, mesh=mesh, seed=args.seed, tick_scale=args.tick_scale,
-        device=args.device)
+        args.episode, mesh=mesh, sentinel=sentinel, seed=args.seed,
+        tick_scale=args.tick_scale, device=args.device)
     ledger = replayer.injector.ledger
     n_shards = replayer.scheduler.n_shards
     captures = {name: eng.executor.step_captures
@@ -131,6 +136,7 @@ def main(argv: Optional[list] = None) -> int:
         "reseat_ticks": reseat,
         "recovery_ticks": recovery,
         "gates": {"checked": bool(args.check), "problems": problems},
+        "sentinel": sentinel.report().to_dict() if sentinel is not None else None,
         "report": report.to_dict(),
     }
     if args.json_out:

@@ -109,6 +109,8 @@ class Engine:
                 nxt, _, state = self._step(params, state, cur)
                 fence(nxt)
             with timer.stage("post_processing"):
+                # tvlint: disable=TV001 (autoregressive decode must read the
+                # token back each step; the fence above already paid the sync)
                 out[:, i] = nxt.cpu().numpy()
             rec = timer.finish()
             lat = rec.end_to_end

@@ -44,6 +44,7 @@ per-slot readback.
 from __future__ import annotations
 
 import dataclasses
+import time
 from collections import deque
 from typing import Callable, Optional
 
@@ -51,6 +52,7 @@ import numpy as np
 import torch
 
 from ..core.deadline import DeadlinePolicy, DynamicDeadline, MeanDeadline
+from ..core.monitoring import BUILD_EVENT, TRACE_EVENT, record_event_duration_secs
 from ..core.stats import summarize
 from ..core.timing import StageTimer, TimelineRecorder, fence, to_host
 from ..models import DecodeState, Model
@@ -295,6 +297,7 @@ class MultiTenantEngine:
         Idempotent."""
         if self._compiled:
             return
+        t0 = time.perf_counter()
         scratch = self.model.init_decode_state(self.cfg.capacity, self.cfg.context,
                                                device=self.device)
         toks = torch.zeros(self.cfg.capacity, dtype=torch.int32, device=self.device)
@@ -302,6 +305,9 @@ class MultiTenantEngine:
         fence(nxt)
         del scratch
         self.trace_count += 1
+        # the warm-up call is the build: one trace and one build event
+        record_event_duration_secs(TRACE_EVENT, time.perf_counter() - t0)
+        record_event_duration_secs(BUILD_EVENT, time.perf_counter() - t0)
         self._compiled = True
 
     @torch.inference_mode()

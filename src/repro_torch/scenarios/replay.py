@@ -394,13 +394,17 @@ class ScenarioReplayer:
             scheduler.attach_resilience(self.resilience)
 
     def run(self, sentinel=None) -> VariationReport:
-        """Replay the episode.  ``sentinel`` is any context manager; it
+        """Replay the episode.  ``sentinel`` (a
+        ``repro_torch.analysis.TraceSentinel``, or any context manager)
         guards the steady-state segment loop only: the warm-up (every rung
         engine's step built, on the card its CUDA graph captured, and the
-        cost model seeded) happens before it is entered, so a guard that
-        forbids host synchronisation (``torch.cuda.set_sync_debug_mode``)
-        or new captures holds the tick loop alone.  A sentinel changes no
-        data flow — reports stay byte-identical with or without it."""
+        cost model seeded) happens before it is entered, so a default
+        sentinel (compile budget 0, transfer_guard "disallow") asserts that
+        no tick builds a step anew and no host synchronisation hides in the
+        per-tick path.  A sentinel without a tracer gets the observatory's,
+        so builds it sees land on the episode's timeline.  A sentinel
+        changes no data flow — reports stay byte-identical with or without
+        it."""
         tr = self.trace
         sched = self.scheduler
         # build + seed the shared cost model (modeled probes: offline,
@@ -410,6 +414,11 @@ class ScenarioReplayer:
             sched.add_stream(sid, tr.budget_s)
 
         rng = np.random.default_rng((tr.seed * 2_147_483_629 + 0x5EED) & 0x7FFFFFFF)
+        if (sentinel is not None and self.obs is not None
+                and getattr(sentinel, "tracer", None) is None):
+            # builds observed by the sentinel land in the episode timeline
+            # as runtime-axis spans
+            sentinel.tracer = self.obs.tracer
         guard = sentinel if sentinel is not None else contextlib.nullcontext()
         with guard:
             reports = self._run_segments(tr, sched, rng)

@@ -605,6 +605,7 @@ def test_cli_runs_shard_loss_at_two_cpu_shards(tmp_path, capsys):
     assert doc["n_shards"] == 2 and doc["mesh"] == "data=2"
     assert doc["mesh_devices"] == ["cpu", "cpu"]
     assert set(doc["trace_counts"].values()) == {2}
+    assert doc["sentinel"]["compiles"] == 0 and doc["sentinel"]["ok"]
     assert doc["ledger_counts"]["failover"] >= 1 and doc["reseat_ticks"] <= 3
     assert doc["report"]["chaos"]["counts"]["failover"] >= 1
 
@@ -618,6 +619,9 @@ def test_cli_check_passes_on_the_cpu(tmp_path, capsys):
     doc = json.loads(out.read_text())
     assert doc["gates"] == {"checked": True, "problems": []}
     assert doc["n_shards"] == 1 and set(doc["trace_counts"].values()) == {1}
+    # --check replays under TraceSentinel(compile_budget=0), as the reference's
+    assert doc["sentinel"] == {"compiles": 0, "traces": 0, "compile_budget": 0,
+                               "trace_budget": None, "transfer_guard": "disallow", "ok": True}
     assert doc["ledger_counts"]["fault_inject"] >= 10 and doc["recovery_ticks"]
     assert doc["report"]["chaos"]["counts"] == doc["ledger_counts"]
 

@@ -24,6 +24,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch import kernels as K  # noqa: E402
+from repro_torch.analysis.sentinel import TimingHazardError, TraceSentinel  # noqa: E402
 from repro_torch.kernels import ref as R  # noqa: E402
 from repro_torch.kernels.decode_attention import MAX_SPLITS, decode_attention_cuda, \
     splits_for  # noqa: E402
@@ -361,8 +362,7 @@ def test_batched_step_is_captured_once_through_churn(dev, tf32_default):
     eng = BatchedPerceptionEngine("early_exit", capacity=4, device=dev)
     img = _scene_images(1)[0]
     eng.compile()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
+    with TraceSentinel(compile_budget=0, transfer_guard="disallow") as sent:
         eng.join("a")
         eng.join("b")
         eng.tick({"a": img, "b": img})
@@ -374,8 +374,7 @@ def test_batched_step_is_captured_once_through_churn(dev, tf32_default):
         eng.leave("c")
         eng.join("d")
         _, outs = eng.tick({"d": img})
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
+    assert sent.report().compiles == 0
     assert (eng.trace_count, eng.replay_count, eng.ticks) == (1, 4, 4)
     assert set(outs) == {"d"}
 
@@ -480,24 +479,18 @@ def test_scenario_replay_on_card_equals_cpu(dev, tf32_default):
     from repro_torch.scenarios import compare_reports, golden_replay
     from repro_torch.scenarios.golden import GOLDEN_EPISODES
 
-    @contextlib.contextmanager
-    def no_sync():
-        """The tick loop (after the warm-up's captures) under sync checks."""
-        torch.cuda.synchronize()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            yield
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-
-    reports, scheds = {}, {}
+    reports, scheds, sentinels = {}, {}, []
     for d in (dev, "cpu"):
         sched = None
         for name in GOLDEN_EPISODES:
+            # the tick loop (after the warm-up's captures): no build, no host sync
+            sent = TraceSentinel(compile_budget=0) if d is dev else None
             rep, sched = golden_replay(name, scheduler=sched, device=None if sched else d,
-                                       sentinel=no_sync() if d is dev else None)
+                                       sentinel=sent)
             reports[(str(d), name)] = rep.to_dict()
+            sentinels += [sent] if sent is not None else []
         scheds[str(d)] = sched
+    assert [s.report().compiles for s in sentinels] == [0] * len(GOLDEN_EPISODES)
     for name in GOLDEN_EPISODES:
         got, want = reports[(str(dev), name)], reports[("cpu", name)]
         assert compare_reports(got, want, _exact_but_quality()) == []
@@ -516,17 +509,10 @@ def test_chaos_storm_on_card_equals_cpu(dev, tf32_default):
     from repro_torch.chaos import run_chaos_episode
     from repro_torch.scenarios import compare_reports
 
-    @contextlib.contextmanager
-    def no_sync():
-        torch.cuda.synchronize()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            yield
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-
-    card, card_replayer, _ = run_chaos_episode("sensor_stall_storm", sentinel=no_sync(),
+    sent = TraceSentinel(compile_budget=0)
+    card, card_replayer, _ = run_chaos_episode("sensor_stall_storm", sentinel=sent,
                                                device=str(dev))
+    assert sent.report().compiles == 0
     cpu, cpu_replayer, _ = run_chaos_episode("sensor_stall_storm", device="cpu")
     got, want = card.to_dict(), cpu.to_dict()
     assert compare_reports(got, want, _exact_but_quality()) == []
@@ -543,16 +529,14 @@ def test_chaos_storm_on_card_equals_cpu(dev, tf32_default):
 # phase's bands (counts equal, boxes within 1e-3 px), not bit for bit.
 
 @contextlib.contextmanager
-def _no_sync_captures(sched, at):
-    """A replay sentinel: the tick loop under set_sync_debug_mode("error"),
+def _no_sync_captures(sched, at, sent):
+    """A replay sentinel: the tick loop under ``sent`` (a TraceSentinel),
     each engine's captures read as it starts and as it ends."""
-    torch.cuda.synchronize()
     at.append([e.executor.step_captures for e in sched.engines.values()])
-    torch.cuda.set_sync_debug_mode("error")
     try:
-        yield
+        with sent:
+            yield
     finally:
-        torch.cuda.set_sync_debug_mode("default")
         at.append([e.executor.step_captures for e in sched.engines.values()])
 
 
@@ -572,15 +556,13 @@ def test_two_shards_on_one_card_match_one_shard(dev, tf32_default, name, depth):
             eng.join(f"cam{s}")
         eng.probe(frames[:8])          # builds the steps and the post's host copies
         seq = []
-        torch.cuda.set_sync_debug_mode("error")
-        try:
+        with TraceSentinel(compile_budget=0, transfer_guard="disallow") as sent:
             for t in range(3):
                 _, outs = eng.tick({f"cam{s}": frames[6 * t + s] for s in range(6)})
                 seq += [outs[k] for k in sorted(outs)]
             for _, outs, _ in eng.flush():
                 seq += [outs[k] for k in sorted(outs)]
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
+        assert sent.report().compiles == 0
         assert eng.trace_count == shards and eng.replay_count == 4 * shards
         if shards == 2:
             assert eng.shard_occupancy() == [3, 3]
@@ -608,9 +590,9 @@ def test_shard_loss_at_two_shards_on_card_equals_cpu(dev, tf32_default):
     sched = RungBucketScheduler(replay_ladder(), capacity=CHAOS_CATALOG[
         "shard_loss_rush_hour"].capacity, device=dev,
         mesh=make_local_mesh(data=2, devices=[dev, dev]))
-    at = []
+    at, sent = [], TraceSentinel(compile_budget=0)
     card, card_rep, _ = run_chaos_episode("shard_loss_rush_hour", scheduler=sched,
-                                          sentinel=_no_sync_captures(sched, at))
+                                          sentinel=_no_sync_captures(sched, at, sent))
     cpu, cpu_rep, _ = run_chaos_episode("shard_loss_rush_hour", device="cpu",
                                         mesh=make_local_mesh(data=2, devices=["cpu", "cpu"]))
     got, want = card.to_dict(), cpu.to_dict()
@@ -618,6 +600,7 @@ def test_shard_loss_at_two_shards_on_card_equals_cpu(dev, tf32_default):
     assert got["chaos"] == want["chaos"] and got["chaos"]["counts"]["failover"] >= 1
     assert card_rep.injector.ledger.reseat_ticks() <= 3
     assert at == [[2, 2, 2], [2, 2, 2]]
+    assert sent.report().compiles == 0
     assert {n: e.shard_occupancy() for n, e in card_rep.scheduler.engines.items()} == \
         {n: e.shard_occupancy() for n, e in cpu_rep.scheduler.engines.items()}
 
@@ -1068,3 +1051,53 @@ def test_counting_hook_never_stands_in_for_a_launch(dev):
     assert K.launch_counts()["flash_attention"] == 0
     K.flash_attention(q, q, q)
     assert K.launch_counts()["flash_attention"] == 1
+
+
+# ------------------------------------------------------ trace sentinel --
+# The sentinel's guard on the card: transfer_guard "disallow" is
+# torch.cuda.set_sync_debug_mode("error") over the region, restored on exit.
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("what", ["item", "pageable_as_tensor"])
+def test_sentinel_disallow_raises_on_a_host_sync(dev, what):
+    x = torch.ones(4, device=dev)
+    with pytest.raises(RuntimeError):
+        with TraceSentinel(compile_budget=0, transfer_guard="disallow"):
+            if what == "item":
+                x.sum().item()
+            else:
+                torch.as_tensor(np.ones(4, np.float32), device=dev)
+    assert torch.cuda.get_sync_debug_mode() == 0
+
+
+@pytest.mark.cuda
+def test_sentinel_disallow_passes_a_pinned_copy_and_allow_passes_item(dev):
+    pinned = torch.ones(1024, pin_memory=True)
+    with TraceSentinel(compile_budget=0, transfer_guard="disallow") as sent:
+        dst = torch.empty(pinned.shape, device=dev)
+        dst.copy_(pinned, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record()
+        ev.synchronize()
+    assert sent.report().ok and torch.cuda.get_sync_debug_mode() == 0
+    with TraceSentinel(compile_budget=0, transfer_guard="allow"):
+        assert dst.sum().item() == 1024.0
+    # nested: the inner level holds inside, the outer one is restored after
+    with TraceSentinel(compile_budget=0, transfer_guard="disallow"):
+        with TraceSentinel(compile_budget=0, transfer_guard="allow"):
+            dst.sum().item()
+        assert torch.cuda.get_sync_debug_mode() == 2
+    assert torch.cuda.get_sync_debug_mode() == 0
+
+
+@pytest.mark.cuda
+def test_sentinel_counts_a_fresh_capture(dev, tf32_default):
+    from repro_torch.batched import BatchedPerceptionEngine
+
+    eng = BatchedPerceptionEngine("early_exit", capacity=4, device=dev)
+    sent = TraceSentinel(compile_budget=0, transfer_guard="allow")
+    with pytest.raises(TimingHazardError):
+        with sent:
+            eng.executor.warmup()
+    assert sent.report().compiles == eng.executor.step_captures == 1
+    assert sent.report().traces == 4          # WARMUP_RUNS eager runs and the capture's
