@@ -248,6 +248,28 @@ Phases (each raises on failure; none is caught):
              smoke qwen3-4b, hubert-xlarge and olmoe-1b-7b at two ranks
              against one; olmoe-1b-7b at full depth over NCCL with two
              cards or more (skipped, with a line that says so, on one);
+10b. tensor-parallel — the model computing on its blocks over ``model``
+             (distributed/tp.py): the decode kernel's row log-sum-exp
+             against its plain version (f32 and bf16 inputs, an empty
+             slot range, the merge of two ranges against the whole
+             cache); two ranks spawned on the one card over gloo at
+             data=1 x model=2: qwen3-4b cut to SHARD_LAYERS layers trains
+             SHARD_STEPS steps against phase 10's one rank (loss within
+             SHARD_BAND), its per-rank parameter, moment, optimizer-scalar
+             and batch bytes equal to the dry-run's ``arguments``
+             (launch.lowering) and its activation estimate beside the
+             allocator's peak; qwen3-4b whole (36 layers; KV heads split)
+             and granite-20b cut to 8 of 52 layers (MQA: the ring's slots
+             split, partials merged by log-sum-exp) prefill 1 x 1024 and
+             decode a TP_PROMPT-token prompt then TP_NEW greedy tokens in
+             a TP_CONTEXT-slot ring against one rank (fed one rank's
+             tokens: the ranks' greedy tokens equal, logits within
+             SERVE_BAND); per rank resident bytes, peak
+             memory, step and token wall, the collectives' share and the
+             launches held exactly; qwen3-4b whole at model = the card
+             count over NCCL with two cards or more (skipped, with a line
+             that says so, on one; there the tokens are held equal at the
+             steps with a clear margin, _serve_ties);
 11. cert    — the static certifier on the card (repro_torch.analysis.cert):
              for each batched rung at one and two shards (cuda:0 twice), a
              real engine whose step is wrapped by a signature recorder runs
@@ -1077,6 +1099,9 @@ def time_decode(K, R, gen, dev, h, kv, d, B=B):
     from repro_torch.kernels.cost import decode_attention_cost
 
     b_ms, b_by = bound(decode_attention_cost(qd.shape, caches[0][0].shape, dt))
+    # the same launch writing its rows' log-sum-exp (tensor-parallel decode)
+    lse_ms = statistics.median(kernel_rounds(
+        cyc(lambda i: K.decode_attention(qd, *caches[i], pos, npos, lse=True)), 200))
     from repro_torch.kernels.decode_attention import TILE, splits_for
     splits, tiles = splits_for(dev.index, B, h, kv, CONTEXT, d, dt), -(-CONTEXT // TILE)
     log(f"[times] decode_attention at these shapes: {splits} splits of "
@@ -1084,9 +1109,10 @@ def time_decode(K, R, gen, dev, h, kv, d, B=B):
     log(f"[times] decode_attention q {tuple(qd.shape)} cache {tuple(caches[0][0].shape)} bf16 "
         f"(all {CONTEXT} slots valid): kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa "
         f"{lib:.4f} ms (|sdpa - kernel| {lib_err:.2e}), bound {b_ms:.4f} ms ({b_by}); "
-        f"{b_ms / ms:.3f} of bound")
+        f"{b_ms / ms:.3f} of bound; with its rows' log-sum-exp {lse_ms:.4f} ms")
     log(f"[times]   {ROUNDS} rounds: kernel {spread(ks)}; sdpa {spread(ls)}")
-    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by)
+    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+                lse_ms=lse_ms)
 
 
 def event_ms(fn, iters: int) -> float:
@@ -2809,8 +2835,9 @@ def _shard_width(rank: int, job: dict, device: str) -> dict:
     dev = torch.device(device)
     cfg = job["cfg"]
     model = Model(cfg)
-    mesh = make_train_mesh(data=job["data"], device=dev)
-    tr = Trainer(model, mesh, TrainConfig(opt=job["opt"], log_every=1), fsdp=True)
+    mesh = make_train_mesh(device=dev, **(job["mesh"] if "mesh" in job else {"data": job["data"]}))
+    tr = Trainer(model, mesh, TrainConfig(opt=job["opt"], log_every=1),
+                 fsdp=job.get("fsdp", True))
     t0 = time.perf_counter()
     params, state = tr.init(0)
     init_s = time.perf_counter() - t0
@@ -2824,6 +2851,11 @@ def _shard_width(rank: int, job: dict, device: str) -> dict:
     peak = torch.cuda.max_memory_allocated(dev)
     st = tr.latency_summary()
     batch = make_batch_np(cfg, data, job["steps"])
+    # the step's arguments at rest: blocks, moments, AdamW's scalars, the rank's rows
+    rows = tr._local_batch(batch)
+    arguments = (_resident(params, state.mu, state.nu)
+                 + sum(t.numel() * t.element_size() for t in (state.step, state.loss_scale))
+                 + sum(v.nbytes for v in rows.values()))
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t1 = time.perf_counter()
         params, state = tr.fit(params, state, iter([batch]), 1)
@@ -2840,7 +2872,7 @@ def _shard_width(rank: int, job: dict, device: str) -> dict:
     return dict(busy_ms=busy_us / 1e3, copy_ms=copy_us / 1e3, nccl_ms=nccl_us / 1e3,
                 metrics=metrics, counts=counts, peak=peak, step_ms=st.mean * 1e3,
                 step_cv=st.cv, init_s=init_s, resident=_resident(params, state.mu, state.nu),
-                prof_wall_ms=wall_ms, collectives=coll)
+                arguments=arguments, prof_wall_ms=wall_ms, collectives=coll)
 
 
 def _shard_smoke(rank: int, job: dict, device: str) -> dict:
@@ -2870,7 +2902,7 @@ def _sharded_ranks(rank: int, jobs: list, devices: list) -> list:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.cuda.set_device(torch.device(devices[rank]))
-    kinds = {"width": _shard_width, "smoke": _shard_smoke}
+    kinds = {"width": _shard_width, "smoke": _shard_smoke, "tp_serve": _tp_serve}
     return [kinds[job["kind"]](rank, job, devices[rank]) for job in jobs]
 
 
@@ -2946,7 +2978,8 @@ def phase_sharded_train(dev, smi: str) -> dict:
        that it was skipped and why.
 
     Returns the two-rank run's launches, summed over the ranks, under
-    ``train_sharded:qwen3-4b``."""
+    ``train_sharded:qwen3-4b``, and the one rank's run of the cut (phase
+    10b trains the same cut tensor-parallel against it)."""
     import tempfile
 
     from repro_torch.configs import get_config
@@ -3086,7 +3119,9 @@ def phase_sharded_train(dev, smi: str) -> dict:
     else:
         sharded_many_cards(smi, n)
     log(f"{tag} phase {time.perf_counter() - t0:.1f}s")
-    return {"train_sharded:qwen3-4b": total}
+    return {"train_sharded:qwen3-4b": total}, dict(model=model, opt=opt, one=one,
+                                                   one_bytes=one_bytes, one_step=one_step,
+                                                   one_peak=one_peak, one_counts=one_counts)
 
 
 def sharded_many_cards(smi: str, n: int) -> None:
@@ -3133,6 +3168,418 @@ def sharded_many_cards(smi: str, n: int) -> None:
             f"{coll_ms:.3f} ms (NCCL returns once enqueued); launches "
             f"{({k: v for k, v in w['counts'].items() if v})}")
     log(f"[sharded] ({smi}) olmoe-1b-7b over {n} cards {time.perf_counter() - t0:.1f}s")
+
+
+# --------------------------------------------------------------- phase 10b
+# Tensor-parallel serving: qwen3-4b whole (its 8 KV heads split over the two
+# ranks) and granite-20b cut to 8 of 52 layers (one KV head: the ring's slots
+# split, each rank's partial attention merged by its rows' log-sum-exp),
+# prefill 1 x TP_PREFILL, then a TP_PROMPT-token prompt and TP_NEW greedy
+# tokens through the meshed decode step in a TP_CONTEXT-slot ring (the
+# prompt fills rank 0's slots, the new tokens rank 1's).  The ranks are fed
+# one rank's greedy tokens, so every step compares logits over the same
+# prefix, and their own greedy token must equal one rank's.  SERVE_BAND is
+# phase 3's bf16 band for one model computed in differently shaped
+# products (prefill against decode): a row-parallel product's two bf16
+# halves are rounded once more than the whole product.  Random weights give
+# flat logits: qwen3-4b's top two can lie closer than the ranks' logits
+# differ from one rank's (tools/tp_serve_ties.py prints both a step).  Over
+# more cards the token check therefore covers the steps with a clear margin
+# (_serve_ties): where one rank's top two lie more than twice the step's
+# largest logit difference apart the tokens must be equal, and a differing
+# token at another step is a reported tie.
+TP_SERVE = {"qwen3-4b": {}, "granite-20b": dict(layers=8)}
+TP_PREFILL, TP_PROMPT, TP_NEW, TP_CONTEXT = 1024, 64, 16, 128
+TP_PROFILED_TOKENS = 4
+SERVE_BAND = 5e-2
+# the decode kernel's log-sum-exp, (b, h, kv, d, slots, filled, first
+# position): granite-20b's slot range at two ranks as phase 10b decodes it
+# (TP_CONTEXT // 2 slots: rank 0's mid-prompt and full, rank 1's empty
+# through the prompt and holding the TP_NEW new tokens), then, beyond the
+# path, a range of a 1024-slot ring (several splits, the cluster merge) and
+# qwen3-4b's shape over a half-full cache
+_R = TP_CONTEXT // 2
+TP_LSE = [(1, 48, 1, 128, _R, TP_PROMPT // 2 + 1, 0), (1, 48, 1, 128, _R, _R, 0),
+          (1, 48, 1, 128, _R, 0, _R), (1, 48, 1, 128, _R, TP_NEW, _R),
+          (1, 48, 1, 128, CONTEXT // 2, CONTEXT // 2, 0), (B, H, KV, D, CONTEXT, CONTEXT // 2, 0)]
+
+
+def _collective_ms(prof) -> dict:
+    from torch.autograd import DeviceType
+    return {e.key: (e.cpu_time_total / 1e3, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CPU and e.key.startswith("collective:")}
+
+
+def _tp_serve(rank: int, job: dict, device: str) -> dict:
+    """One rank of a tensor-parallel serving run: its parameter blocks drawn
+    leaf by leaf on the card, the meshed prefill and decode steps, each
+    token's wall, the launches, resident and peak bytes, and the
+    collectives' share of a few profiled decode steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import kernels as K
+    from repro_torch.distributed import default_rules, shard_params_spec
+    from repro_torch.launch.lowering import make_sharded_decode_step, make_sharded_prefill
+    from repro_torch.launch.mesh import make_train_mesh
+    from repro_torch.models import Model
+
+    dev = torch.device(device)
+    model = Model(job["cfg"])
+    mesh = make_train_mesh(device=dev, **job["mesh"])
+    rules = default_rules(model.cfg, mesh)
+    spec = shard_params_spec(model, rules)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = model.init_blocks(0, dev, spec, mesh)
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t0
+    prefill = make_sharded_prefill(model, mesh, spec)
+    step = make_sharded_decode_step(model, mesh, spec)
+    tokens = torch.from_numpy(job["tokens"]).to(dev)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    pre = prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize(dev)
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    after_prefill = K.launch_counts()
+    state = model.init_decode_state(tokens.shape[0], job["context"], dev, mesh=mesh,
+                                    rules=rules)
+    for i in range(job["prompt"]):
+        tok, lg, state = step(params, state, tokens[:, i])
+    logits, out, walls = [], [], []
+    for forced in job["force"]:
+        logits.append(lg.float().cpu().numpy())
+        out.append(tok.cpu().numpy())
+        t0 = time.perf_counter()
+        tok, lg, state = step(params, state, torch.from_numpy(forced).to(dev))
+        torch.cuda.synchronize(dev)
+        walls.append(time.perf_counter() - t0)
+    counts = K.launch_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(TP_PROFILED_TOKENS):
+            tok, lg, state = step(params, state, tok)
+        torch.cuda.synchronize(dev)
+        prof_ms = (time.perf_counter() - t0) * 1e3
+    return dict(prefill=pre.float().cpu().numpy(), logits=logits, tokens=out,
+                after_prefill=after_prefill, counts=counts, init_s=init_s,
+                prefill_ms=prefill_ms, token_ms=statistics.mean(walls) * 1e3,
+                resident=_resident(params), peak=torch.cuda.max_memory_allocated(dev),
+                cache=tuple(state.kv.k.shape), prof_ms=prof_ms,
+                collectives=_collective_ms(prof))
+
+
+def _one_rank_serve(dev, cfg, tokens: np.ndarray) -> dict:
+    """The same serving run on one rank of the card: whole parameters,
+    ``Model.prefill`` and ``Model.decode_step``."""
+    from repro_torch.models import Model
+
+    model = Model(cfg)
+    params = model.init(0, device=dev)
+    tok_all = torch.from_numpy(tokens).to(dev)
+    walls, logits, out = [], [], []
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        pre = model.prefill(params, {"tokens": tok_all})
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        state = model.init_decode_state(tokens.shape[0], TP_CONTEXT, device=dev)
+        for i in range(TP_PROMPT):
+            lg, state = model.decode_step(params, state, tok_all[:, i])
+        for _ in range(TP_NEW):
+            tok = torch.argmax(lg, -1).to(torch.int32)
+            logits.append(lg.float().cpu().numpy())
+            out.append(tok.cpu().numpy())
+            t0 = time.perf_counter()
+            lg, state = model.decode_step(params, state, tok)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+    res = dict(prefill=pre.float().cpu().numpy(), logits=logits, tokens=out,
+               prefill_ms=prefill_ms, token_ms=statistics.mean(walls) * 1e3,
+               bytes=_resident(params), n_params=model.num_params())
+    del params, state, pre
+    torch.cuda.empty_cache()
+    return res
+
+
+def _rel(a: np.ndarray, b: np.ndarray) -> float:
+    return float(np.abs(a - b).max() / np.abs(b).max())
+
+
+def tp_lse_kernel(dev, tag: str) -> None:
+    """The decode kernel's row log-sum-exp against the plain version's (the
+    f32 oracle) at TP_LSE's shapes, f32 and bf16 inputs, the output bit for
+    bit the launch without it; and two slot ranges' partials merged
+    (tp.merge_partials) against the kernel over the whole cache."""
+    from repro_torch import kernels as K
+    from repro_torch.distributed.tp import merge_partials
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    n0 = decode_attention_cuda.launches
+    worst = {}
+    for b, h, kv, d, c, filled, first in TP_LSE:
+        for dt in (torch.float32, torch.bfloat16):
+            q = randn(gen, (b, h, d), dt, dev)
+            kc, vc = randn(gen, (b, c, kv, d), dt, dev), randn(gen, (b, c, kv, d), dt, dev)
+            slot = torch.arange(c, device=dev)
+            pos = torch.where(slot < filled, first + slot, -1).to(torch.int32)
+            npos = torch.tensor(max(first + filled - 1, 0), dtype=torch.int32, device=dev)
+            out, lse = K.decode_attention(q, kc, vc, pos, npos, lse=True)
+            plain = K.decode_attention(q, kc, vc, pos, npos)
+            want, want_lse = R.decode_attention_ref(*f32(q, kc, vc), pos, npos, lse=True)
+            if not torch.equal(out, plain):
+                raise AssertionError(f"tensor-parallel: the decode output with lse differs "
+                                     f"from the launch without it at {(b, h, kv, d, c)} {dt}")
+            if filled == 0:
+                if not torch.isneginf(lse).all():
+                    raise AssertionError(f"tensor-parallel: an empty slot range's lse is not "
+                                         f"-inf: {lse.flatten()[:4].tolist()}")
+                continue
+            err = max_err(out, want, dt)
+            err_lse = max_err(lse, want_lse, dt)
+            # the whole cache from its two halves' partials
+            half = c // 2
+            parts = [K.decode_attention(q, kc[:, i:i + half].contiguous(),
+                                        vc[:, i:i + half].contiguous(), pos[i:i + half],
+                                        npos, lse=True) for i in (0, half)]
+            outs, lses = torch.stack([p[0] for p in parts]), torch.stack([p[1] for p in parts])
+            merged = merge_partials(outs, lses,
+                                    lambda t, op: t.amax(0) if op == "max" else t.sum(0))
+            # each partial is rounded to q's dtype, then the merge: the band
+            # is TOL's on the partials' weighted size as well as the result's
+            wts = torch.softmax(lses, 0)[..., None]
+            size = (wts * outs.float().abs()).sum(0) + want.abs()
+            merr = (merged.float() - want).abs()
+            if not (merr <= TOL[dt]["atol"] + TOL[dt]["rtol"] * size).all():
+                raise AssertionError(f"tensor-parallel: two slot ranges merged differ from the "
+                                     f"whole cache by {merr.max().item():.3e} at "
+                                     f"{(b, h, kv, d, c)} {dt}")
+            err_merge = merr.max().item()
+            worst[(b, h, kv, d, c, filled, str(dt)[6:])] = (err, err_lse, err_merge)
+    launches = decode_attention_cuda.launches - n0
+    log(f"{tag} decode kernel lse: {launches} launches against the plain version (f32 oracle), "
+        f"band {TOL[torch.float32]} f32 / {TOL[torch.bfloat16]} bf16; output bit for bit the "
+        f"launch without lse; an empty range's lse -inf; two halves merged against the "
+        f"whole (the band's rtol on the partials' weighted size too); max |err| (output, lse, "
+        f"merged): " + "; ".join(f"{k}: {v[0]:.2e}, {v[1]:.2e}, {v[2]:.2e}"
+                                  for k, v in worst.items()))
+
+
+def phase_tensor_parallel(dev, smi: str, one_cut: dict) -> dict:
+    """Phase 10b (module docstring).  Returns each tensor-parallel run's
+    launches, summed over its ranks, by path."""
+    import tempfile
+
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.distributed.mesh import LogicalMesh
+    from repro_torch.distributed.spawn import run_ranks
+    from repro_torch.launch.lowering import build_lowered
+
+    t0 = time.perf_counter()
+    tag = f"[tp] ({smi})"
+    tp_lse_kernel(dev, tag)
+
+    # one rank of each serving cut, on the card, before the ranks start
+    rng = np.random.default_rng(5)
+    serve_cfgs, refs = {}, {}
+    for arch, cut in TP_SERVE.items():
+        cfg = get_config(arch)
+        if "layers" in cut:
+            cfg = cfg.replace(num_layers=cut["layers"])
+        serve_cfgs[arch] = cfg
+        tokens = rng.integers(0, cfg.vocab_size, (1, TP_PREFILL)).astype(np.int32)
+        refs[arch] = dict(_one_rank_serve(dev, cfg, tokens), tokens_in=tokens)
+    torch.cuda.empty_cache()
+
+    model, opt = one_cut["model"], one_cut["opt"]
+    mesh = dict(data=1, model=2)
+    jobs = [dict(kind="width", cfg=model.cfg, opt=opt, mesh=mesh, fsdp=False, batch=SHARD_B,
+                 seq=SHARD_S, steps=SHARD_STEPS)]
+    jobs += [dict(kind="tp_serve", cfg=serve_cfgs[a], mesh=mesh, tokens=refs[a]["tokens_in"],
+                  prompt=TP_PROMPT, force=refs[a]["tokens"], context=TP_CONTEXT)
+             for a in TP_SERVE]
+    with tempfile.TemporaryDirectory() as d:
+        t1 = time.perf_counter()
+        ranks = run_ranks(_sharded_ranks, 2, init_file=str(Path(d) / "pg"), backend="gloo",
+                          args=(jobs, [str(dev)] * 2), timeout=900)
+        spawn_s = time.perf_counter() - t1
+
+    # ---- training: against phase 10's one rank of the same cut
+    per_step = train_launches(model)
+    want = {k: SHARD_STEPS * v for k, v in per_step.items()}
+    one, one_bytes = one_cut["one"], one_cut["one_bytes"]
+    lowered = build_lowered("qwen3-4b", InputShape("tp_train", SHARD_S, SHARD_B, "train"),
+                            LogicalMesh((1, 2), ("data", "model")),
+                            cfg_overrides={"num_layers": SHARD_LAYERS}, fsdp=False, grad_accum=1)
+    t1 = time.perf_counter()
+    counts, table = lowered.count()
+    count_s = time.perf_counter() - t1
+    args_bytes = sum(lowered.resident.values())
+    nz = lambda c: {k: v for k, v in c.items() if v}  # noqa: E731
+    out = {"tp_train:qwen3-4b": dict.fromkeys(KERNELS, 0)}
+    for r, res in enumerate(ranks):
+        w = res[0]
+        if w["counts"] != want:
+            raise AssertionError(f"tensor-parallel: train rank {r} launches {w['counts']}, "
+                                 f"expected {want}")
+        for k in KERNELS:
+            out["tp_train:qwen3-4b"][k] += w["counts"][k]
+        if w["arguments"] != args_bytes:
+            raise AssertionError(f"tensor-parallel: rank {r} holds {w['arguments']} bytes of "
+                                 f"step arguments, the dry-run's arguments are {args_bytes} "
+                                 f"({lowered.resident})")
+        rel = band_readings(w["metrics"], one)
+        for i, (x, m, m1) in enumerate(zip(rel, w["metrics"], one)):
+            band = SHARD_BAND[0] if i == 0 else SHARD_BAND[1]
+            if not x <= band:
+                raise AssertionError(f"tensor-parallel: train rank {r} step {i} loss {m['loss']} "
+                                     f"vs one rank {m1['loss']} (band {band})")
+        coll_ms = sum(v[0] for v in w["collectives"].values())
+        log(f"{tag} train rank {r} of data=1 x model=2 on {dev}: qwen3-4b {SHARD_LAYERS} layers, "
+            f"{SHARD_B} x {SHARD_S}, {SHARD_STEPS} steps: losses "
+            f"{[round(m['loss'], 6) for m in w['metrics']]} (relative to one rank "
+            f"{[f'{x:.2e}' for x in rel]}, band {SHARD_BAND}); resident params+moments "
+            f"{w['resident'] / 1e9:.3f} GB ({w['resident'] / one_bytes:.6f} of one rank's); step "
+            f"arguments {w['arguments']} bytes = the dry-run's {args_bytes}; peak "
+            f"{w['peak'] / 1e9:.3f} GB (dry-run activation estimate "
+            f"{counts.saved_bytes / 1e9:.3f} GB beside {args_bytes / 1e9:.3f} GB of arguments); "
+            f"step mean {w['step_ms']:.3f} ms (cv {w['step_cv']:.4f}; one rank "
+            f"{one_cut['one_step'].mean * 1e3:.3f} ms); init {w['init_s']:.1f}s")
+        log(f"{tag} train rank {r} profiled step {w['prof_wall_ms']:.3f} ms wall: device busy "
+            f"{w['busy_ms']:.3f} ms ({w['busy_ms'] / w['prof_wall_ms']:.3f}; {w['copy_ms']:.3f} ms "
+            f"copies), collectives {coll_ms:.3f} ms ({coll_ms / w['prof_wall_ms']:.3f} of the "
+            f"step): " + ", ".join(f"{k[11:]} {v[0]:.3f} ms x{v[1]}"
+                                   for k, v in sorted(w["collectives"].items()))
+            + " (gloo on CUDA tensors)")
+    log(f"{tag} dry-run of the two-rank train step (launch.lowering, counted in {count_s:.1f}s "
+        f"on the host): collectives a rank {table}; launches a rank a step {nz(per_step)}")
+
+    # ---- serving: against one rank
+    for j, arch in enumerate(TP_SERVE, start=1):
+        cfg, ref = serve_cfgs[arch], refs[arch]
+        path = f"tp_serve:{arch}"
+        out[path] = dict.fromkeys(KERNELS, 0)
+        want_pre = dict.fromkeys(KERNELS, 0)
+        want_pre["flash_attention"] = cfg.num_layers
+        want_all = dict(want_pre, decode_attention=cfg.num_layers * (TP_PROMPT + TP_NEW))
+        for r, res in enumerate(ranks):
+            w = res[j]
+            if w["after_prefill"] != want_pre or w["counts"] != want_all:
+                raise AssertionError(f"tensor-parallel: {arch} rank {r} launches "
+                                     f"{w['after_prefill']} / {w['counts']}, expected "
+                                     f"{want_pre} / {want_all}")
+            for k in KERNELS:
+                out[path][k] += w["counts"][k]
+            got_t, want_t = np.concatenate(w["tokens"]), np.concatenate(ref["tokens"])
+            if not np.array_equal(got_t, want_t):
+                raise AssertionError(f"tensor-parallel: {arch} rank {r} tokens {got_t.tolist()} "
+                                     f"vs one rank {want_t.tolist()}")
+            pre_rel = _rel(w["prefill"], ref["prefill"])
+            step_rel = max(_rel(a, b) for a, b in zip(w["logits"], ref["logits"]))
+            if not (pre_rel <= SERVE_BAND and step_rel <= SERVE_BAND):
+                raise AssertionError(f"tensor-parallel: {arch} rank {r} logits differ from one "
+                                     f"rank's by {pre_rel:.3e} (prefill), {step_rel:.3e} "
+                                     f"(decode) of the largest (band {SERVE_BAND})")
+            coll_ms = sum(v[0] for v in w["collectives"].values())
+            log(f"{tag} {arch} ({cfg.num_layers} layers, {cfg.num_kv_heads} KV heads) rank {r} "
+                f"of data=1 x model=2: cache {w['cache']}; prefill 1 x {TP_PREFILL} "
+                f"{w['prefill_ms']:.3f} ms (one rank {ref['prefill_ms']:.3f}); tokens equal "
+                f"({want_t.tolist()[:8]}...); logits within {pre_rel:.3e} (prefill), "
+                f"{step_rel:.3e} (decode) of the largest (band {SERVE_BAND}); token "
+                f"{w['token_ms']:.3f} ms (one rank {ref['token_ms']:.3f}); resident params "
+                f"{w['resident'] / 1e9:.3f} GB ({w['resident'] / ref['bytes']:.6f} of one rank's "
+                f"{ref['bytes'] / 1e9:.3f}); peak {w['peak'] / 1e9:.3f} GB; init "
+                f"{w['init_s']:.1f}s; {TP_PROFILED_TOKENS} profiled tokens {w['prof_ms']:.3f} ms, "
+                f"collectives {coll_ms:.3f} ms ({coll_ms / w['prof_ms']:.3f}): "
+                + ", ".join(f"{k[11:]} {v[0]:.3f} ms x{v[1]}"
+                            for k, v in sorted(w["collectives"].items()))
+                + f"; launches {nz(w['counts'])}")
+    log(f"{tag} two ranks: launches {({p: nz(c) for p, c in out.items()})}; spawn to results "
+        f"{spawn_s:.1f}s")
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        log(f"{tag} qwen3-4b whole at model = the card count over NCCL: skipped, {n} card (it "
+            f"needs two or more: one rank a card)")
+    else:
+        tp_many_cards(smi, n, refs["qwen3-4b"], opt)
+    log(f"{tag} phase {time.perf_counter() - t0:.1f}s")
+    return out
+
+
+def _serve_ties(got: dict, ref: dict) -> tuple:
+    """The greedy tokens of ranks fed one rank's tokens, against one rank's:
+    at a step where one rank's top two logits lie more than twice the
+    step's largest logit difference apart no rounding within it can swap
+    them, and the tokens must be equal (raises otherwise).  Returns the
+    number of such clear steps and, of the others, those whose token
+    differs: (step, one rank's top-two margin, the step's difference)."""
+    clear, ties = 0, []
+    for i, (t, t1, lg, lg1) in enumerate(zip(got["tokens"], ref["tokens"], got["logits"],
+                                            ref["logits"])):
+        for b in range(len(t1)):
+            top = np.sort(lg1[b])[-2:]
+            margin = float(top[1] - top[0])
+            diff = float(np.abs(lg[b] - lg1[b]).max())
+            if margin > 2 * diff:
+                clear += 1
+                if t[b] != t1[b]:
+                    raise AssertionError(f"tensor-parallel: step {i} token {t[b]} against one "
+                                         f"rank's {t1[b]}, whose margin {margin:.4f} exceeds "
+                                         f"twice the logits' difference {diff:.4f}")
+            elif t[b] != t1[b]:
+                ties.append((i, round(margin, 4), round(diff, 4)))
+    return clear, ties
+
+
+def tp_many_cards(smi: str, n: int, ref: dict, opt) -> None:
+    """qwen3-4b whole at data=1 x model=n, one rank a card over NCCL:
+    SHARD_STEPS train steps of SHARD_B x SHARD_S (launches held, metrics
+    finite and equal on every rank), then phase 10b's serving run against
+    its one rank (tokens equal, logits within SERVE_BAND)."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.spawn import run_ranks
+    from repro_torch.models import Model
+
+    t0 = time.perf_counter()
+    cfg = get_config("qwen3-4b")
+    mesh = dict(data=1, model=n)
+    jobs = [dict(kind="width", cfg=cfg, opt=opt, mesh=mesh, fsdp=False, batch=SHARD_B,
+                 seq=SHARD_S, steps=SHARD_STEPS),
+            dict(kind="tp_serve", cfg=cfg, mesh=mesh, tokens=ref["tokens_in"], prompt=TP_PROMPT,
+                 force=ref["tokens"], context=TP_CONTEXT)]
+    with tempfile.TemporaryDirectory() as d:
+        res = run_ranks(_sharded_ranks, n, init_file=str(Path(d) / "pg"), backend="nccl",
+                        args=(jobs, [f"cuda:{r}" for r in range(n)]), timeout=900)
+    want = {k: SHARD_STEPS * v for k, v in train_launches(Model(cfg)).items()}
+    for r, (w, sv) in enumerate(res):
+        if w["counts"] != want:
+            raise AssertionError(f"tensor-parallel: qwen3-4b model={n} rank {r} launches "
+                                 f"{w['counts']}, expected {want}")
+        if not all(math.isfinite(v) for m in w["metrics"] for v in m.values()):
+            raise AssertionError(f"tensor-parallel: model={n} rank {r} metrics not finite")
+        if w["metrics"] != res[0][0]["metrics"]:
+            raise AssertionError(f"tensor-parallel: model={n} ranks 0 and {r} report other "
+                                 f"metrics")
+        clear, ties = _serve_ties(sv, ref)
+        step_rel = max(_rel(a, b) for a, b in zip(sv["logits"], ref["logits"]))
+        if not step_rel <= SERVE_BAND:
+            raise AssertionError(f"tensor-parallel: model={n} rank {r} logits {step_rel:.3e}")
+        coll_ms = sum(v[0] for v in w["collectives"].values())
+        log(f"[tp] ({smi}) qwen3-4b whole at data=1 x model={n} over NCCL, rank {r} on cuda:{r}: "
+            f"losses {[round(m['loss'], 6) for m in w['metrics']]}; resident params+moments "
+            f"{w['resident'] / 1e9:.3f} GB; peak {w['peak'] / 1e9:.3f} GB; step mean "
+            f"{w['step_ms']:.3f} ms; collectives' host ranges {coll_ms:.3f} ms of a profiled "
+            f"{w['prof_wall_ms']:.3f} ms step; serving: greedy tokens equal to one rank's at "
+            f"the {clear} of {len(ref['tokens'])} steps with a clear margin, {len(ties)} tie(s) "
+            f"{ties} (step, margin, difference) at the others, logits within {step_rel:.3e}, token "
+            f"{sv['token_ms']:.3f} ms (one rank {ref['token_ms']:.3f})")
+    log(f"[tp] ({smi}) qwen3-4b over {n} cards {time.perf_counter() - t0:.1f}s")
 
 
 # ---------------------------------------------------------------- phase 11
@@ -3277,7 +3724,9 @@ def main() -> int:
             by_path[name][f"train:{arch}"] = res["counts"][name]
         if arch == ROOFLINE_ARCH:
             roof_measured["train step"] = dict(busy_ms=res["busy_ms"], wall_ms=res["step_ms"])
-    for path, counts in phase_sharded_train(dev, smi).items():
+    sharded, one_cut = phase_sharded_train(dev, smi)
+    sharded.update(phase_tensor_parallel(dev, smi, one_cut))
+    for path, counts in sharded.items():
         for name in KERNELS:
             launches[name] += counts[name]
             by_path[name][path] = counts[name]
@@ -3295,7 +3744,8 @@ def main() -> int:
                      "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"], "library_ms": t["library_ms"],
                      "design": DESIGNS[name], "launches_by_path": by_path[name],
-                     **({"launch_ms": t["launch_ms"]} if "launch_ms" in t else {})})
+                     **({"launch_ms": t["launch_ms"]} if "launch_ms" in t else {}),
+                     **({"lse_ms": t["lse_ms"]} if name == "decode_attention" else {})})
     if any(not math.isfinite(r["ms"]) for r in rows):
         raise AssertionError("non-finite kernel time")
     log(f"[done] all phases passed in {time.perf_counter() - t_all:.1f}s")

@@ -57,7 +57,7 @@ import dataclasses
 import math
 import traceback
 import weakref
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 import torch
 from torch.multiprocessing.reductions import StorageWeakRef
@@ -345,12 +345,12 @@ class _Hook:
     def __init__(self, counts: Counts, counter: "_Counter | None" = None) -> None:
         self.counts, self.counter = counts, counter
 
-    def outputs(self, name: str, args: tuple) -> list:
+    def outputs(self, name: str, args: tuple, kw: Optional[dict] = None) -> list:
         paused = self.counter is not None and not self.counter.paused
         if paused:
             self.counter.paused = True
         try:
-            return [torch.empty(s, dtype=d) for s, d in kcost.call_outputs(name, args)]
+            return [torch.empty(s, dtype=d) for s, d in kcost.call_outputs(name, args, kw)]
         finally:
             if paused:
                 self.counter.paused = False
@@ -364,7 +364,7 @@ class _Hook:
         c.io_bytes += cost.bytes
         c.write_bytes += cost.bytes_written
         c.kernels[name] = c.kernels.get(name, 0) + 1
-        return self.outputs(name, args)
+        return self.outputs(name, args, kw)
 
     def __call__(self, name: str, args: tuple, kw: dict):
         for t in args:
@@ -380,7 +380,8 @@ class _Hook:
             # the backward comes through _CountedKernel; its forward reports here
             self.report(name, args, kw)
             return _CountedKernel.apply(name, kw, self, *args)
-        return self.report(name, args, kw)[0]
+        outs = self.report(name, args, kw)
+        return outs[0] if len(outs) == 1 else tuple(outs)
 
 
 @contextlib.contextmanager

@@ -27,7 +27,7 @@ import torch.distributed as dist
 from torch.profiler import record_function
 
 __all__ = ["Sharding", "entries", "check_spec", "block_shape", "full_shape", "split_axes",
-           "take_block", "gather", "reduce_grad"]
+           "block_slices", "take_block", "gather", "reduce_grad"]
 
 
 def all_gather_flat(out: torch.Tensor, inp: torch.Tensor, group) -> None:
@@ -103,6 +103,11 @@ def _slices(shape: tuple, ents: tuple, mesh) -> tuple[slice, ...]:
         i = mesh.index(e)
         out.append(slice(i * b, (i + 1) * b))
     return tuple(out)
+
+
+def block_slices(shape: tuple, spec: tuple, mesh) -> tuple[slice, ...]:
+    """The rank's block of a leaf of ``shape``, as a slice per dim."""
+    return _slices(tuple(shape), entries(spec, mesh), mesh)
 
 
 def take_block(full: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:

@@ -109,18 +109,19 @@ def flash_attention_bwd_cost(q_shape, k_shape, dtype: torch.dtype, causal: bool 
 
 
 def decode_attention_cost(q_shape, cache_shape, dtype: torch.dtype,
-                          window: Optional[int] = None) -> KernelCost:
+                          window: Optional[int] = None, lse: bool = False) -> KernelCost:
     """q (B,H,D) over caches (B,C,K,D), positions (C,) i32 and next_pos ()
-    → o like q; every slot takes part, or the ``window`` latest where that
-    is fewer (which slots hold a token is data the shapes do not give)."""
+    → o like q (and with ``lse`` an f32 (B,H)); every slot takes part, or
+    the ``window`` latest where that is fewer (which slots hold a token is
+    data the shapes do not give)."""
     b, h, d = (int(n) for n in q_shape)
     c = int(cache_shape[1])
     esz = dtype.itemsize
     n = c if window is None else min(c, int(window))
     return KernelCost(flops=4.0 * b * h * d * n,
                       bytes_read=(_size(q_shape) + 2 * _size(cache_shape)) * esz + 4 * (c + 1),
-                      bytes_written=_size(q_shape) * esz, unit=_unit(dtype),
-                      matmul_flops=4.0 * b * h * d * c)
+                      bytes_written=_size(q_shape) * esz + (4.0 * b * h if lse else 0.0),
+                      unit=_unit(dtype), matmul_flops=4.0 * b * h * d * c)
 
 
 def rwkv6_wkv_cost(r_shape) -> KernelCost:
@@ -199,7 +200,7 @@ def call_cost(name: str, args: tuple, kw: dict) -> KernelCost:
                                         kw.get("window"))
     if name == "decode_attention":
         return decode_attention_cost(args[0].shape, args[1].shape, args[0].dtype,
-                                     kw.get("window"))
+                                     kw.get("window"), kw.get("lse", False))
     if name == "rwkv6_wkv":
         return rwkv6_wkv_cost(args[0].shape)
     if name == "mamba2_ssd":
@@ -207,8 +208,12 @@ def call_cost(name: str, args: tuple, kw: dict) -> KernelCost:
     raise KeyError(f"no declared cost for kernel {name!r}")
 
 
-def call_outputs(name: str, args: tuple) -> list[tuple[tuple, torch.dtype]]:
-    """(shape, dtype) of each output of one call of ``name``."""
+def call_outputs(name: str, args: tuple,
+                 kw: Optional[dict] = None) -> list[tuple[tuple, torch.dtype]]:
+    """(shape, dtype) of each output of one call of ``name`` with flags
+    ``kw``."""
+    if name == "decode_attention" and (kw or {}).get("lse"):
+        return [(tuple(args[0].shape), args[0].dtype), (tuple(args[0].shape[:2]), torch.float32)]
     if name in ("flash_attention", "decode_attention"):
         return [(tuple(args[0].shape), args[0].dtype)]
     if name in ("rwkv6_wkv", "mamba2_ssd"):

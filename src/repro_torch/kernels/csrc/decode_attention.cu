@@ -43,6 +43,12 @@
 //   tiles, 128 blocks, and zamba2-2.7b (32 KV heads) 2 splits of 8 tiles,
 //   256 blocks; at batch 1 the cap leaves qwen3-4b 64 blocks, so half the
 //   SMs stay idle.
+// - On request (a non-null `lse`) the merge also writes each row's
+//   log-sum-exp of the allowed scaled scores, natural log, f32 (B,H): the
+//   thread that writes a head's element 0 writes it.  A row with no
+//   allowed slot gets -inf, so a caller merging partials over slot ranges
+//   (tensor-parallel decode) weighs it 0.  Without the request nothing
+//   else changes.
 
 #include <cooperative_groups.h>
 #include <math.h>
@@ -120,8 +126,8 @@ template <typename T, int D, int GB>
 __global__ void __launch_bounds__(THREADS)
 decode_fwd_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* __restrict__ vc,
                   const int* __restrict__ positions, const int* __restrict__ next_pos,
-                  T* __restrict__ o, int C, int H, int KH, int window, float scale,
-                  int tiles_per_split) {
+                  T* __restrict__ o, float* __restrict__ lse, int C, int H, int KH,
+                  int window, float scale, int tiles_per_split) {
   using Cf = Cfg<T, D>;
   constexpr int CE = Cf::CE, NCH = Cf::NCH, LG = Cf::LG, SPP = Cf::SPP, PASSES = Cf::PASSES;
   constexpr int STAGES = Cf::STAGES;
@@ -316,6 +322,10 @@ decode_fwd_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* __
       den += w * ls[s];
     }
     o[((size_t)b * H + g0 + g) * D + d] = from_f32<T>(num / fmaxf(den, 1e-30f));
+    if (lse != nullptr && d == 0) {
+      // masked scores are exactly NEG_INF: a row with none allowed keeps it
+      lse[(size_t)b * H + g0 + g] = mx > 0.5f * NEG_INF ? mx + logf(den) : -INFINITY;
+    }
   }
   cluster.sync();   // no block leaves while another still reads its partial
 }
@@ -351,8 +361,8 @@ int clusters(int B, int H, int KH, int splits, int out[2]) {
 
 template <typename T, int D, int GB>
 int launch(const void* q, const void* kc, const void* vc, const int* positions,
-           const int* next_pos, void* o, int B, int C, int H, int KH, int window, int splits,
-           cudaStream_t stream) {
+           const int* next_pos, void* o, float* lse, int B, int C, int H, int KH, int window,
+           int splits, cudaStream_t stream) {
   constexpr int smem = decode_smem_bytes<T, D, GB>();
   cudaError_t err = allow_decode_smem<T, D, GB>();
   if (err != cudaSuccess) return (int)err;
@@ -372,8 +382,8 @@ int launch(const void* q, const void* kc, const void* vc, const int* positions,
   cfg.numAttrs = 1;
   const float scale = (float)(1.0 / sqrt((double)D));
   err = cudaLaunchKernelEx(&cfg, decode_fwd_kernel<T, D, GB>, (const T*)q, (const T*)kc,
-                           (const T*)vc, positions, next_pos, (T*)o, C, H, KH, window, scale,
-                           tiles_per_split);
+                           (const T*)vc, positions, next_pos, (T*)o, lse, C, H, KH, window,
+                           scale, tiles_per_split);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -423,15 +433,17 @@ int dispatch(int H, int KH, int D, int dtype, int splits, A... a) {
 // positions: int32 (C,) on the device; next_pos: one int32 on the device.
 // splits: cache splits per (batch, KV head), 1..8, one thread-block cluster
 // of them; decode_attention.py::splits_for chooses them.  window <= 0 means
-// no window.  Returns the launch's error code.
+// no window.  lse: null, or f32 (B,H) for each row's log-sum-exp.  Returns
+// the launch's error code.
 extern "C" int decode_attention_fwd(const void* q, const void* k_cache, const void* v_cache,
-                                    const void* positions, const void* next_pos, void* o, int B,
-                                    int C, int H, int KH, int D, int window, int splits,
-                                    int dtype, void* stream) {
+                                    const void* positions, const void* next_pos, void* o,
+                                    void* lse, int B, int C, int H, int KH, int D, int window,
+                                    int splits, int dtype, void* stream) {
   if (B <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
   return repro_torch::dispatch<repro_torch::Launch>(
       H, KH, D, dtype, splits, q, k_cache, v_cache, (const int*)positions,
-      (const int*)next_pos, o, B, C, H, KH, window, splits, (cudaStream_t)stream);
+      (const int*)next_pos, o, (float*)lse, B, C, H, KH, window, splits,
+      (cudaStream_t)stream);
 }
 
 // out = {clusters of `splits` blocks that decode_attention_fwd launches at

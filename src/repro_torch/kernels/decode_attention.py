@@ -9,7 +9,9 @@ a ring of 16-byte ``cp.async`` copies; it splits the cache tiles over a
 thread-block cluster of up to ``MAX_SPLITS`` blocks, which merge their
 partial softmax states through distributed shared memory in the same
 launch; and it reads ``positions`` and ``next_pos`` from device memory, so
-no decode step waits on the host.  The wrapper allocates only the output.
+no decode step waits on the host.  The wrapper allocates only the output,
+and with ``lse=True`` each row's log-sum-exp beside it (what tensor-parallel
+decode merges the partials of slot ranges by, ``distributed/tp.py``).
 """
 from __future__ import annotations
 
@@ -33,7 +35,7 @@ def _kernel():
     global _fn
     if _fn is None:
         fn = _build.load("decode_attention").decode_attention_fwd
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -85,10 +87,12 @@ def splits_for(device: int, batch: int, heads: int, kv_heads: int, capacity: int
 
 def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
                           v_cache: torch.Tensor, positions: torch.Tensor,
-                          next_pos: torch.Tensor,
-                          window: Optional[int] = None) -> torch.Tensor:
+                          next_pos: torch.Tensor, window: Optional[int] = None,
+                          lse: bool = False):
     """q (B,H,D), caches (B,C,K,D), positions int32 (C,) and next_pos int32
-    (one element), all CUDA tensors on one device → (B,H,D) in q's dtype.
+    (one element), all CUDA tensors on one device → (B,H,D) in q's dtype;
+    with ``lse`` the pair (out, each row's log-sum-exp of the allowed
+    scaled scores, natural log, f32 (B,H), -inf where no slot is allowed).
     Launches on the current stream without synchronising."""
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention_cuda needs CUDA tensors, got {q.device}")
@@ -108,16 +112,18 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
     if any(t.data_ptr() % 16 for t in (q, k_cache, v_cache)):
         raise ValueError("the kernel's 16-byte loads need 16-byte aligned q and caches")
     out = torch.empty_like(q)
+    rows = torch.empty((b, h), dtype=torch.float32, device=q.device) if lse else None
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _kernel()(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                         positions.data_ptr(), next_pos.data_ptr(), out.data_ptr(),
+                        None if rows is None else rows.data_ptr(),
                         b, c, h, kh, d, -1 if window is None else int(window),
                         splits, DTYPE_CODES[q.dtype], stream)
     if err:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA error {err}")
     decode_attention_cuda.launches += 1
-    return out
+    return (out, rows) if lse else out
 
 
 decode_attention_cuda.launches = 0

@@ -88,17 +88,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                      positions: torch.Tensor, next_pos: torch.Tensor,
-                     window: Optional[int] = None) -> torch.Tensor:
+                     window: Optional[int] = None, lse: bool = False):
     """q (B,H,D) over caches (B,C,K,D), masked by ``positions`` (C,) and
-    ``next_pos`` () → (B,H,D) in q's dtype."""
+    ``next_pos`` () → (B,H,D) in q's dtype; with ``lse`` also each row's
+    log-sum-exp (natural log, f32 (B,H), -inf where no slot is allowed)."""
     if count_hook is not None:
         return count_hook("decode_attention", (q, k_cache, v_cache, positions, next_pos),
-                          {"window": window})
+                          {"window": window, **({"lse": True} if lse else {})})
     if _on_cuda(q):
         _no_backward("decode_attention", q, k_cache, v_cache)
         return decode_attention_cuda(q, k_cache, v_cache, positions, next_pos,
-                                     window=window)
-    return _ref.decode_attention_ref(q, k_cache, v_cache, positions, next_pos, window)
+                                     window=window, lse=lse)
+    return _ref.decode_attention_ref(q, k_cache, v_cache, positions, next_pos, window, lse)
 
 
 def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tensor,

@@ -135,9 +135,20 @@ def decode_attention_ref(q: torch.Tensor,           # (B, H, D)
                          v_cache: torch.Tensor,
                          positions: torch.Tensor,   # (C,) int32, -1 = empty
                          next_pos: torch.Tensor,    # () int32
-                         window: Optional[int] = None) -> torch.Tensor:
+                         window: Optional[int] = None, lse: bool = False):
+    """The decode kernel's plain version; with ``lse`` also each row's
+    log-sum-exp of the allowed scaled scores (natural log, f32 (B,H),
+    -inf for a row with no allowed slot), as the kernel writes it."""
     allow = attention_mask(next_pos.reshape(1), positions, True, window)
-    return _dense(q[:, None], k_cache, v_cache, allow)[:, 0]
+    out = _dense(q[:, None], k_cache, v_cache, allow)[:, 0]
+    if not lse:
+        return out
+    b, h, d = q.shape
+    kh = k_cache.shape[2]
+    qg = q.float().reshape(b, kh, h // kh, d)
+    scores = torch.einsum("bkgd,btkd->bkgt", qg, k_cache.float()) * (1.0 / math.sqrt(d))
+    rows = torch.logsumexp(scores.masked_fill(~allow[0], NEG_INF), dim=-1).reshape(b, h)
+    return out, torch.where(allow.any(), rows, torch.full_like(rows, -math.inf))
 
 
 def rwkv6_recurrent(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

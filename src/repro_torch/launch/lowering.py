@@ -7,20 +7,21 @@ fake tensors, never allocated and never run.
 from rank 0 (``rank_view``: no process group, so 256 or 512 ranks cost
 nothing) and returns the step with its arguments as meta tensors at one
 rank's shapes (``layout.block_shape`` of each leaf; the rank's rows of
-the batch).  It counts **the step the port runs**, not the step GSPMD
-would run:
+the batch).  It counts **the step the port runs**:
 
 * ``train_step`` — the meshed ``Trainer``'s step
-  (``train.loop.make_sharded_train_step``): every leaf gathered to full,
-  ``Model.loss`` and its gradient on the rank's rows (``grad_accum``
-  microbatches), the gradients reduced to the rank's blocks, AdamW on the
-  blocks.  The ``model`` axis splits storage only, so the ranks of a data
-  row repeat the same compute (tensor-parallel compute is ROADMAP Queue 1
-  step 8b);
-* ``prefill_step`` / ``serve_step`` — the port has no meshed serving step,
-  so the same rule: every leaf gathered to full, then ``Model.prefill``
-  (next-token logits) or one ``Model.decode_step`` on the rank's rows of
-  the batch and of the decode state.
+  (``train.loop.make_sharded_train_step``): the splits over the data axes
+  gathered, ``Model.loss`` and its gradient on the rank's rows
+  (``grad_accum`` microbatches) computed tensor-parallel over ``model``
+  for the attention families (``distributed/tp.py``), the gradients
+  reduced to the rank's blocks, AdamW on the blocks;
+* ``prefill_step`` / ``serve_step`` — ``make_sharded_prefill`` and
+  ``make_sharded_decode_step``, the reference's ``prefill`` and ``serve``
+  closures as steps that ranks run: ``Model.prefill`` (next-token
+  logits) or one ``Model.decode_step`` and its greedy token, on the
+  rank's blocks, rows of the batch and blocks of the decode state
+  (``decode_state_spec``).  The ssm and hybrid families gather every leaf
+  and keep their state whole over ``model``.
 
 Collectives are not issued: while a step is counted, ``layout``'s
 ``all_gather_flat``/``reduce_scatter_flat`` and ``dist.all_reduce`` are
@@ -48,12 +49,12 @@ from repro_torch.distributed.sharding import (Ruleset, _data_or_replicated, axis
                                               default_rules, shard_params_spec)
 from repro_torch.models import Model
 from repro_torch.models.params import ParamSpec, resolve_dtype
-from repro_torch.train.loop import make_sharded_train_step
+from repro_torch.train.loop import MeshedLayout, _rebuild, make_sharded_train_step
 from repro_torch.train.optimizer import AdamWConfig, AdamWState, _walk
 
 __all__ = ["LoweredStep", "build_lowered", "param_shapes", "opt_shapes", "auto_policies",
-           "rank_view", "record_collectives", "MICRO_TOKENS",
-           "FSDP_BYTES_THRESHOLD"]
+           "rank_view", "record_collectives", "make_sharded_prefill",
+           "make_sharded_decode_step", "MICRO_TOKENS", "FSDP_BYTES_THRESHOLD"]
 
 MICRO_TOKENS = 8192          # target tokens per device per microbatch
 FSDP_BYTES_THRESHOLD = 8e9   # params+opt bytes/device above which FSDP kicks in
@@ -225,52 +226,43 @@ def _rows(batch: dict, mesh, rules, grad_accum: int = 1) -> dict:
     return out
 
 
-def _state_rows(state, mesh, rules):
-    """The decode state's tensors at the rank's rows (dim 1 of every
-    stacked leaf, dim 0 of the per-slot scalars never splits)."""
-    def rows(t):
-        if not isinstance(t, torch.Tensor):
-            return t
-        if t.dim() < 2:
-            return t
-        n = mesh.axis_size(_data_or_replicated(mesh, rules, t.shape[1]))
-        return _meta((t.shape[0], t.shape[1] // n, *t.shape[2:]), t.dtype)
+def make_sharded_prefill(model: Model, mesh: TrainMesh, param_spec: dict) -> Callable:
+    """The reference's ``prefill`` closure as a step that a rank runs:
+    ``(param blocks laid out by param_spec, the rank's rows of the batch)
+    → next-token logits (rows, vocab)``, every rank of a data row the
+    same (tensor-parallel over ``model`` for the attention families)."""
+    lay = MeshedLayout(model, mesh, param_spec)
 
-    return type(state)(*[_map(rows, x) for x in state])
-
-
-def _map(fn, x):
-    if x is None:
-        return None
-    if isinstance(x, torch.Tensor):
-        return fn(x)
-    if isinstance(x, tuple):
-        return type(x)(*[_map(fn, y) for y in x])
-    return x
-
-
-def _gathered_step(model: Model, mesh, spec: dict, shapes: dict, inner: Callable) -> Callable:
-    """A step that gathers every leaf of the rank's blocks to full, as the
-    meshed trainer does, and runs ``inner(full_params, *rest)``."""
-    from repro_torch.train.loop import _rebuild
-
-    items = list(_walk(spec))
-
-    def step(params, *rest):
-        full = _rebuild(params, iter(layout.gather(p, sp, shapes[path], mesh)
-                                     for (path, sp), (_, p) in zip(items, _walk(params))))
+    def prefill(params: dict, batch: dict) -> torch.Tensor:
         with torch.no_grad():
-            return inner(full, *rest)
+            return lay.net.prefill(_rebuild(params, iter(lay.local(params))), batch)
 
-    return step
+    return prefill
+
+
+def make_sharded_decode_step(model: Model, mesh: TrainMesh, param_spec: dict) -> Callable:
+    """The reference's ``serve`` closure as a step that a rank runs:
+    ``(param blocks, decode state blocks (Model.init_decode_state with the
+    mesh and rules), the rank's rows of tokens) → (greedy next tokens
+    int32, their logits, state)``, the state updated in place."""
+    lay = MeshedLayout(model, mesh, param_spec)
+
+    def serve(params: dict, state, tokens: torch.Tensor):
+        with torch.no_grad():
+            logits, state = lay.net.decode_step(_rebuild(params, iter(lay.local(params))),
+                                                state, tokens)
+            nxt = torch.argmax(logits, -1).to(torch.int32)
+        return nxt, logits, state
+
+    return serve
 
 
 def build_lowered(arch: str, shape: str | InputShape, mesh: LogicalMesh, *,
                   rules: Optional[Ruleset] = None, fsdp: Optional[bool] = None,
                   grad_accum: Optional[int] = None,
-                  cfg_overrides: Optional[dict] = None) -> LoweredStep:
-    """One (arch × shape) step on rank 0 of ``mesh`` (module docstring).
-    ``fsdp`` and ``grad_accum`` default to ``auto_policies``;
+                  cfg_overrides: Optional[dict] = None, rank: int = 0) -> LoweredStep:
+    """One (arch × shape) step on rank ``rank`` of ``mesh`` (module
+    docstring).  ``fsdp`` and ``grad_accum`` default to ``auto_policies``;
     ``cfg_overrides`` replace fields of the registry's config."""
     cfg = get_config(arch)
     if cfg_overrides:
@@ -281,22 +273,25 @@ def build_lowered(arch: str, shape: str | InputShape, mesh: LogicalMesh, *,
         raise ValueError(f"{arch} × {shape.name} skipped by design: {why}")
 
     model = Model(cfg)
-    view = rank_view(mesh)
+    view = rank_view(mesh, rank)
     fsdp, grad_accum = auto_policies(cfg, model, view, shape, fsdp, grad_accum)
     rules = rules or default_rules(cfg, view, fsdp=fsdp)
     spec = shard_params_spec(model, rules)
     full = param_shapes(model)
-    shapes = {path: tuple(t.shape) for path, t in _walk(full)}
     blocks = _blocks(full, spec, view)
     mesh_desc = "x".join(str(n) for n in view.shape.values())
     resident = {"params": _tree_bytes(blocks)}
-    gathered = {"params_full": _tree_bytes(full)}
+    lay = MeshedLayout(model, view, spec)
+    psize = resolve_dtype(cfg.param_dtype).itemsize
+    # the leaves a step gathers over the data axes (at the shape the model
+    # takes them); for training also its gradients before the reduction
+    gathered = {"params": lay.gathered_bytes(psize)}
     batch = input_specs(cfg, shape)
 
     if shape.kind == "train":
         opt = opt_shapes(blocks)
         resident["adamw"] = _tree_bytes({"mu": opt.mu, "nu": opt.nu}) + 8.0
-        gathered["grads_full"] = _tree_bytes(full)
+        gathered["grads"] = float(sum(math.prod(sh) for *_, sh in lay.items) * psize)
         rows = _rows(batch, view, rules, grad_accum)
         resident["batch"] = _tree_bytes(rows)
         fn = make_sharded_train_step(model, AdamWConfig(), view, rules, spec, grad_accum)
@@ -305,22 +300,17 @@ def build_lowered(arch: str, shape: str | InputShape, mesh: LogicalMesh, *,
     elif shape.kind == "prefill":
         rows = _rows(batch, view, rules)
         resident["batch"] = _tree_bytes(rows)
-        fn = _gathered_step(model, view, spec, shapes, model.prefill)
+        fn = make_sharded_prefill(model, view, spec)
         args = (blocks, rows)
         kind = "prefill_step"
     else:
-        state = _state_rows(model.init_decode_state(shape.global_batch, shape.seq_len,
-                                                    device="meta"), view, rules)
+        state = model.init_decode_state(shape.global_batch, shape.seq_len, "meta", mesh=view,
+                                        rules=rules)
         rows = _rows(batch, view, rules)
         resident["decode_state"] = _tree_bytes(
             {str(i): t for i, t in enumerate(_leaves(state))})
         resident["batch"] = _tree_bytes(rows)
-
-        def serve(p, st, tokens):
-            logits, st = model.decode_step(p, st, tokens)
-            return torch.argmax(logits, -1).to(torch.int32), st
-
-        fn = _gathered_step(model, view, spec, shapes, serve)
+        fn = make_sharded_decode_step(model, view, spec)
         args = (blocks, state, rows["tokens"])
         kind = "serve_step"
     return LoweredStep(arch=arch, shape=shape.name, mesh_desc=mesh_desc, kind=kind, fn=fn,

@@ -19,14 +19,17 @@ Three terms, in seconds per step on the target card (``H100_SXM``):
 
 ``model_flops`` (6·N·D dense / 6·N_active·D MoE; 2·N·D for inference)
 gives the ``useful_fraction`` diagnostic, model flops over counted flops
-× ranks.  The port's meshed step repeats the layer's compute on every
-rank of a data row (``lowering``), so at ``model=16`` it reads about
-1/16 until tensor-parallel compute lands (ROADMAP step 8b).
+× ranks.  The attention families' steps compute tensor-parallel over
+``model`` (``lowering``); what the ruleset leaves replicated (norms,
+routing, K/V under a kv deficit, attention whose heads do not divide the
+axis) and the ssm and hybrid families' steps, which repeat their layers
+on every rank of a data row, keep it below 1.
 
 ``memory_analysis`` is per rank, in bytes: ``arguments`` (the rank's
 parameter blocks, AdamW moments, rows of the batch, decode state),
-``gathered`` (full weights, and for training full gradients, which the
-step makes), ``activations_estimate`` (the most that tensors saved for
+``gathered`` (the leaves the step gathers over the data axes, and for
+training the gradients it makes before their reduction, at the shapes
+the model computes on), ``activations_estimate`` (the most that tensors saved for
 backward hold at once, from the counter: an estimate, not an allocator's
 peak)
 and ``total``; ``fits`` is ``total <= hw.hbm_bytes``.
@@ -228,8 +231,5 @@ def analyze_extrapolated(arch: str, shape_name: str, mesh, hw: Hardware = H100_S
                      "bytes": affine(a["bytes"], b["bytes"])}
     chips = full.mesh.size
     note = (f"extrapolated from depths {l1},{l2} -> {lfull}; memory term = fused estimate "
-            f"(raw upper estimate {counts.io_bytes / hw.hbm_bw * 1e3:.1f}ms); the port's "
-            f"meshed step gathers every leaf and repeats the layer on every rank of a data "
-            f"row (model axis: storage only until ROADMAP step 8b), so useful_fraction reads "
-            f"about 1/{full.mesh.shape.get('model', 1)} of a tensor-parallel step's")
+            f"(raw upper estimate {counts.io_bytes / hw.hbm_bw * 1e3:.1f}ms)")
     return _report(full, counts, table, hw, cfg, shape_name, chips, note)

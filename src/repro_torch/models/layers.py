@@ -1,13 +1,20 @@
 """Shared neural-net building blocks: norms, rotary embeddings, MLPs
-(``repro/models/layers.py`` in PyTorch, same numerics)."""
+(``repro/models/layers.py`` in PyTorch, same numerics).
+
+``mlp``, ``embed`` and ``unembed`` take a ``distributed.tp.ModelParallel``
+where their leaves are the rank's blocks over ``model`` (the caller
+decides from the leaves' shapes): the MLP column-parallel in gate/up and
+row-parallel in down, the embedding vocab-parallel.  Without one they
+compute on whole leaves as before."""
 from __future__ import annotations
 
-from typing import Any, Mapping
+from typing import Any, Mapping, Optional
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.tp import ModelParallel, enter, leave
 from .params import ParamSpec
 
 __all__ = [
@@ -72,24 +79,40 @@ def mlp_specs(cfg: ModelConfig) -> dict:
     return specs
 
 
-def mlp(params: Mapping[str, Any], x: torch.Tensor) -> torch.Tensor:
+def mlp(params: Mapping[str, Any], x: torch.Tensor,
+        tp: Optional[ModelParallel] = None) -> torch.Tensor:
+    """``tp``: gate/up hold the rank's columns and down its rows; the
+    partial outputs are summed over ``model``."""
+    x = enter(x, tp)
     u = x @ params["up"]
     if "gate" in params:
         g = x @ params["gate"]
         h = F.silu(g.float()).to(x.dtype) * u
     else:
         h = F.gelu(u.float(), approximate="tanh").to(x.dtype)
-    return h @ params["down"]
+    return leave(h @ params["down"], tp)
 
 
 def embed_specs(cfg: ModelConfig) -> dict:
     return {"table": ParamSpec((cfg.padded_vocab, cfg.d_model), ("vocab", "embed"), init="embed", scale=0.02)}
 
 
-def embed(params: Mapping[str, Any], tokens: torch.Tensor) -> torch.Tensor:
-    return params["table"][tokens.long()]
+def embed(params: Mapping[str, Any], tokens: torch.Tensor,
+          tp: Optional[ModelParallel] = None) -> torch.Tensor:
+    """``tp``: the table holds the rank's vocab rows; each rank looks up
+    the tokens in its range, zeros the rest, and the rows are summed over
+    ``model`` (one nonzero term: exact)."""
+    table = params["table"]
+    if tp is None:
+        return table[tokens.long()]
+    n = table.shape[0]
+    local = tokens.long() - tp.index * n
+    inside = (local >= 0) & (local < n)
+    rows = table[local.clamp(0, n - 1)]
+    return leave(torch.where(inside[..., None], rows, 0.0), tp)
 
 
 def unembed(params: Mapping[str, Any], x: torch.Tensor) -> torch.Tensor:
-    """Project hidden states to vocabulary logits (always f32 out)."""
+    """Project hidden states to vocabulary logits (always f32 out); over
+    the table's rows, the rank's vocab columns where it is a block."""
     return x.float() @ params["table"].float().T

@@ -13,16 +13,27 @@ compute and combine as einsums; here each is a pairwise matrix product in
 a fixed order (the combine never builds a ``(g, t, k, e, C)`` product).
 The reference computes all of it in XLA, with no Pallas kernel, so the
 port's plain torch products are its counterpart.
+
+Tensor-parallel (``tp``, where the expert leaves are the rank's blocks over
+``model``): routing stays replicated (every rank computes the same
+logits, capacity and drops, so the reference's semantics hold exactly);
+the tokens and the combine weights enter the split compute; the rank runs
+its ``E/m`` experts (dispatch and combine over those experts only), or
+every expert on its share of the hidden dim where the experts do not
+divide the axis; the combined outputs are summed over ``model``.  The aux
+terms come from the replicated routing: the same on every rank, counted
+once.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Mapping, NamedTuple
+from typing import Any, Mapping, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.tp import ModelParallel, enter, leave, split_by
 from .params import ParamSpec
 
 __all__ = ["moe_specs", "moe_block", "expert_capacity", "group_size", "route",
@@ -89,25 +100,34 @@ def route(router: torch.Tensor, xt: torch.Tensor, cfg: ModelConfig) -> Routing:
     return Routing(logits, probs, top_w, top_ids, pos, keep, cap)
 
 
-def dispatch_and_combine(r: Routing, e: int,
-                         dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
-    """The (g, t, e, C) dispatch and combine tensors in ``dtype``.  A
-    dropped choice has slot index C, whose one-hot row is all zeros (as
-    ``jax.nn.one_hot`` gives out of range); the combine weights are rounded
-    to ``dtype`` before they are placed, as in the reference."""
+def dispatch_and_combine(r: Routing, e: int, dtype: torch.dtype,
+                         experts: Optional[slice] = None,
+                         top_w: Optional[torch.Tensor] = None
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The (g, t, e, C) dispatch and combine tensors in ``dtype`` (over
+    ``experts`` only, where given).  A dropped choice has slot index C,
+    whose one-hot row is all zeros (as ``jax.nn.one_hot`` gives out of
+    range); the combine weights (``top_w``, default ``r.top_w``) are
+    rounded to ``dtype`` before they are placed, as in the reference."""
     cap = r.capacity
     idx = torch.where(r.keep, r.pos, cap)
     slot = (idx[..., None] == torch.arange(cap, device=idx.device)).to(dtype)   # (g,t,k,C)
-    ohf_t = F.one_hot(r.top_ids, e).to(dtype).transpose(-1, -2)                # (g,t,e,k)
+    ohf = F.one_hot(r.top_ids, e)
+    if experts is not None:
+        ohf = ohf[..., experts]
+    ohf_t = ohf.to(dtype).transpose(-1, -2)                                     # (g,t,e,k)
+    w = r.top_w if top_w is None else top_w
     dispatch = ohf_t @ slot
-    combine = (ohf_t * r.top_w.to(dtype)[..., None, :]) @ slot
+    combine = (ohf_t * w.to(dtype)[..., None, :]) @ slot
     return dispatch, combine
 
 
-def moe_block(params: Mapping[str, Any], x: torch.Tensor,
-              cfg: ModelConfig) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+def moe_block(params: Mapping[str, Any], x: torch.Tensor, cfg: ModelConfig,
+              tp: Optional[ModelParallel] = None
+              ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """x (B, S, d) → (B, S, d), plus aux = {load_balance_loss,
-    router_z_loss, drop_fraction} (f32 scalars)."""
+    router_z_loss, drop_fraction} (f32 scalars).  ``tp``: the expert
+    leaves may be the rank's blocks (module docstring)."""
     b, s, d = x.shape
     e = cfg.num_experts
     tpg = group_size(b * s, cfg)
@@ -115,16 +135,20 @@ def moe_block(params: Mapping[str, Any], x: torch.Tensor,
     xt = x.reshape(g, tpg, d)
     r = route(params["router"], xt, cfg)
     cap = r.capacity
-    dispatch, combine = dispatch_and_combine(r, e, x.dtype)
+    el = params["gate"].shape[0]
+    tp = split_by(tp, el, e) or split_by(tp, params["gate"].shape[-1], cfg.d_ff)
+    experts = slice(tp.index * el, (tp.index + 1) * el) if tp is not None and el < e else None
+    dispatch, combine = dispatch_and_combine(r, e, x.dtype, experts, enter(r.top_w, tp))
+    xt = enter(xt, tp)
 
-    # expert compute (static shapes): (e, g·C, d) rows per expert
-    ex_in = dispatch.reshape(g, tpg, e * cap).transpose(1, 2) @ xt          # (g, e·C, d)
-    ex_in = ex_in.reshape(g, e, cap, d).transpose(0, 1).reshape(e, g * cap, d)
+    # expert compute (static shapes): (el, g·C, d) rows per expert
+    ex_in = dispatch.reshape(g, tpg, el * cap).transpose(1, 2) @ xt        # (g, el·C, d)
+    ex_in = ex_in.reshape(g, el, cap, d).transpose(0, 1).reshape(el, g * cap, d)
     h_gate = ex_in @ params["gate"]
     h_up = ex_in @ params["up"]
     h = F.silu(h_gate.float()).to(x.dtype) * h_up
-    y = (h @ params["down"]).reshape(e, g, cap, d).transpose(0, 1)          # (g, e, C, d)
-    out = combine.reshape(g, tpg, e * cap) @ y.reshape(g, e * cap, d)       # (g, t, d)
+    y = (h @ params["down"]).reshape(el, g, cap, d).transpose(0, 1)         # (g, el, C, d)
+    out = leave(combine.reshape(g, tpg, el * cap) @ y.reshape(g, el * cap, d), tp)  # (g, t, d)
 
     # aux: switch-style load-balance loss, router z-loss, drop fraction
     per_expert_frac = F.one_hot(r.top_ids, e).float().sum(2).mean(1)       # (g, e)

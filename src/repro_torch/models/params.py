@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Mapping, Optional
+from typing import Any, Callable, Mapping, Optional
 
 import numpy as np
 import torch
@@ -55,16 +55,20 @@ def _fan_in(shape: tuple[int, ...]) -> int:
 
 
 def _init_leaf(spec: ParamSpec, gen: torch.Generator, dtype: torch.dtype,
-               device: torch.device) -> torch.Tensor:
+               device: torch.device, sl: Optional[tuple] = None) -> torch.Tensor:
     """The reference's distributions (``repro/models/params.py::_init_leaf``);
     the samples differ, since torch cannot reproduce JAX's threefry.  A
     layer-stacked leaf is drawn one layer at a time, so the f32 draw in
     flight is one layer's (at granite-20b's width the stacked MLP ``up``
-    drawn whole would be a 31 GB f32 temporary beside the weights)."""
+    drawn whole would be a 31 GB f32 temporary beside the weights).  With
+    ``sl`` (a slice per dim; the layer dim whole) only that block is kept,
+    of the same draws."""
+    shape = spec.shape if sl is None else tuple(len(range(*s.indices(n)))
+                                                for s, n in zip(sl, spec.shape))
     if spec.init == "zeros":
-        return torch.zeros(spec.shape, dtype=dtype, device=device)
+        return torch.zeros(shape, dtype=dtype, device=device)
     if spec.init == "ones":
-        return torch.ones(spec.shape, dtype=dtype, device=device)
+        return torch.ones(shape, dtype=dtype, device=device)
     if spec.init == "embed":
         std = 1.0 * spec.scale
     elif spec.init in ("normal", "scaled"):
@@ -73,32 +77,39 @@ def _init_leaf(spec: ParamSpec, gen: torch.Generator, dtype: torch.dtype,
         raise ValueError(f"unknown init {spec.init!r}")
     if spec.axes[:1] != ("layer",):
         x = torch.randn(spec.shape, generator=gen, dtype=torch.float32, device=device)
-        return x.mul_(std).to(dtype)
-    out = torch.empty(spec.shape, dtype=dtype, device=device)
+        return x.mul_(std).to(dtype) if sl is None else x[sl].mul_(std).to(dtype, copy=True)
+    if sl is not None and shape[0] != spec.shape[0]:
+        raise ValueError(f"a block of a layer-stacked leaf {spec.shape} must keep every layer")
+    out = torch.empty(shape, dtype=dtype, device=device)
     for layer in out:
-        x = torch.randn(layer.shape, generator=gen, dtype=torch.float32, device=device)
-        layer.copy_(x.mul_(std))
+        x = torch.randn(spec.shape[1:], generator=gen, dtype=torch.float32, device=device)
+        layer.copy_((x if sl is None else x[sl[1:]]).mul_(std))
     return out
 
 
 def init_params(specs: Mapping[str, Any], gen: torch.Generator,
-                dtype: torch.dtype, device: str | torch.device) -> dict:
+                dtype: torch.dtype, device: str | torch.device,
+                block: Optional[Callable[[tuple, ParamSpec], Optional[tuple]]] = None) -> dict:
     """Initialize a nested spec dict into a matching dict of tensors on
     ``device``, drawing from ``gen`` (which must live on that device) in
-    sorted key order, so the same specs and seed give the same weights."""
+    sorted key order, so the same specs and seed give the same weights.
+    ``block(path, spec)``: the slices of each leaf to keep (None: whole);
+    the draws are the whole leaf's, so a block equals that part of the
+    whole init."""
     device = torch.device(device)
 
-    def walk(node: Mapping[str, Any]) -> dict:
+    def walk(node: Mapping[str, Any], path: tuple) -> dict:
         out = {}
         for name in sorted(node):
             sub = node[name]
             if isinstance(sub, ParamSpec):
-                out[name] = _init_leaf(sub, gen, dtype, device)
+                sl = None if block is None else block(path + (name,), sub)
+                out[name] = _init_leaf(sub, gen, dtype, device, sl)
             else:
-                out[name] = walk(sub)
+                out[name] = walk(sub, path + (name,))
         return out
 
-    return walk(specs)
+    return walk(specs, ())
 
 
 def axes_tree(specs: Mapping[str, Any]) -> dict:

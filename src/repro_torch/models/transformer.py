@@ -24,6 +24,17 @@ backward, as the reference wraps its scan bodies in ``jax.checkpoint``; the
 stacked weights are split into layers with one ``unbind`` per leaf, whose
 gradient is one ``stack``.  ``loss`` takes the cross-entropy in sequence
 chunks, each checkpointed, so the (B, S, V) f32 logits are never all live.
+
+Tensor-parallel compute: ``Model(cfg, tp)`` with a
+``distributed.tp.ModelParallel`` computes on the rank's blocks of the
+leaves the ruleset splits over ``model`` (``heads``, ``kv_heads``,
+``mlp``, ``expert``, ``vocab``), each layer deciding from its leaves'
+shapes what is split: attention and the MLP / MoE as their modules say,
+the embedding vocab-parallel, the head on the rank's vocab columns (the
+logits of ``prefill``/``decode_step``/``forward`` gathered over ``model``),
+the loss a vocab-parallel cross-entropy.  The decode state is built at the
+rank's shapes by ``init_decode_state(..., mesh=, rules=)``.  The ssm and
+hybrid families take no ``tp`` (their meshed steps gather their leaves).
 """
 from __future__ import annotations
 
@@ -35,6 +46,9 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import layout
+from repro_torch.distributed.sharding import decode_state_spec
+from repro_torch.distributed.tp import ModelParallel, active, enter, gather_last, leave, split_by
 from . import layers as L
 from .attention import (
     KVCache,
@@ -88,11 +102,12 @@ def _dense_layer_specs(cfg: ModelConfig) -> dict:
     return specs
 
 
-def _ffn(cfg: ModelConfig, lp: dict, h: torch.Tensor) -> tuple[torch.Tensor, dict]:
+def _ffn(cfg: ModelConfig, lp: dict, h: torch.Tensor,
+         tp: Optional[ModelParallel] = None) -> tuple[torch.Tensor, dict]:
     """The layer's second sublayer: the MoE block (with its aux) or the MLP."""
     if cfg.family == "moe":
-        return moe_block(lp["moe"], h, cfg)
-    return L.mlp(lp["mlp"], h), {}
+        return moe_block(lp["moe"], h, cfg, tp)
+    return L.mlp(lp["mlp"], h, split_by(tp, lp["mlp"]["up"].shape[-1], cfg.d_ff)), {}
 
 
 def _sinusoid(s: int, d: int, device: torch.device) -> torch.Tensor:
@@ -130,6 +145,13 @@ def _remat(cfg: ModelConfig, fn, *args):
 @dataclasses.dataclass
 class Model:
     cfg: ModelConfig
+    tp: Optional[ModelParallel] = None
+
+    def __post_init__(self) -> None:
+        if active(self.tp) and self.cfg.family not in TRANSFORMER_FAMILIES:
+            raise ValueError(f"{self.cfg.name}: tensor-parallel compute covers the "
+                             f"{'/'.join(TRANSFORMER_FAMILIES)} families, not "
+                             f"{self.cfg.family!r} (its meshed steps gather its leaves)")
 
     # ---------------- specs ----------------
     def specs(self) -> dict:
@@ -173,6 +195,24 @@ class Model:
         gen.manual_seed(seed)
         return init_params(self.specs(), gen, resolve_dtype(self.cfg.param_dtype), device)
 
+    def init_blocks(self, seed: int, device: str | torch.device, param_spec: dict,
+                    mesh) -> dict:
+        """This rank's blocks (``param_spec`` on ``mesh``) of ``init(seed,
+        device)``, drawn leaf by leaf (a stacked leaf one layer at a time)
+        and cut at once: the whole model is never held."""
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+
+        def block(path: tuple, spec: ParamSpec):
+            sp = param_spec
+            for k in path:
+                sp = sp[k]
+            layout.check_spec(sp, spec.shape, mesh, "/".join(path))
+            return layout.block_slices(spec.shape, sp, mesh)
+
+        return init_params(self.specs(), gen, resolve_dtype(self.cfg.param_dtype), device,
+                           block=block)
+
     def axes(self) -> dict:
         """Each leaf's logical axes, a tree like the params (the sharding
         rules map them onto a mesh: ``distributed.shard_params_spec``)."""
@@ -193,7 +233,7 @@ class Model:
         if cfg.family == "audio":
             x = batch["frames"].to(dtype) @ params["frontend_proj"]
             return x + _sinusoid(x.shape[1], cfg.d_model, x.device).to(dtype)
-        txt = L.embed(params["embed"], batch["tokens"]).to(dtype)
+        txt = self._embed(params, batch["tokens"]).to(dtype)
         if cfg.family != "vlm":
             return txt
         proj = params["projector"]
@@ -201,11 +241,27 @@ class Model:
         img = F.gelu(img.float(), approximate="tanh").to(dtype)   # jax.nn.gelu's default
         return torch.cat([img @ proj["w2"], txt], dim=1)
 
+    def _embed(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
+        table = params["embed"]["table"]
+        return L.embed(params["embed"], tokens,
+                       split_by(self.tp, table.shape[0], self.cfg.padded_vocab))
+
+    def _vocab(self, params: dict) -> tuple[Optional[ModelParallel], int, int]:
+        """(``tp`` where the head holds the rank's vocab rows, else None;
+        the rank's first vocab column; how many of its columns are real
+        vocab, not padding)."""
+        n = params["lm_head"]["table"].shape[0]
+        tp = split_by(self.tp, n, self.cfg.padded_vocab)
+        v0 = 0 if tp is None else tp.index * n
+        return tp, v0, max(0, min(n, self.cfg.vocab_size - v0))
+
     def _head(self, params: dict, x: torch.Tensor) -> torch.Tensor:
-        """Vocab logits (f32, exactly vocab_size columns)."""
+        """Vocab logits (f32, exactly vocab_size columns; gathered over
+        ``model`` where the head is split)."""
         cfg = self.cfg
+        tp, _, _ = self._vocab(params)
         x = L.rmsnorm(params["final_ln"], x, cfg.norm_eps)
-        logits = L.unembed(params["lm_head"], x)
+        logits = gather_last(L.unembed(params["lm_head"], enter(x, tp)), tp)
         return logits[..., : cfg.vocab_size]
 
     # ---------------- forward (prefill) ----------------
@@ -240,9 +296,9 @@ class Model:
 
         def layer(lp: dict, x: torch.Tensor) -> tuple[torch.Tensor, dict]:
             h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
-            x = x + attention_block(lp["attn"], h, cfg, positions, causal, window)
+            x = x + attention_block(lp["attn"], h, cfg, positions, causal, window, self.tp)
             h = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
-            y, aux = _ffn(cfg, lp, h)
+            y, aux = _ffn(cfg, lp, h, self.tp)
             return x + y, aux
 
         auxs = []
@@ -270,10 +326,32 @@ class Model:
         columns, where the reference's chunked CE keeps the padded width
         with the padding at -1e9 (``sliced=False``): exp(-1e9 - max) is 0
         in f32, so those columns add nothing to the logsumexp and the
-        value is the same."""
-        logits = self._head(params, h)
-        lse = torch.logsumexp(logits, dim=-1)
-        picked = logits.gather(-1, t.long()[..., None])[..., 0]
+        value is the same.
+
+        Where the head is split over ``model`` the cross-entropy is
+        vocab-parallel: each rank's columns cut to real vocab (the padding
+        lies on the last ranks and drops out as the slice drops it), a
+        detached all-reduce MAX of the rows' maxima, the sum of the exps
+        and the target's logit (picked on the rank that holds it) summed
+        over ``model``."""
+        tp, v0, nv = self._vocab(params)
+        if tp is None:
+            logits = self._head(params, h)
+            lse = torch.logsumexp(logits, dim=-1)
+            picked = logits.gather(-1, t.long()[..., None])[..., 0]
+            return ((lse - picked) * m).sum()
+        x = L.rmsnorm(params["final_ln"], h, self.cfg.norm_eps)
+        logits = L.unembed(params["lm_head"], enter(x, tp))[..., :nv]
+        lead = logits.shape[:-1]
+        mx = (logits.detach().amax(-1) if nv else
+              torch.full(lead, -torch.inf, dtype=logits.dtype, device=logits.device))
+        mx = tp.all_reduce(mx, "max")
+        lse = mx + torch.log(leave(torch.exp(logits - mx[..., None]).sum(-1), tp))
+        local = t.long() - v0
+        inside = (local >= 0) & (local < nv)
+        picked = (logits.gather(-1, local.clamp(0, max(nv - 1, 0))[..., None])[..., 0] if nv
+                  else torch.zeros(lead, dtype=logits.dtype, device=logits.device))
+        picked = leave(torch.where(inside, picked, 0.0), tp)
         return ((lse - picked) * m).sum()
 
     def _chunked_ce(self, params: dict, hidden: torch.Tensor, targets: torch.Tensor,
@@ -344,8 +422,30 @@ class Model:
             return 0
         return cfg.num_layers
 
-    def init_decode_state(self, batch: int, context: int,
-                          device: str | torch.device = "cuda") -> DecodeState:
+    def init_decode_state(self, batch: int, context: int, device: str | torch.device = "cuda",
+                          mesh=None, rules=None) -> DecodeState:
+        """The empty decode state; with ``mesh`` and ``rules`` this rank's
+        blocks of it, laid out by ``decode_state_spec`` (the attention
+        families; the ssm and hybrid families' states split over the data
+        axes only, as their meshed steps compute on whole leaves)."""
+        if mesh is not None:
+            whole = self.init_decode_state(batch, context, "meta")
+            specs = decode_state_spec(self.cfg, mesh, rules, whole)
+            tp_ok = self.cfg.family in TRANSFORMER_FAMILIES
+
+            def block(t, spec):
+                if t is None:
+                    return None
+                if isinstance(t, tuple):
+                    return type(t)(*(block(a, b) for a, b in zip(t, spec)))
+                spec = tuple(spec) if tp_ok else tuple(None if e == "model" else e
+                                                       for e in spec)
+                layout.check_spec(spec, tuple(t.shape), mesh, "decode state")
+                fill = -1 if (t.dtype == torch.int32 and t.dim() == 1) else 0
+                return torch.full(layout.block_shape(tuple(t.shape), spec, mesh), fill,
+                                  dtype=t.dtype, device=device)
+
+            return block(whole, specs)
         cfg = self.cfg
         if not cfg.supports_decode:
             raise ValueError(f"{cfg.name} is encoder-only: no decode step")
@@ -364,7 +464,7 @@ class Model:
         caches and recurrent states in place and returns it with the
         logits (B, vocab)."""
         cfg = self.cfg
-        x = L.embed(params["embed"], tokens[:, None]).to(resolve_dtype(cfg.dtype))
+        x = self._embed(params, tokens[:, None]).to(resolve_dtype(cfg.dtype))
         if cfg.family == "ssm":
             st = state.rwkv
             for i, lp in enumerate(_unstack(params["layers"])):
@@ -393,8 +493,8 @@ class Model:
                 h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
                 x = x + decode_attention_block(
                     lp["attn"], h, cfg, cache.k[i], cache.v[i], cache.positions,
-                    cache.next_pos, slot, window)
+                    cache.next_pos, slot, window, self.tp)
                 h = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
-                x = x + _ffn(cfg, lp, h)[0]
+                x = x + _ffn(cfg, lp, h, self.tp)[0]
         cache.next_pos.add_(1)
         return self._head(params, x)[:, 0], state

@@ -13,22 +13,26 @@ the plain versions.
 On a mesh (``distributed.mesh.TrainMesh``) parameters, gradients and AdamW
 moments are laid out by the reference's ruleset (``default_rules``, with
 ``embed`` over the data axes under FSDP): each rank keeps its blocks
-(``distributed/layout.py``).  A step gathers every leaf to full, runs
-``Model.loss`` and ``autograd.grad`` on the rank's rows of the batch,
-reduces the gradients over the data ranks to the rank's blocks (in f32,
-cast back) and updates its blocks and moments.  It gives the one-device
-trajectory: each rank's cross-entropy gradient is weighted by its share
-of the global target count (hubert's masked frames differ per rank), the
-MoE aux terms (means over equal group counts) by one over the data ranks,
-and the clip's norm is global.  In this slice the ``model`` axis splits
-storage only: the ranks of one data row compute the same step on
-gathered weights.  Tensor-parallel compute (heads and mlp split inside
-the layer with its all-reduces, a vocab-parallel cross-entropy, experts
-over ``model``) is ROADMAP.md Queue 1 step 8b.
+(``distributed/layout.py``).  For the attention families (dense, moe,
+vlm, audio) the model computes tensor-parallel over ``model``
+(``Model(cfg, tp)``, ``distributed/tp.py``): a leaf split over ``model``
+by a rule the layer computes on (heads, kv_heads, mlp, expert, vocab)
+stays the rank's block, and only the splits over the data axes (FSDP's
+``embed``) are gathered before the step.  The ssm and hybrid families
+gather every leaf, so the ranks of one data row repeat their step.  A
+step runs ``Model.loss`` and ``autograd.grad`` on the rank's rows of the
+batch, reduces the gradients over the data ranks to the rank's blocks (in
+f32, cast back) and updates its blocks and moments; a replicated leaf's
+gradient is already whole and equal on every model rank.  It gives the
+one-device trajectory: each rank's cross-entropy gradient is weighted by
+its share of the global target count (hubert's masked frames differ per
+rank), the MoE aux terms (means over equal group counts) by one over the
+data ranks, and the clip's norm is global.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, Iterator, Optional
 
 import torch
@@ -39,12 +43,15 @@ from repro_torch.distributed import layout
 from repro_torch.distributed.layout import Sharding
 from repro_torch.distributed.mesh import TrainMesh
 from repro_torch.distributed.sharding import Ruleset, default_rules, shard_params_spec
+from repro_torch.distributed.tp import ModelParallel, split_spec
 from repro_torch.models import Model
+from repro_torch.models.transformer import TRANSFORMER_FAMILIES
 from repro_torch.models.moe import group_size
 from .data import batch_rows, to_device
 from .optimizer import AdamWConfig, AdamWState, _walk, adamw_init, adamw_update, global_norm
 
-__all__ = ["TrainConfig", "Trainer", "make_train_step", "make_sharded_train_step"]
+__all__ = ["TrainConfig", "Trainer", "make_train_step", "make_sharded_train_step",
+           "MeshedLayout"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,6 +120,41 @@ def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
     return x
 
 
+class MeshedLayout:
+    """How a meshed step uses the rank's parameter blocks: ``net`` is the
+    model that computes on them (``Model(cfg, tp)`` for the attention
+    families on a model axis, else ``model``), and each leaf's ``rest``
+    spec (the splits gathered before the step) and ``local`` shape (the
+    leaf as ``net`` takes it: the rank's block over ``model`` along the
+    dims the layer computes on, whole elsewhere)."""
+
+    def __init__(self, model: Model, mesh: TrainMesh, param_spec: dict) -> None:
+        tp = ModelParallel.of(mesh) if model.cfg.family in TRANSFORMER_FAMILIES else None
+        self.net = dataclasses.replace(model, tp=tp) if tp is not None else model
+        self.mesh = mesh
+        shapes = _shapes(model)
+        axes = dict(_walk(model.axes()))
+        self.items = []          # (path, spec, rest, local shape)
+        for path, spec in _walk(param_spec):
+            layout.check_spec(spec, shapes[path], mesh, "/".join(path))
+            keep, rest = (split_spec(axes[path], spec, mesh) if tp is not None
+                          else ((None,) * len(spec), spec))
+            self.items.append((path, spec, rest,
+                               layout.block_shape(shapes[path], keep, mesh)))
+
+    def local(self, params: dict) -> list[torch.Tensor]:
+        """The leaves ``net`` takes, in sorted-key order: the rank's
+        blocks with their ``rest`` splits gathered."""
+        return [layout.gather(p, rest, shape, self.mesh)
+                for (_, _, rest, shape), (_, p) in zip(self.items, _walk(params))]
+
+    def gathered_bytes(self, dtype_size: int) -> float:
+        """Bytes of the leaves a step gathers (at their ``local`` shape)."""
+        return float(sum(math.prod(shape) * dtype_size
+                         for _, _, rest, shape in self.items
+                         if layout.split_axes(rest, self.mesh)))
+
+
 def make_sharded_train_step(model: Model, opt_cfg: AdamWConfig, mesh: TrainMesh,
                             rules: Ruleset, param_spec: dict, grad_accum: int = 1) -> Callable:
     """The train step on a mesh: ``(param blocks, opt_state of blocks,
@@ -125,11 +167,10 @@ def make_sharded_train_step(model: Model, opt_cfg: AdamWConfig, mesh: TrainMesh,
     data_axes = () if data is None else ((data,) if isinstance(data, str) else tuple(data))
     dgroup = mesh.group(data_axes)
     n_data = mesh.axis_size(data_axes)
-    items = list(_walk(param_spec))
-    shapes = _shapes(model)
+    lay = MeshedLayout(model, mesh, param_spec)
+    net = lay.net
     norm_groups = {}
-    for path, spec in items:
-        layout.check_spec(spec, shapes[path], mesh, "/".join(path))
+    for path, spec, _, _ in lay.items:
         node = norm_groups
         for k in path[:-1]:
             node = node.setdefault(k, {})
@@ -137,7 +178,7 @@ def make_sharded_train_step(model: Model, opt_cfg: AdamWConfig, mesh: TrainMesh,
 
     def one(full: dict, leaves: list, mb: dict, weight: torch.Tensor):
         with torch.enable_grad():
-            loss, metrics = model.loss(full, mb)
+            loss, metrics = net.loss(full, mb)
             ce = metrics["ce"]
             obj = weight * ce
             if "load_balance_loss" in metrics:
@@ -149,8 +190,7 @@ def make_sharded_train_step(model: Model, opt_cfg: AdamWConfig, mesh: TrainMesh,
         return obj.detach(), (weight * ce).detach(), aux, list(grads)
 
     def train_step(params: dict, opt_state: AdamWState, batch: dict):
-        leaves = [layout.gather(p, spec, shapes[path], mesh).detach().requires_grad_()
-                  for (path, spec), (_, p) in zip(items, _walk(params))]
+        leaves = [p.detach().requires_grad_() for p in lay.local(params)]
         full = _rebuild(params, iter(leaves))
         if grad_accum <= 1:
             micro = [batch]
@@ -178,8 +218,8 @@ def make_sharded_train_step(model: Model, opt_cfg: AdamWConfig, mesh: TrainMesh,
         grads = gsum if grad_accum <= 1 else [g / grad_accum for g in gsum]
         del gsum
         blocks = []
-        for i, (path, spec) in enumerate(items):
-            blocks.append(layout.reduce_grad(grads[i], spec, mesh, data_axes))
+        for i, (_, _, rest, _) in enumerate(lay.items):
+            blocks.append(layout.reduce_grad(grads[i], rest, mesh, data_axes))
             grads[i] = None
         keys = sorted(auxs[0])
         vec = torch.stack([torch.stack(objs), torch.stack(ces)]
@@ -250,10 +290,12 @@ class Trainer:
     def init(self, seed: int = 0) -> tuple[dict, AdamWState]:
         """Seeded weights on the device, each leaf requiring grad, and a
         fresh optimizer state; on a mesh each rank's blocks of the
-        one-device init for ``seed`` (``shard``)."""
-        params = self.model.init(seed, device=self.device)
+        one-device init for ``seed``, drawn leaf by leaf
+        (``Model.init_blocks``: the rank never holds the whole model)."""
         if self.mesh is not None:
-            return self.shard(params)
+            blocks = self.model.init_blocks(seed, self.device, self.param_spec, self.mesh)
+            return blocks, adamw_init(blocks)
+        params = self.model.init(seed, device=self.device)
         for _, p in _walk(params):
             p.requires_grad_(True)
         return params, adamw_init(params)

@@ -108,6 +108,28 @@ def test_decode_kernel_matches_plain(dev, b, h, k, d, c, window, fill, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,h,k,d,c", DECODE_SHAPES)
+@pytest.mark.parametrize("fill", [0, 16, 100])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_kernel_lse_matches_plain(dev, b, h, k, d, c, fill, dtype):
+    """The decode kernel's row log-sum-exp (the tensor-parallel merge's
+    weight): against the plain version's in f32 (-inf where no slot is
+    allowed, fill 0), the output bit for bit the launch without it."""
+    q, kc, vc = _randn(dev, dtype, 4, (b, h, d), (b, c, k, d), (b, c, k, d))
+    pos = torch.where(torch.arange(c) < fill, torch.arange(c), -1).to(torch.int32).to(dev)
+    npos = torch.tensor(max(fill - 1, 0), dtype=torch.int32, device=dev)
+    out, lse = K.decode_attention(q, kc, vc, pos, npos, lse=True)
+    plain = K.decode_attention(q, kc, vc, pos, npos)
+    _, want = R.decode_attention_ref(*_f32(q, kc, vc), pos, npos, lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out, plain) and lse.dtype == torch.float32 and lse.shape == (b, h)
+    if fill == 0:
+        assert torch.isneginf(lse).all()
+    else:
+        np.testing.assert_allclose(lse.cpu().numpy(), want.cpu().numpy(), **TOL["float32"])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("b,h,k,d,c", [(1, 8, 1, 64, 2048), (1, 32, 8, 128, 1024)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_decode_kernel_at_cluster_cap(dev, b, h, k, d, c, dtype):

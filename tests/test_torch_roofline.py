@@ -13,12 +13,15 @@ its declared products stand within ``TOTAL_BAND`` of the reference's.  The
 lowering's collective table equals what two gloo ranks pass to
 ``distributed/layout.py``'s collectives in one step.  The counting hook
 raises on a real tensor.  The dry-run skips by design with the
-reference's reason and writes per-rank bytes and ``fits``.
+reference's reason and writes per-rank bytes and ``fits`` (the
+tensor-parallel serving step holds the rank's blocks and gathers nothing
+without FSDP).
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
 
 import numpy as np
 import pytest
@@ -46,6 +49,7 @@ from repro_torch import kernels  # noqa: E402
 from repro_torch.analysis.cert.costs import Counts, counting  # noqa: E402
 from repro_torch.configs import (ARCHS, SHAPES, InputShape, decode_state_specs,  # noqa: E402
                                  get_config, input_specs, shape_applicability)
+from repro_torch.distributed import default_rules, layout, shard_params_spec  # noqa: E402
 from repro_torch.distributed.mesh import LogicalMesh  # noqa: E402
 from repro_torch.distributed.spawn import run_ranks  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
@@ -255,8 +259,25 @@ def test_dryrun_skips_by_design_and_records_per_rank_bytes(tmp_path):
     assert rec["status"] == "ok" and rec["chips"] == 512 and rec["fits"] is True
     mem = rec["memory_analysis"]
     assert mem["total"] == pytest.approx(mem["arguments"] + mem["gathered"])
-    assert mem["gathered_params_full"] == pytest.approx(
-        2.0 * Model(get_config("qwen3-4b")).num_params())
+    # tensor-parallel serving: the step computes on the rank's blocks (bf16)
+    # and, without FSDP, gathers nothing
+    cfg = get_config("qwen3-4b")
+    mesh = LogicalMesh((2, 16, 16), ("pod", "data", "model"))
+    spec = dict(_walk_tree(shard_params_spec(Model(cfg), default_rules(cfg, mesh))))
+    blocks = sum(math.prod(layout.block_shape(leaf.shape, spec[k], mesh))
+                 for k, leaf in _walk_tree(Model(cfg).specs()))
+    assert mem["gathered_params"] == 0.0
+    assert mem["arguments_params"] == pytest.approx(2.0 * blocks)
+    # 16 ranks along model: a rank holds ~1/10 (K/V stay whole under the kv deficit)
+    assert blocks < Model(cfg).num_params() / 8
+
+
+def _walk_tree(tree, path=()):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _walk_tree(tree[k], path + (k,))
+    else:
+        yield path, tree
 
 
 def test_dryrun_analysis_record_carries_the_roofline():

@@ -22,7 +22,15 @@ and reference trajectories in its own process.  A job is a dict:
 - ``raises``: the errors the sharded trainer must raise here;
 - ``collectives``: one ``train`` step (seed 0) with counters around
   ``layout``'s collectives and ``dist.all_reduce``: each op's calls and
-  result bytes on the rank (``launch.lowering``'s table, measured).
+  result bytes on the rank (``launch.lowering``'s table, measured);
+- ``tp_ref``: tensor-parallel compute on ``mesh`` from full ``params``
+  (NumPy, the reference's weights) cut to the rank's blocks: ``Model.loss``
+  of ``batch`` and every gradient leaf gathered to full (rank 0); with a
+  ``prompt``, also the meshed prefill's next-token logits, and ``prompt``
+  fed through the meshed decode step into a ``context``-slot state
+  followed by ``new`` greedy tokens (every step's logits and token), with
+  the rank's KV cache shape and the ring's positions after the prompt and
+  at the end.
 """
 from __future__ import annotations
 
@@ -30,13 +38,14 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.configs import get_config
-from repro_torch.distributed import default_rules, layout
+from repro_torch.distributed import default_rules, layout, shard_params_spec
+from repro_torch.launch.lowering import make_sharded_decode_step, make_sharded_prefill
 from repro_torch.launch.mesh import make_production_mesh, make_train_mesh
 from repro_torch.models import Model, from_numpy
 from repro_torch.train import (AdamWConfig, DataConfig, TrainConfig, Trainer, adamw_init,
                                adamw_update, load_checkpoint, save_checkpoint, synthetic_batches)
 from repro_torch.train.data import to_device
-from repro_torch.train.loop import _rebuild
+from repro_torch.train.loop import MeshedLayout, _rebuild
 from repro_torch.train.optimizer import _walk
 
 
@@ -183,8 +192,47 @@ def _collectives(rank: int, job: dict) -> dict:
     return table
 
 
+def _tp_ref(rank: int, job: dict) -> dict:
+    model = Model(get_config(job["arch"], smoke=True))
+    mesh = make_train_mesh(device="cpu", **job["mesh"])
+    rules = default_rules(model.cfg, mesh)
+    spec = shard_params_spec(model, rules)
+    full = from_numpy(job["params"], "cpu")
+    blocks = _rebuild(full, iter(layout.take_block(p, sp, mesh)
+                                 for (_, p), (_, sp) in zip(_walk(full), _walk(spec))))
+    lay = MeshedLayout(model, mesh, spec)
+    leaves = [p.detach().requires_grad_() for p in lay.local(blocks)]
+    batch = to_device(job["batch"], "cpu")
+    loss, metrics = lay.net.loss(_rebuild(blocks, iter(leaves)), batch)
+    grads = torch.autograd.grad(loss, leaves)
+    out = {"loss": float(loss.detach()), "metrics": {k: float(v.detach())
+                                                     for k, v in metrics.items()}}
+    full_grads = {"/".join(path): layout.gather(g, sp, tuple(full_leaf.shape), mesh).numpy()
+                  for (path, sp, _, _), g, (_, full_leaf) in zip(lay.items, grads, _walk(full))}
+    if rank == 0:
+        out["grads"] = full_grads
+    if "prompt" not in job:
+        return out
+    out["prefill"] = make_sharded_prefill(model, mesh, spec)(blocks, batch).numpy()
+    prompt = torch.from_numpy(job["prompt"])
+    state = model.init_decode_state(prompt.shape[0], job["context"], "cpu", mesh=mesh,
+                                    rules=rules)
+    step = make_sharded_decode_step(model, mesh, spec)
+    logits, tokens = [], []
+    for i in range(prompt.shape[1]):
+        tok, lg, state = step(blocks, state, prompt[:, i])
+    out["prompt_positions"] = state.kv.positions.numpy().copy()
+    for _ in range(job["new"]):
+        logits.append(lg.numpy())
+        tokens.append(tok.numpy())
+        tok, lg, state = step(blocks, state, tok)
+    out.update(logits=logits, tokens=tokens, cache=tuple(state.kv.k.shape),
+               positions=state.kv.positions.numpy())
+    return out
+
+
 JOBS = {"train": _train, "split": split_rows_run, "reduce": _reduce, "load": _load,
-        "raises": _raises, "collectives": _collectives}
+        "raises": _raises, "collectives": _collectives, "tp_ref": _tp_ref}
 
 
 def run_jobs(rank: int, jobs: list) -> list:
