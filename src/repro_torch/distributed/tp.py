@@ -21,7 +21,14 @@ replicated compute only through three autograd Functions:
   combine, the vocab-parallel embedding lookup and cross-entropy sums);
 - ``gather_last`` (forward all-gather along the last dim, backward the
   rank's slice): the vocab logits of prefill and decode, q's heads under a
-  slot split.
+  slot split, RWKV6's channel-mix gate.
+
+``rmsnorm_split`` is the RMSNorm over a dim ``model`` splits (RWKV6's
+``ln_out`` after the rank's heads, Mamba2's gated norm over its
+``d_inner`` block): the rank's sum of squares summed over ``model`` both
+ways (``enter(leave(.))``: each rank then normalises its own columns, so
+the sum's gradient is partial on each rank too), the replicated scale
+entered and cut to the rank's columns.
 
 Sums over ``model`` are taken in f32 (cast up, all-reduce, cast back), so
 a bf16 partial is rounded once more than a product over the whole K, not
@@ -46,7 +53,7 @@ from torch.profiler import record_function
 from . import layout
 
 __all__ = ["ModelParallel", "TP_AXES", "split_by", "enter", "leave", "gather_last",
-           "merge_partials", "split_spec"]
+           "rmsnorm_split", "merge_partials", "split_spec"]
 
 # the logical axes a layer computes on in blocks when the ruleset maps them
 # onto `model`
@@ -154,6 +161,20 @@ def leave(x: torch.Tensor, tp: Optional[ModelParallel]) -> torch.Tensor:
 def gather_last(x: torch.Tensor, tp: Optional[ModelParallel]) -> torch.Tensor:
     """The ranks' ``x`` joined along the last dim."""
     return _GatherLast.apply(x, tp) if active(tp) else x
+
+
+def rmsnorm_split(scale: torch.Tensor, y: torch.Tensor, eps: float, tp: ModelParallel,
+                  full_dim: int) -> torch.Tensor:
+    """``models.layers.rmsnorm`` over a last dim of ``full_dim`` of which
+    ``y`` holds this rank's contiguous block: f32 math, the mean of
+    squares over the whole dim, ``rsqrt(var + eps)``, the replicated
+    ``scale`` (``full_dim``,) on the block's columns, cast back to ``y``'s
+    dtype."""
+    y32 = y.float()
+    ss = enter(leave((y32 * y32).sum(-1, keepdim=True), tp), tp)
+    n = y.shape[-1]
+    sc = enter(scale, tp)[tp.index * n:(tp.index + 1) * n]
+    return (y32 * torch.rsqrt(ss / full_dim + eps) * sc.float()).to(y.dtype)
 
 
 def merge_partials(out: torch.Tensor, lse: torch.Tensor,

@@ -13,15 +13,14 @@ the batch).  It counts **the step the port runs**:
   (``train.loop.make_sharded_train_step``): the splits over the data axes
   gathered, ``Model.loss`` and its gradient on the rank's rows
   (``grad_accum`` microbatches) computed tensor-parallel over ``model``
-  for the attention families (``distributed/tp.py``), the gradients
+  (``distributed/tp.py``), the gradients
   reduced to the rank's blocks, AdamW on the blocks;
 * ``prefill_step`` / ``serve_step`` — ``make_sharded_prefill`` and
   ``make_sharded_decode_step``, the reference's ``prefill`` and ``serve``
   closures as steps that ranks run: ``Model.prefill`` (next-token
   logits) or one ``Model.decode_step`` and its greedy token, on the
   rank's blocks, rows of the batch and blocks of the decode state
-  (``decode_state_spec``).  The ssm and hybrid families gather every leaf
-  and keep their state whole over ``model``.
+  (``decode_state_spec``).
 
 Collectives are not issued: while a step is counted, ``layout``'s
 ``all_gather_flat``/``reduce_scatter_flat`` and ``dist.all_reduce`` are
@@ -230,7 +229,7 @@ def make_sharded_prefill(model: Model, mesh: TrainMesh, param_spec: dict) -> Cal
     """The reference's ``prefill`` closure as a step that a rank runs:
     ``(param blocks laid out by param_spec, the rank's rows of the batch)
     → next-token logits (rows, vocab)``, every rank of a data row the
-    same (tensor-parallel over ``model`` for the attention families)."""
+    same (tensor-parallel over ``model``)."""
     lay = MeshedLayout(model, mesh, param_spec)
 
     def prefill(params: dict, batch: dict) -> torch.Tensor:

@@ -15,6 +15,17 @@ batch 4, which a functional copy per token would move for nothing).
 
 d_inner = expand · d_model splits into heads of width ``ssm_head_dim`` (P);
 N = ``ssm_state``; one B/C group; A is a scalar per head.
+
+Tensor-parallel (``tp``, a ``distributed.tp.ModelParallel``, where
+``in_z``/``in_x``/``conv_x`` hold the rank's ``d_inner`` columns and
+``out`` its rows): the columns are the rank's contiguous SSM heads.  x
+enters the split compute once, and so do the replicated leaves it meets
+there (``in_b``, ``in_c``, ``in_dt``, ``dt_bias``, ``a_log``, ``d_skip``,
+the norm's scale), dt, A and the D skip cut to the rank's heads; the scan
+runs on those heads (``head_block`` from their count), the gated norm is
+``tp.rmsnorm_split`` over the block and ``out``'s partial sums leave
+over ``model``.  The decode state ``h`` and the conv tail are the rank's
+heads and columns.
 """
 from __future__ import annotations
 
@@ -26,6 +37,7 @@ import torch.nn.functional as F
 
 from repro_torch import kernels
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.tp import ModelParallel, enter, leave, rmsnorm_split, split_by
 from repro_torch.kernels.ref import mamba2_ssd_chunked as _ssd_chunked  # noqa: F401
 from .layers import rmsnorm, rmsnorm_spec
 from .params import ParamSpec
@@ -86,46 +98,80 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
     return F.silu(out.float()).to(x.dtype), new_tail
 
 
-def _inputs(params: Mapping[str, Any], x: torch.Tensor):
-    """z, the conv input, B, C (f32), dt (f32, softplus'd) and A (f32)."""
+def _heads(params: Mapping[str, Any], cfg: ModelConfig,
+           tp: Optional[ModelParallel]) -> tuple[Optional[ModelParallel], int, int]:
+    """(``tp`` where ``in_x`` holds the rank's ``d_inner`` columns, else
+    None; the first of the rank's heads; their count).  Raises where the
+    block is not a whole number of heads."""
+    di, p = params["in_x"].shape[1], cfg.ssm_head_dim
+    t = split_by(tp, di, cfg.d_inner)
+    if di % p:
+        raise ValueError(f"{cfg.name}: a rank's d_inner block of {di} (d_inner {cfg.d_inner} "
+                         f"over a model axis of {tp.size if tp else 1}) is not a whole number "
+                         f"of SSM heads of width {p}")
+    nh = di // p
+    return t, (t.index * nh if t is not None else 0), nh
+
+
+def _inputs(params: Mapping[str, Any], x: torch.Tensor, cfg: ModelConfig,
+            tp: Optional[ModelParallel]):
+    """The rank's heads' ``(t, z, the conv input, B, C (f32), dt (f32,
+    softplus'd), A (f32), D (f32))``, x entered where ``t``."""
+    t, h0, nh = _heads(params, cfg, tp)
+    x = enter(x, t)
+    rep = {n: enter(params[n], t) for n in ("in_b", "in_c", "in_dt", "dt_bias", "a_log",
+                                             "d_skip")}
+    if t is not None:
+        rep["in_dt"] = rep["in_dt"][:, h0:h0 + nh]
+        for n in ("dt_bias", "a_log", "d_skip"):
+            rep[n] = rep[n][h0:h0 + nh]
     z = x @ params["in_z"]
     xs = x @ params["in_x"]
-    bmat = (x @ params["in_b"]).float()
-    cmat = (x @ params["in_c"]).float()
-    dt = F.softplus((x @ params["in_dt"]).float() + params["dt_bias"].float())
-    a = -torch.exp(params["a_log"].float())
-    return z, xs, bmat, cmat, dt, a
+    bmat = (x @ rep["in_b"]).float()
+    cmat = (x @ rep["in_c"]).float()
+    dt = F.softplus((x @ rep["in_dt"]).float() + rep["dt_bias"].float())
+    a = -torch.exp(rep["a_log"].float())
+    return t, z, xs, bmat, cmat, dt, a, rep["d_skip"].float()
 
 
 def _gate_and_out(params: Mapping[str, Any], y: torch.Tensor, z: torch.Tensor,
-                  cfg: ModelConfig) -> torch.Tensor:
+                  cfg: ModelConfig, t: Optional[ModelParallel]) -> torch.Tensor:
     y = y * F.silu(z.float()).to(y.dtype)
-    y = rmsnorm(params["norm"], y, cfg.norm_eps)
-    return y @ params["out"]
+    if t is None:
+        y = rmsnorm(params["norm"], y, cfg.norm_eps)
+    else:
+        y = rmsnorm_split(params["norm"]["scale"], y, cfg.norm_eps, t, cfg.d_inner)
+    return leave(y @ params["out"], t)
 
 
-def mamba2_block(params: Mapping[str, Any], x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def mamba2_block(params: Mapping[str, Any], x: torch.Tensor, cfg: ModelConfig,
+                 tp: Optional[ModelParallel] = None) -> torch.Tensor:
     """Full-sequence Mamba2 mixing from a zero state: x (B,S,d) → (B,S,d).
     The scan runs through ``kernels.mamba2_ssd`` at ``cfg.ssm_chunk``, as the
-    reference passes it (so S must be a multiple of it)."""
+    reference passes it (so S must be a multiple of it), on the leaves'
+    heads."""
     b, s, _ = x.shape
-    nh, p = cfg.ssm_heads, cfg.ssm_head_dim
-    z, xs, bmat, cmat, dt, a = _inputs(params, x)
+    p = cfg.ssm_head_dim
+    t, z, xs, bmat, cmat, dt, a, d_skip = _inputs(params, x, cfg, tp)
+    nh = xs.shape[-1] // p
     xs, _ = _causal_conv(xs, params["conv_x"], None)
     xh = xs.reshape(b, s, nh, p).float()
     y = kernels.mamba2_ssd(xh, dt, a, bmat, cmat, chunk=cfg.ssm_chunk,
                            head_block=math.gcd(nh, HEAD_BLOCK))
-    y = y + xh * params["d_skip"].float()[None, None, :, None]
-    return _gate_and_out(params, y.reshape(b, s, nh * p).to(x.dtype), z, cfg)
+    y = y + xh * d_skip[None, None, :, None]
+    return _gate_and_out(params, y.reshape(b, s, nh * p).to(x.dtype), z, cfg, t)
 
 
 def mamba2_decode_step(params: Mapping[str, Any], x: torch.Tensor, cfg: ModelConfig,
-                       h: torch.Tensor, conv_tail: torch.Tensor) -> torch.Tensor:
+                       h: torch.Tensor, conv_tail: torch.Tensor,
+                       tp: Optional[ModelParallel] = None) -> torch.Tensor:
     """O(1) single-token update: x (B,1,d) → (B,1,d).  Updates this layer's
-    ``h`` (B,H,P,N) f32 and ``conv_tail`` (B,conv-1,di) in place."""
+    ``h`` (B,H,P,N) f32 and ``conv_tail`` (B,conv-1,di) in place (the
+    rank's heads and columns where the leaves are its blocks)."""
     b = x.shape[0]
-    nh, p = cfg.ssm_heads, cfg.ssm_head_dim
-    z, xs, bmat, cmat, dt, a = _inputs(params, x)
+    p = cfg.ssm_head_dim
+    t, z, xs, bmat, cmat, dt, a, d_skip = _inputs(params, x, cfg, tp)
+    nh = xs.shape[-1] // p
     xs, new_tail = _causal_conv(xs, params["conv_x"], conv_tail)
     conv_tail.copy_(new_tail)
     bmat, cmat, dt = bmat[:, 0], cmat[:, 0], dt[:, 0]
@@ -135,5 +181,5 @@ def mamba2_decode_step(params: Mapping[str, Any], x: torch.Tensor, cfg: ModelCon
     h.mul_(decay[..., None, None]).add_(
         (dt[:, :, None] * xh)[..., None] * bmat[:, None, None, :])
     y = torch.einsum("bn,bhpn->bhp", cmat, h)
-    y = y + xh * params["d_skip"].float()[None, :, None]
-    return _gate_and_out(params, y.reshape(b, 1, nh * p).to(x.dtype), z, cfg)
+    y = y + xh * d_skip[None, :, None]
+    return _gate_and_out(params, y.reshape(b, 1, nh * p).to(x.dtype), z, cfg, t)

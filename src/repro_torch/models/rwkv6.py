@@ -17,6 +17,19 @@ functional copy per token would move them through memory for nothing.
 The reference's simplifications are kept: static token-shift
 interpolation, and an RMSNorm over all of d_model after the scan (the
 reference's docstring says per head; its code norms over d_model).
+
+Tensor-parallel (``tp``, a ``distributed.tp.ModelParallel``): each leaf
+says by its shape whether it is the rank's block.  Where ``wr``/``wk``/
+``wv`` hold the rank's heads, x enters the split compute once (with the
+token-shift mixes and ``w_lora_a`` it meets there), the WKV scan runs on
+the rank's heads and ``ln_out`` is ``tp.rmsnorm_split`` over their
+columns.  Where ``wg``/``wo`` hold the rank's ``mlp`` columns the gate
+multiplies those columns of y (entered and cut where the heads are whole:
+rwkv6-3b at model 16, 40 heads) and ``wo``'s partial sums leave over
+``model``.  The channel mix is column-parallel in ``wk`` and ``wr``,
+row-parallel in ``wv``; the sigmoid gate's columns are gathered and the
+product taken in replicated compute.  The decode state ``s`` holds the
+rank's heads; the shift rows stay whole.
 """
 from __future__ import annotations
 
@@ -27,6 +40,8 @@ import torch.nn.functional as F
 
 from repro_torch import kernels
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.tp import ModelParallel, enter, gather_last, leave, \
+    rmsnorm_split, split_by
 from repro_torch.kernels.ref import rwkv6_wkv_chunked as _wkv_chunked  # noqa: F401
 from repro_torch.kernels.rwkv6_scan import STATE_TILE
 from .layers import rmsnorm, rmsnorm_spec
@@ -108,28 +123,22 @@ def _token_shift(x: torch.Tensor, mu: torch.Tensor, prev: Optional[torch.Tensor]
     return x + mu * (xs - x)
 
 
-def _decay(params: Mapping[str, Any], xw: torch.Tensor) -> torch.Tensor:
-    """log w_t ∈ (−inf, 0): low-rank data-dependent decay plus a base, in f32."""
-    lora = torch.tanh((xw @ params["w_lora_a"]).float())
+def _decay(params: Mapping[str, Any], xw: torch.Tensor, lora_a: torch.Tensor) -> torch.Tensor:
+    """log w_t ∈ (−inf, 0): low-rank data-dependent decay plus a base, in
+    f32, on ``w_lora_b``'s heads; ``lora_a`` is ``w_lora_a`` as the split
+    compute takes it."""
+    lora = torch.tanh((xw @ lora_a).float())
     lb = params["w_lora_b"].float()
     wraw = params["w_base"].float() + (lora @ lb.flatten(1)).unflatten(-1, lb.shape[1:])
     return -F.softplus(wraw)
 
 
-def _project(params: Mapping[str, Any], x: torch.Tensor, mu_key: str,
+def _project(params: Mapping[str, Any], x: torch.Tensor, mu: torch.Tensor,
              prev: Optional[torch.Tensor], wname: str) -> torch.Tensor:
     """Token-shifted (B,S,d) @ (d,H,dk) → (B,S,H,dk)."""
     w = params[wname]
-    xm = _token_shift(x, params[mu_key], prev)
+    xm = _token_shift(x, mu, prev)
     return (xm @ w.flatten(1)).unflatten(-1, w.shape[1:])
-
-
-def _gate_and_out(params: Mapping[str, Any], y: torch.Tensor, g: torch.Tensor,
-                  cfg: ModelConfig) -> torch.Tensor:
-    """RMSNorm over d_model, the SiLU gate, the output projection."""
-    y = rmsnorm(params["ln_out"], y, cfg.norm_eps)
-    y = y * F.silu(g.float()).to(y.dtype)
-    return y @ params["wo"]
 
 
 def _largest_divisor(s: int, cap: int) -> int:
@@ -141,18 +150,51 @@ def _largest_divisor(s: int, cap: int) -> int:
     return chunk
 
 
-def rwkv6_time_mix(params: Mapping[str, Any], x: torch.Tensor,
-                   cfg: ModelConfig) -> torch.Tensor:
+def _splits(params: Mapping[str, Any], d: int,
+            tp: Optional[ModelParallel]) -> tuple[Optional[ModelParallel],
+                                                  Optional[ModelParallel]]:
+    """(``tp`` where ``wr`` holds the rank's heads, ``tp`` where ``wg``
+    holds its ``mlp`` columns), each None where the leaf is whole."""
+    _, h, dk = params["wr"].shape
+    return split_by(tp, h, d // dk), split_by(tp, params["wg"].shape[1], d)
+
+
+def _time_mix(params: Mapping[str, Any], x: torch.Tensor, cfg: ModelConfig,
+              prev: Optional[torch.Tensor], tp: Optional[ModelParallel],
+              wkv) -> torch.Tensor:
+    """The time mix on x (B,S,d) normed, the first position shifted from
+    ``prev`` (B,d) or zeros; ``wkv(r, k, v, logw, u)`` → y (B,S,H,dk) f32
+    on the leaves' heads.  Split as the module docstring says."""
+    b, s, d = x.shape
+    th, tm = _splits(params, d, tp)
+    xh = enter(x, th)
+    mu = {n: enter(params[n], th) for n in ("mu_r", "mu_k", "mu_v", "mu_w")}
+    r = _project(params, xh, mu["mu_r"], prev, "wr").float()
+    k = _project(params, xh, mu["mu_k"], prev, "wk").float()
+    v = _project(params, xh, mu["mu_v"], prev, "wv").float()
+    logw = _decay(params, _token_shift(xh, mu["mu_w"], prev), enter(params["w_lora_a"], th))
+    y = wkv(r, k, v, logw, params["bonus_u"].float())
+    y = y.reshape(b, s, y.shape[-2] * y.shape[-1]).to(x.dtype)
+    if th is None:
+        y = rmsnorm(params["ln_out"], y, cfg.norm_eps)
+    else:
+        y = rmsnorm_split(params["ln_out"]["scale"], y, cfg.norm_eps, th, d)
+        if tm is None:                      # the gate on whole wg/wo: y's columns joined
+            y = gather_last(y, th)
+    if tm is not None and th is None:       # heads whole: y enters, cut to wg's columns
+        n = params["wg"].shape[1]
+        y = enter(y, tm)[..., tm.index * n:(tm.index + 1) * n]
+    xg = xh if th is not None and tm is not None else enter(x, tm)
+    g = _token_shift(xg, enter(params["mu_g"], tm), prev) @ params["wg"]
+    y = y * F.silu(g.float()).to(y.dtype)
+    return leave(y @ params["wo"], tm)
+
+
+def rwkv6_time_mix(params: Mapping[str, Any], x: torch.Tensor, cfg: ModelConfig,
+                   tp: Optional[ModelParallel] = None) -> torch.Tensor:
     """Full-sequence time mix from a zero state: x (B,S,d) normed → (B,S,d).
     The scan runs through ``kernels.rwkv6_wkv`` (chunk chosen below)."""
-    b, s, d = x.shape
-    r = _project(params, x, "mu_r", None, "wr").float()
-    k = _project(params, x, "mu_k", None, "wk").float()
-    v = _project(params, x, "mu_v", None, "wv").float()
-    g = _token_shift(x, params["mu_g"], None) @ params["wg"]
-    logw = _decay(params, _token_shift(x, params["mu_w"], None))
-    u = params["bonus_u"].float()
-
+    s = x.shape[1]
     # The reference's jnp ``_wkv_chunked`` takes the largest divisor of S up
     # to ssm_chunk, and any chunk gives it the same result (chunk invariance,
     # tests/test_kernels.py:96-149).  The kernel's check refuses a chunk above
@@ -162,52 +204,55 @@ def rwkv6_time_mix(params: Mapping[str, Any], x: torch.Tensor,
     # whatever the chunk, so the chunk does not change its work.  The
     # gradient is the chunked form's at the reference's own chunk, the
     # arithmetic that jax.value_and_grad differentiates.
-    y = kernels.rwkv6_wkv(r, k, v, logw, u, _largest_divisor(s, min(cfg.ssm_chunk, STATE_TILE)),
-                          grad_chunk=_largest_divisor(s, cfg.ssm_chunk))
-    return _gate_and_out(params, y.reshape(b, s, d).to(x.dtype), g, cfg)
+    chunk = _largest_divisor(s, min(cfg.ssm_chunk, STATE_TILE))
+    grad_chunk = _largest_divisor(s, cfg.ssm_chunk)
+    return _time_mix(params, x, cfg, None, tp, lambda r, k, v, logw, u: kernels.rwkv6_wkv(
+        r, k, v, logw, u, chunk, grad_chunk=grad_chunk))
 
 
 def rwkv6_channel_mix(params: Mapping[str, Any], x: torch.Tensor,
-                      prev: Optional[torch.Tensor] = None) -> torch.Tensor:
-    xk = _token_shift(x, params["mu_k"], prev)
-    xr = _token_shift(x, params["mu_r"], prev)
+                      prev: Optional[torch.Tensor] = None,
+                      tp: Optional[ModelParallel] = None) -> torch.Tensor:
+    """The channel mix; where ``wk``/``wr`` hold the rank's ``mlp``
+    columns and ``wv`` its rows (``tp``) the output is still replicated."""
+    t = split_by(tp, params["wr"].shape[1], x.shape[-1])
+    xe = enter(x, t)
+    xk = _token_shift(xe, enter(params["mu_k"], t), prev)
+    xr = _token_shift(xe, enter(params["mu_r"], t), prev)
     kk = torch.square(torch.relu((xk @ params["wk"]).float())).to(x.dtype)
-    vv = kk @ params["wv"]
-    rr = torch.sigmoid((xr @ params["wr"]).float()).to(x.dtype)
+    vv = leave(kk @ params["wv"], t)
+    rr = gather_last(torch.sigmoid((xr @ params["wr"]).float()).to(x.dtype), t)
     return rr * vv
 
 
-def rwkv6_block(params: Mapping[str, Any], x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def rwkv6_block(params: Mapping[str, Any], x: torch.Tensor, cfg: ModelConfig,
+                tp: Optional[ModelParallel] = None) -> torch.Tensor:
     """One RWKV6 layer over a full sequence from a zero state: pre-norm time
     mix and pre-norm channel mix, each with its residual."""
-    x = x + rwkv6_time_mix(params["time"], rmsnorm(params["ln1"], x, cfg.norm_eps), cfg)
-    return x + rwkv6_channel_mix(params["channel"], rmsnorm(params["ln2"], x, cfg.norm_eps))
+    x = x + rwkv6_time_mix(params["time"], rmsnorm(params["ln1"], x, cfg.norm_eps), cfg, tp)
+    return x + rwkv6_channel_mix(params["channel"], rmsnorm(params["ln2"], x, cfg.norm_eps),
+                                 tp=tp)
 
 
 def rwkv6_decode_step(params: Mapping[str, Any], x: torch.Tensor, cfg: ModelConfig,
-                      s: torch.Tensor, shift_t: torch.Tensor,
-                      shift_c: torch.Tensor) -> torch.Tensor:
+                      s: torch.Tensor, shift_t: torch.Tensor, shift_c: torch.Tensor,
+                      tp: Optional[ModelParallel] = None) -> torch.Tensor:
     """O(1) decode of one layer: x (B,1,d) → (B,1,d).  Updates this layer's
-    state in place: ``s`` (B,H,dk,dk) f32 and the token-shift rows
-    ``shift_t`` / ``shift_c`` (B,d), which hold the *normed* streams."""
-    b, _, d = x.shape
-    tp = params["time"]
+    state in place: ``s`` (B,H,dk,dk) f32 (the rank's heads where ``wr``
+    holds them) and the token-shift rows ``shift_t`` / ``shift_c`` (B,d),
+    which hold the *normed* streams."""
     xn = rmsnorm(params["ln1"], x, cfg.norm_eps)
 
-    r = _project(tp, xn, "mu_r", shift_t, "wr").float()[:, 0]
-    k = _project(tp, xn, "mu_k", shift_t, "wk").float()[:, 0]
-    v = _project(tp, xn, "mu_v", shift_t, "wv").float()[:, 0]
-    g = _token_shift(xn, tp["mu_g"], shift_t) @ tp["wg"]
-    logw = _decay(tp, _token_shift(xn, tp["mu_w"], shift_t))[:, 0]
-    u = tp["bonus_u"].float()
+    def wkv(r, k, v, logw, u):
+        r, k, v, logw = r[:, 0], k[:, 0], v[:, 0], logw[:, 0]
+        kv = k[..., :, None] * v[..., None, :]
+        y = torch.einsum("bhk,bhkj->bhj", r, s + u[None, :, :, None] * kv)
+        s.mul_(torch.exp(logw)[..., None]).add_(kv)
+        return y[:, None]
 
-    kv = k[..., :, None] * v[..., None, :]
-    y = torch.einsum("bhk,bhkj->bhj", r, s + u[None, :, :, None] * kv)
-    s.mul_(torch.exp(logw)[..., None]).add_(kv)
+    x1 = x + _time_mix(params["time"], xn, cfg, shift_t, tp, wkv)
     shift_t.copy_(xn[:, -1])
-
-    x1 = x + _gate_and_out(tp, y.reshape(b, 1, d).to(x.dtype), g, cfg)
     xn2 = rmsnorm(params["ln2"], x1, cfg.norm_eps)
-    out = x1 + rwkv6_channel_mix(params["channel"], xn2, shift_c)
+    out = x1 + rwkv6_channel_mix(params["channel"], xn2, shift_c, tp)
     shift_c.copy_(xn2[:, -1])
     return out

@@ -32,9 +32,10 @@ leaves the ruleset splits over ``model`` (``heads``, ``kv_heads``,
 shapes what is split: attention and the MLP / MoE as their modules say,
 the embedding vocab-parallel, the head on the rank's vocab columns (the
 logits of ``prefill``/``decode_step``/``forward`` gathered over ``model``),
-the loss a vocab-parallel cross-entropy.  The decode state is built at the
-rank's shapes by ``init_decode_state(..., mesh=, rules=)``.  The ssm and
-hybrid families take no ``tp`` (their meshed steps gather their leaves).
+the loss a vocab-parallel cross-entropy; RWKV6 and Mamba2 on their heads
+and ``mlp`` columns (``rwkv6.py``, ``mamba2.py``), Zamba2's shared block as
+a dense layer.  The decode state is built at the rank's shapes by
+``init_decode_state(..., mesh=, rules=)``.
 """
 from __future__ import annotations
 
@@ -48,7 +49,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import layout
 from repro_torch.distributed.sharding import decode_state_spec
-from repro_torch.distributed.tp import ModelParallel, active, enter, gather_last, leave, split_by
+from repro_torch.distributed.tp import ModelParallel, enter, gather_last, leave, split_by
 from . import layers as L
 from .attention import (
     KVCache,
@@ -146,12 +147,6 @@ def _remat(cfg: ModelConfig, fn, *args):
 class Model:
     cfg: ModelConfig
     tp: Optional[ModelParallel] = None
-
-    def __post_init__(self) -> None:
-        if active(self.tp) and self.cfg.family not in TRANSFORMER_FAMILIES:
-            raise ValueError(f"{self.cfg.name}: tensor-parallel compute covers the "
-                             f"{'/'.join(TRANSFORMER_FAMILIES)} families, not "
-                             f"{self.cfg.family!r} (its meshed steps gather its leaves)")
 
     # ---------------- specs ----------------
     def specs(self) -> dict:
@@ -264,6 +259,12 @@ class Model:
         logits = gather_last(L.unembed(params["lm_head"], enter(x, tp)), tp)
         return logits[..., : cfg.vocab_size]
 
+    def _shared_mlp(self, shared: dict, z: torch.Tensor) -> torch.Tensor:
+        """Zamba2's shared MLP, column / row parallel where its leaves are
+        the rank's blocks."""
+        return L.mlp(shared["mlp"], z, split_by(self.tp, shared["mlp"]["up"].shape[-1],
+                                                self.cfg.d_ff))
+
     # ---------------- forward (prefill) ----------------
     def _hidden(self, params: dict, batch: dict) -> tuple[torch.Tensor, dict]:
         """Final pre-head hidden states (B, S, d) and the aux dict (for
@@ -276,7 +277,7 @@ class Model:
         window = cfg.effective_window(s)
         if cfg.family == "ssm":
             for lp in _unstack(params["layers"]):
-                x = _remat(cfg, rwkv6_block, lp, x, cfg)
+                x = _remat(cfg, rwkv6_block, lp, x, cfg, self.tp)
             return x, {}
         if cfg.family == "hybrid":
             shared = params["shared_attn"]
@@ -284,11 +285,12 @@ class Model:
             def site(site_params: dict, x: torch.Tensor) -> torch.Tensor:
                 for lp in _unstack(site_params):
                     z = L.rmsnorm(lp["ln"], x, cfg.norm_eps)
-                    x = x + mamba2_block(lp["mixer"], z, cfg)
+                    x = x + mamba2_block(lp["mixer"], z, cfg, self.tp)
                 z = L.rmsnorm(shared["ln"], x, cfg.norm_eps)
-                x = x + attention_block(shared["attn"], z, cfg, positions, causal, window)
+                x = x + attention_block(shared["attn"], z, cfg, positions, causal, window,
+                                        self.tp)
                 z = L.rmsnorm(shared["ln2"], x, cfg.norm_eps)
-                return x + L.mlp(shared["mlp"], z)
+                return x + self._shared_mlp(shared, z)
 
             for site_params in _unstack(params["layers"]):
                 x = _remat(cfg, site, site_params, x)
@@ -425,21 +427,17 @@ class Model:
     def init_decode_state(self, batch: int, context: int, device: str | torch.device = "cuda",
                           mesh=None, rules=None) -> DecodeState:
         """The empty decode state; with ``mesh`` and ``rules`` this rank's
-        blocks of it, laid out by ``decode_state_spec`` (the attention
-        families; the ssm and hybrid families' states split over the data
-        axes only, as their meshed steps compute on whole leaves)."""
+        blocks of it, laid out by ``decode_state_spec``."""
         if mesh is not None:
             whole = self.init_decode_state(batch, context, "meta")
             specs = decode_state_spec(self.cfg, mesh, rules, whole)
-            tp_ok = self.cfg.family in TRANSFORMER_FAMILIES
 
             def block(t, spec):
                 if t is None:
                     return None
                 if isinstance(t, tuple):
                     return type(t)(*(block(a, b) for a, b in zip(t, spec)))
-                spec = tuple(spec) if tp_ok else tuple(None if e == "model" else e
-                                                       for e in spec)
+                spec = tuple(spec)
                 layout.check_spec(spec, tuple(t.shape), mesh, "decode state")
                 fill = -1 if (t.dtype == torch.int32 and t.dim() == 1) else 0
                 return torch.full(layout.block_shape(tuple(t.shape), spec, mesh), fill,
@@ -468,7 +466,8 @@ class Model:
         if cfg.family == "ssm":
             st = state.rwkv
             for i, lp in enumerate(_unstack(params["layers"])):
-                x = rwkv6_decode_step(lp, x, cfg, st.s[i], st.shift_t[i], st.shift_c[i])
+                x = rwkv6_decode_step(lp, x, cfg, st.s[i], st.shift_t[i], st.shift_c[i],
+                                      self.tp)
             return self._head(params, x)[:, 0], state
 
         cache = state.kv
@@ -481,13 +480,14 @@ class Model:
                 for j, lp in enumerate(_unstack(site_params)):
                     i = site * cfg.attn_every + j
                     z = L.rmsnorm(lp["ln"], x, cfg.norm_eps)
-                    x = x + mamba2_decode_step(lp["mixer"], z, cfg, ssm.h[i], ssm.conv[i])
+                    x = x + mamba2_decode_step(lp["mixer"], z, cfg, ssm.h[i], ssm.conv[i],
+                                               self.tp)
                 z = L.rmsnorm(shared["ln"], x, cfg.norm_eps)
                 x = x + decode_attention_block(
                     shared["attn"], z, cfg, cache.k[site], cache.v[site], cache.positions,
-                    cache.next_pos, slot, window)
+                    cache.next_pos, slot, window, self.tp)
                 z = L.rmsnorm(shared["ln2"], x, cfg.norm_eps)
-                x = x + L.mlp(shared["mlp"], z)
+                x = x + self._shared_mlp(shared, z)
         else:
             for i, lp in enumerate(_unstack(params["layers"])):
                 h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)

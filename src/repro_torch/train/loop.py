@@ -13,16 +13,14 @@ the plain versions.
 On a mesh (``distributed.mesh.TrainMesh``) parameters, gradients and AdamW
 moments are laid out by the reference's ruleset (``default_rules``, with
 ``embed`` over the data axes under FSDP): each rank keeps its blocks
-(``distributed/layout.py``).  For the attention families (dense, moe,
-vlm, audio) the model computes tensor-parallel over ``model``
-(``Model(cfg, tp)``, ``distributed/tp.py``): a leaf split over ``model``
-by a rule the layer computes on (heads, kv_heads, mlp, expert, vocab)
-stays the rank's block, and only the splits over the data axes (FSDP's
-``embed``) are gathered before the step.  The ssm and hybrid families
-gather every leaf, so the ranks of one data row repeat their step.  A
-step runs ``Model.loss`` and ``autograd.grad`` on the rank's rows of the
-batch, reduces the gradients over the data ranks to the rank's blocks (in
-f32, cast back) and updates its blocks and moments; a replicated leaf's
+(``distributed/layout.py``).  The model computes tensor-parallel over
+``model`` (``Model(cfg, tp)``, ``distributed/tp.py``): a leaf split over
+``model`` by a rule the layer computes on (heads, kv_heads, mlp, expert,
+vocab) stays the rank's block, and only the splits over the data axes
+(FSDP's ``embed``) are gathered before the step.  A step runs
+``Model.loss`` and ``autograd.grad`` on the rank's rows of the batch,
+reduces the gradients over the data ranks to the rank's blocks (in f32,
+cast back) and updates its blocks and moments; a replicated leaf's
 gradient is already whole and equal on every model rank.  It gives the
 one-device trajectory: each rank's cross-entropy gradient is weighted by
 its share of the global target count (hubert's masked frames differ per
@@ -45,7 +43,6 @@ from repro_torch.distributed.mesh import TrainMesh
 from repro_torch.distributed.sharding import Ruleset, default_rules, shard_params_spec
 from repro_torch.distributed.tp import ModelParallel, split_spec
 from repro_torch.models import Model
-from repro_torch.models.transformer import TRANSFORMER_FAMILIES
 from repro_torch.models.moe import group_size
 from .data import batch_rows, to_device
 from .optimizer import AdamWConfig, AdamWState, _walk, adamw_init, adamw_update, global_norm
@@ -122,14 +119,14 @@ def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
 
 class MeshedLayout:
     """How a meshed step uses the rank's parameter blocks: ``net`` is the
-    model that computes on them (``Model(cfg, tp)`` for the attention
-    families on a model axis, else ``model``), and each leaf's ``rest``
-    spec (the splits gathered before the step) and ``local`` shape (the
-    leaf as ``net`` takes it: the rank's block over ``model`` along the
-    dims the layer computes on, whole elsewhere)."""
+    model that computes on them (``Model(cfg, tp)`` on a model axis, else
+    ``model``), and each leaf's ``rest`` spec (the splits gathered before
+    the step) and ``local`` shape (the leaf as ``net`` takes it: the
+    rank's block over ``model`` along the dims the layer computes on,
+    whole elsewhere)."""
 
     def __init__(self, model: Model, mesh: TrainMesh, param_spec: dict) -> None:
-        tp = ModelParallel.of(mesh) if model.cfg.family in TRANSFORMER_FAMILIES else None
+        tp = ModelParallel.of(mesh)
         self.net = dataclasses.replace(model, tp=tp) if tp is not None else model
         self.mesh = mesh
         shapes = _shapes(model)
@@ -137,8 +134,7 @@ class MeshedLayout:
         self.items = []          # (path, spec, rest, local shape)
         for path, spec in _walk(param_spec):
             layout.check_spec(spec, shapes[path], mesh, "/".join(path))
-            keep, rest = (split_spec(axes[path], spec, mesh) if tp is not None
-                          else ((None,) * len(spec), spec))
+            keep, rest = split_spec(axes[path], spec, mesh)
             self.items.append((path, spec, rest,
                                layout.block_shape(shapes[path], keep, mesh)))
 

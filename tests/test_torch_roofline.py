@@ -11,7 +11,8 @@ equal the reference's ``dot_general`` outside attention (the products
 without batch dims) exactly, and the totals with each kernel counted by
 its declared products stand within ``TOTAL_BAND`` of the reference's.  The
 lowering's collective table equals what two gloo ranks pass to
-``distributed/layout.py``'s collectives in one step.  The counting hook
+``distributed/layout.py``'s collectives in one step (qwen3-4b with FSDP
+and at data=1 x model=2, rwkv6-3b at data=1 x model=2).  The counting hook
 raises on a real tensor.  The dry-run skips by design with the
 reference's reason and writes per-rank bytes and ``fits`` (the
 tensor-parallel serving step holds the rank's blocks and gathers nothing
@@ -74,9 +75,9 @@ B, S = 2, 64
 TOTAL_BAND = {"prefill": (1.0, 1.0), "decode": (1.0, 1.0), "train": (1.0, 1.1)}
 
 
-def _smoke() -> dict:
-    """qwen3-4b's smoke config as overrides of its full one."""
-    cfg = get_config("qwen3-4b", smoke=True)
+def _smoke(arch: str = "qwen3-4b") -> dict:
+    """``arch``'s smoke config as overrides of its full one."""
+    cfg = get_config(arch, smoke=True)
     return {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
 
 
@@ -230,21 +231,30 @@ def test_counting_hook_raises_on_a_real_tensor():
 COLLECTIVE_JOBS = {"fsdp": dict(kind="collectives", arch="qwen3-4b", mesh=dict(data=2),
                                 fsdp=True, batch=4, seq=S),
                    "model2": dict(kind="collectives", arch="qwen3-4b",
-                                  mesh=dict(data=1, model=2), fsdp=False, batch=4, seq=S)}
+                                  mesh=dict(data=1, model=2), fsdp=False, batch=4, seq=S),
+                   "rwkv6-model2": dict(kind="collectives", arch="rwkv6-3b",
+                                        mesh=dict(data=1, model=2), fsdp=False, batch=4, seq=S)}
 
 
 def test_collective_table_is_what_two_gloo_ranks_pass(tmp_path):
+    """qwen3-4b with FSDP at data=2 and at data=1 x model=2, and rwkv6-3b
+    (ssm) at data=1 x model=2: the lowering's table equals what each rank
+    passes.  rwkv6-3b gathers no leaf: its one all-gather a layer is the
+    channel mix's sigmoid gate, (B, S, d) f32."""
     ranks = run_ranks(torch_sharded_ranks.run_jobs, 2, init_file=str(tmp_path / "pg"),
                       args=(list(COLLECTIVE_JOBS.values()),), threads=1, timeout=300)
-    cfg = get_config("qwen3-4b", smoke=True)
     for i, (name, job) in enumerate(COLLECTIVE_JOBS.items()):
         m = job["mesh"]
         mesh = LogicalMesh((m["data"], m.get("model", 1)), ("data", "model"))
-        _, table = build_lowered("qwen3-4b", InputShape("t", S, job["batch"], "train"), mesh,
-                                 cfg_overrides=_smoke(), fsdp=job["fsdp"],
-                                 grad_accum=1).count()
+        step = build_lowered(job["arch"], InputShape("t", S, job["batch"], "train"), mesh,
+                             cfg_overrides=_smoke(job["arch"]), fsdp=job["fsdp"], grad_accum=1)
+        _, table = step.count()
         assert ranks[0][i] == ranks[1][i] == table, name
     assert set(ranks[0][0]) == {"all_gather", "reduce_scatter", "all_reduce"}
+    cfg, rows = get_config("rwkv6-3b", smoke=True), COLLECTIVE_JOBS["rwkv6-model2"]["batch"]
+    assert step.gathered["params"] == 0.0
+    assert ranks[0][2]["all_gather"] == {
+        "count": cfg.num_layers, "bytes": float(cfg.num_layers * rows * S * cfg.d_model * 4)}
 
 
 # ---------------------------------------------------------- the dry-run --

@@ -29,12 +29,20 @@ over ``model``), hubert-xlarge (audio, a masked CE over a vocab of 504
 padded to 512: the padding on rank 1) and internvl2-1b (vlm, a kv
 deficit with qkv biases) train at data=1 x model=2 against the one-device
 trajectory at the same tolerances (internvl2's zero-initialised q and k
-biases at bounds of their own, below).  Three ``tp_ref`` jobs hold the
-model on the reference's weights at data=1 x model=2 against the
-reference's unsharded ``Model``: the loss and every gradient leaf, and for
-qwen3-4b and olmoe-1b-7b the prefill's next-token logits, and a 4-token
-prompt then 8 greedy decode steps into a 16-slot ring (qwen3-4b: rank 1's
-8 slots stay empty through the prompt); internvl2-1b's loss and gradients.
+biases at bounds of their own, below).  So do the ssm and hybrid
+families: rwkv6-3b (4 heads of 64: heads, gate and channel mix split;
+and once with ``heads`` mapped to None, the heads-whole, ``mlp``-split
+layout that rwkv6-3b's 40 heads take at model 16) and zamba2-2.7b (16 SSM
+heads of 32, 8 a rank; its shared block's 4 KV heads split) at data=1 x
+model=2, and zamba2-2.7b at data=1 x model=4 in the four-rank group (4
+SSM heads a rank, head_block 4, one KV head).  Five ``tp_ref`` jobs hold
+the model at data=1 x model=2 on the reference's weights (rwkv6-3b and
+zamba2-2.7b on the port's seed-0 weights) against the reference's
+unsharded ``Model``: the loss and every gradient leaf, and for
+qwen3-4b, olmoe-1b-7b, rwkv6-3b and zamba2-2.7b the prefill's next-token
+logits, and a 4-token prompt then 8 greedy decode steps into a 16-slot
+ring (qwen3-4b: rank 1's 8 slots stay empty through the prompt; the
+recurrent states at the rank's heads); internvl2-1b's loss and gradients.
 
 Tolerances: every step's loss within 1e-6 relative of the one-device
 loss, and every parameter leaf within 1e-5 of its largest element after
@@ -55,6 +63,7 @@ exact.  Against the reference jitted without a mesh: 1e-5 relative a
 step.
 """
 import re
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -88,7 +97,9 @@ B, S, STEPS = 4, 64, 4
 LOSS_RTOL, LEAF_TOL, REF_RTOL = 1e-6, 1e-5, 1e-5
 # tensor-parallel against the reference's unsharded Model (tests/test_torch_train.py's
 # loss and gradient tolerances; the serving parity's logit band)
-TP_ARCHS = ("qwen3-4b", "olmoe-1b-7b")
+TP_ARCHS = ("qwen3-4b", "olmoe-1b-7b", "rwkv6-3b", "zamba2-2.7b")
+# the archs whose tp_ref weights are the port's seed-0 init, not the reference's
+TP_PORT_WEIGHTS = ("rwkv6-3b", "zamba2-2.7b")
 # the loss and gradients only: a vlm under a kv deficit, with qkv biases
 TP_GRAD_ARCH = "internvl2-1b"
 TP_B, TP_PROMPT, TP_CONTEXT, TP_NEW = 2, 4, 16, 8
@@ -105,6 +116,21 @@ SCALAR, GRAD_RTOL, LOGIT_TOL = dict(atol=1e-6, rtol=1e-5), 1e-4, 1e-4
 # gradients, like every leaf's, at GRAD_RTOL against the reference
 # (test_tensor_parallel_matches_the_reference).
 BIAS_TOL = {"internvl2-model2": {"layers/attn/bq": 4e-5, "layers/attn/bk": 3e-4}}
+# rwkv6-3b and zamba2-2.7b likewise start leaves at zero (rwkv6's
+# token-shift mixes, decay base and bonus; zamba2's dt bias and log A), and
+# these models' gradient norm is more sensitive to the weights' last bits:
+# with one rounding of the initial weights (tools/tp_bias_controls.py
+# --arch rwkv6-3b / zamba2-2.7b --seeds 8) the final zero-initialised
+# leaves move up to 3.001e-4 (rwkv6-3b) and 1.424e-4 (zamba2-2.7b) of their
+# largest element, a step's gradient norm up to 7.693e-6 and 2.118e-6
+# relative; the tensor-parallel jobs read at most 1.946e-4 / 6.062e-5 and
+# 1.145e-6 / 5.295e-7 there (the one-device run is not reproducible to the
+# last bit: two runs of it read 6.65e-7 apart in rwkv6-3b's gradient norm).
+# The zero-initialised leaves and the gradient norm are held at twice the
+# control's largest reading; the loss, ce, lr and every other leaf at
+# LOSS_RTOL / LEAF_TOL.
+ZERO_INIT_TOL = {"rwkv6-3b": 6e-4, "zamba2-2.7b": 3e-4}
+NORM_RTOL = {"rwkv6-3b": 1.6e-5, "zamba2-2.7b": 4.3e-6}
 
 
 def _job(arch, mesh, fsdp=True, **kw):
@@ -124,10 +150,15 @@ TWO = {
     "hubert-model2": _job("hubert-xlarge", dict(data=1, model=2)),
     # the projector's (embed, embed) leaf takes no FSDP spec ("data" twice)
     "internvl2-model2": _job("internvl2-1b", dict(data=1, model=2), fsdp=False),
+    "rwkv6-model2": _job("rwkv6-3b", dict(data=1, model=2), fsdp=False),
+    "rwkv6-heads-whole": _job("rwkv6-3b", dict(data=1, model=2), fsdp=False,
+                              overrides=dict(heads=None)),
+    "zamba2-model2": _job("zamba2-2.7b", dict(data=1, model=2), fsdp=False),
 }
 FOUR = {
     "qwen3-pod": _job("qwen3-4b", dict(pod=2, data=2, model=1)),
     "qwen3-2x2": _job("qwen3-4b", dict(data=2, model=2)),
+    "zamba2-model4": _job("zamba2-2.7b", dict(data=1, model=4), fsdp=False),
 }
 TRAIN = {**TWO, **FOUR}
 EPS8 = _job("qwen3-4b", dict(data=2), fsdp=False, opt=DEFAULT_OPT)
@@ -140,6 +171,15 @@ def _np(tree):
 def _reference_params(arch):
     return jax.tree.map(np.asarray, JaxModel(jax_get_config(arch, smoke=True)).init(
         jax.random.PRNGKey(0)))
+
+
+def _port_params(arch):
+    """The port's seed-0 weights as nested NumPy (the reference's init
+    compiles a program of its own for each arch)."""
+    def nest(tree):
+        return ({k: nest(v) for k, v in tree.items()} if isinstance(tree, dict)
+                else tree.detach().numpy())
+    return nest(Model(get_config(arch, smoke=True)).init(0, "cpu"))
 
 
 def _one_device(job, params=None):
@@ -173,7 +213,9 @@ def runs(tmp_path_factory):
             for k in TWO]
     extra = {"load": dict(kind="load", arch="qwen3-4b", mesh=dict(data=2), fsdp=True,
                           path=str(tmp / "one")), "raises": dict(kind="raises")}
-    tp_ref = {arch: _reference_params(arch) for arch in TP_ARCHS + (TP_GRAD_ARCH,)}
+    tp_ref = {arch: ref if arch == "qwen3-4b" else
+              _port_params(arch) if arch in TP_PORT_WEIGHTS else _reference_params(arch)
+              for arch in TP_ARCHS + (TP_GRAD_ARCH,)}
     for arch in TP_ARCHS:
         batch = make_batch_np(get_config(arch, smoke=True), DataConfig(TP_B, S), 0)
         extra[f"tp-{arch}"] = dict(kind="tp_ref", arch=arch, mesh=dict(data=1, model=2),
@@ -183,28 +225,43 @@ def runs(tmp_path_factory):
     extra[f"tp-{TP_GRAD_ARCH}"] = dict(
         kind="tp_ref", arch=TP_GRAD_ARCH, mesh=dict(data=1, model=2), params=tp_ref[TP_GRAD_ARCH],
         batch=make_batch_np(get_config(TP_GRAD_ARCH, smoke=True), DataConfig(TP_B, S), 0))
-    two = run_ranks(torch_sharded_ranks.run_jobs, 2, init_file=str(tmp / "pg2"),
-                    args=(jobs + list(extra.values()),), threads=2, timeout=300)
-    # one thread a rank: the CPU's embedding backward sums in a fixed order
-    eps8 = run_ranks(torch_sharded_ranks.run_jobs, 2, init_file=str(tmp / "pg1"),
-                     args=([EPS8, dict(EPS8, kind="split")],), threads=1, timeout=300)
-    four_jobs = list(FOUR.values()) + [dict(kind="reduce", mesh=dict(data=4), shape=(8, 64))]
-    four = run_ranks(torch_sharded_ranks.run_jobs, 4, init_file=str(tmp / "pg4"),
-                     args=(four_jobs,), threads=1, timeout=300)
-    out = {name: [r[i] for r in two] for i, name in enumerate(list(TWO) + list(extra))}
+    tp_jobs = {arch: extra[f"tp-{arch}"] for arch in TP_ARCHS + (TP_GRAD_ARCH,)}
+    # the reference's side of the tp_ref jobs, compiled in this process while the ranks run
+    with ThreadPoolExecutor(1) as pool:
+        tp_want = pool.submit(lambda: {
+            arch: (_reference_serving if arch in TP_ARCHS else _reference_loss)(job)
+            for arch, job in tp_jobs.items()})
+        two = run_ranks(torch_sharded_ranks.run_jobs, 2, init_file=str(tmp / "pg2"),
+                        args=(jobs + list(extra.values()),), threads=2, timeout=300)
+        # one thread a rank: the CPU's embedding backward sums in a fixed order
+        eps8 = run_ranks(torch_sharded_ranks.run_jobs, 2, init_file=str(tmp / "pg1"),
+                         args=([EPS8, dict(EPS8, kind="split")],), threads=1, timeout=300)
+        four_jobs = list(FOUR.values()) + [dict(kind="reduce", mesh=dict(data=4),
+                                                shape=(8, 64))]
+        four = run_ranks(torch_sharded_ranks.run_jobs, 4, init_file=str(tmp / "pg4"),
+                         args=(four_jobs,), threads=1, timeout=300)
+        out = {"tp_want": tp_want.result()}
+    out.update({name: [r[i] for r in two] for i, name in enumerate(list(TWO) + list(extra))})
     out.update({name: [r[i] for r in four] for i, name in enumerate(list(FOUR) + ["reduce"])})
     out["eps8"], out["split"] = [r[0] for r in eps8], [r[1] for r in eps8]
     out["one_ckpt"] = one
     out["ref"] = ref
-    out["tp_jobs"] = {arch: extra[f"tp-{arch}"] for arch in TP_ARCHS + (TP_GRAD_ARCH,)}
     out["tmp"] = tmp
     return out
 
 
 @pytest.fixture(scope="module")
 def one_device(runs):
-    return {name: _one_device(job, runs["ref"] if name == "bridged" else None)
-            for name, job in TRAIN.items()}
+    """Each job's one-device run; jobs that differ only in their mesh,
+    FSDP or ruleset share one run."""
+    done, out = {}, {}
+    for name, job in TRAIN.items():
+        key = (job["arch"], tuple(sorted(job["opt"].items())), job["batch"], job["seq"],
+               job["steps"], job.get("grad_accum", 1), name == "bridged")
+        if key not in done:
+            done[key] = _one_device(job, runs["ref"] if name == "bridged" else None)
+        out[name] = done[key]
+    return out
 
 
 def _leaf_err(got, want):
@@ -215,15 +272,19 @@ def _leaf_err(got, want):
 @pytest.mark.parametrize("name", list(TRAIN))
 def test_sharded_trajectory_matches_one_device(runs, one_device, name):
     ranks, want = runs[name], one_device[name]
+    arch = TRAIN[name]["arch"]
     for r in ranks:        # every rank reports the same global metrics
         assert [m.keys() for m in r["metrics"]] == [m.keys() for m in want["metrics"]]
         for got_m, want_m in zip(r["metrics"], want["metrics"]):
             for k in ("loss", "ce", "grad_norm", "lr", "load_balance_loss", "router_z_loss"):
+                tol = NORM_RTOL.get(arch, LOSS_RTOL) if k == "grad_norm" else LOSS_RTOL
                 if k in want_m:
-                    assert abs(got_m[k] - want_m[k]) <= LOSS_RTOL * abs(want_m[k]) + 1e-9, (
+                    assert abs(got_m[k] - want_m[k]) <= tol * abs(want_m[k]) + 1e-9, (
                         k, got_m, want_m)
         assert r["metrics"] == ranks[0]["metrics"]
-    bias = BIAS_TOL.get(name, {})
+    bias = dict(BIAS_TOL.get(name, {}))
+    if arch in ZERO_INIT_TOL:
+        bias.update({k: ZERO_INIT_TOL[arch] for k, v in want["init"].items() if not v.any()})
     final = {k: v for k, v in want["final"].items() if k not in bias}
     assert _leaf_err(ranks[0]["full"], final) <= LEAF_TOL
     for k, tol in bias.items():
@@ -285,7 +346,7 @@ def _specs(name):
     shape = {a: n for a, n in shape.items() if n is not None}
     cfg = get_config(job["arch"], smoke=True)
     mesh = LogicalMesh(tuple(shape.values()), tuple(shape))
-    rules = default_rules(cfg, mesh, fsdp=job["fsdp"])
+    rules = default_rules(cfg, mesh, fsdp=job["fsdp"]).with_overrides(**job.get("overrides", {}))
     return dict(_walk_specs(shard_params_spec(Model(cfg), rules))), shape
 
 
@@ -457,9 +518,10 @@ def test_tensor_parallel_matches_the_reference(runs, arch):
     after a 4-token prompt (logits within 1e-4 of the largest, tokens
     equal).  qwen3-4b (one KV head): the ring's 16 slots split over the
     ranks, rank 1's empty through the prompt; olmoe-1b-7b: KV heads and
-    experts split."""
-    job = runs["tp_jobs"][arch]
-    want = _reference_serving(job)
+    experts split; rwkv6-3b: the WKV state's heads split, the shift rows
+    whole; zamba2-2.7b: the SSD state's heads, the conv tail's d_inner and
+    the shared block's KV heads split."""
+    want = runs["tp_want"][arch]
     ranks = runs[f"tp-{arch}"]
     cfg = get_config(arch, smoke=True)
     _assert_loss_and_grads(ranks, want)
@@ -472,6 +534,16 @@ def test_tensor_parallel_matches_the_reference(runs, arch):
                                        err_msg=f"decode step {i}")
         np.testing.assert_array_equal(np.stack(r["tokens"]), np.stack(want["tokens"]))
         np.testing.assert_array_equal(np.stack(r["tokens"]), np.stack(ranks[0]["tokens"]))
+    state = ranks[0]["state"]
+    if cfg.family == "ssm":
+        assert state == {"rwkv.s": (cfg.num_layers, TP_B, cfg.num_heads // 2, 64, 64),
+                         "rwkv.shift_t": (cfg.num_layers, TP_B, cfg.d_model),
+                         "rwkv.shift_c": (cfg.num_layers, TP_B, cfg.d_model)}
+        return
+    if cfg.family == "hybrid":
+        assert state["ssm.h"] == (cfg.num_layers, TP_B, cfg.ssm_heads // 2, cfg.ssm_head_dim,
+                                  cfg.ssm_state)
+        assert state["ssm.conv"] == (cfg.num_layers, TP_B, cfg.ssm_conv - 1, cfg.d_inner // 2)
     slots = ranks[0]["cache"][2]
     if cfg.num_kv_heads % 2:
         # the kv deficit: the slots split, rank 1's range empty after the prompt
@@ -487,5 +559,4 @@ def test_tensor_parallel_vlm_gradients_match_the_reference(runs):
     deficit, with q/k/v biases) at data=1 x model=2 on the reference's
     weights: the loss, its metrics and every gradient leaf (the q and k
     biases' among them) against the reference's unsharded Model."""
-    _assert_loss_and_grads(runs[f"tp-{TP_GRAD_ARCH}"],
-                           _reference_loss(runs["tp_jobs"][TP_GRAD_ARCH]))
+    _assert_loss_and_grads(runs[f"tp-{TP_GRAD_ARCH}"], runs["tp_want"][TP_GRAD_ARCH])

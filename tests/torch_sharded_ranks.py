@@ -6,7 +6,8 @@ in import neither ``jax`` nor ``repro``; the test computes the one-device
 and reference trajectories in its own process.  A job is a dict:
 
 - ``train``: ``arch`` (smoke config, f32) on ``mesh`` (make_train_mesh
-  keywords) with ``fsdp``, ``grad_accum``, ``batch`` x ``seq`` global
+  keywords) with ``fsdp``, the ruleset's ``overrides``, ``grad_accum``,
+  ``batch`` x ``seq`` global
   batches of ``make_batch_np`` and ``steps`` AdamW steps at ``opt``, from
   seed 0 or from full ``params`` (NumPy, the reference's weights);
   returns every step's metrics, the rank's coordinates, its init blocks,
@@ -29,8 +30,8 @@ and reference trajectories in its own process.  A job is a dict:
   ``prompt``, also the meshed prefill's next-token logits, and ``prompt``
   fed through the meshed decode step into a ``context``-slot state
   followed by ``new`` greedy tokens (every step's logits and token), with
-  the rank's KV cache shape and the ring's positions after the prompt and
-  at the end.
+  the shapes of the rank's decode state and, where it has a KV cache, the
+  ring's positions after the prompt and at the end.
 """
 from __future__ import annotations
 
@@ -56,9 +57,10 @@ def _np(tree) -> dict:
 def _train(rank: int, job: dict) -> dict:
     model = Model(get_config(job["arch"], smoke=True))
     mesh = make_train_mesh(device="cpu", **job["mesh"])
+    rules = default_rules(model.cfg, mesh, fsdp=job.get("fsdp", False)).with_overrides(
+        **job.get("overrides", {}))
     tr = Trainer(model, mesh, TrainConfig(opt=AdamWConfig(**job["opt"]), log_every=1,
-                                          grad_accum=job.get("grad_accum", 1)),
-                 fsdp=job.get("fsdp", False))
+                                          grad_accum=job.get("grad_accum", 1)), rules=rules)
     if "params" in job:
         params, state = tr.shard(from_numpy(job["params"], "cpu"))
     else:
@@ -221,13 +223,18 @@ def _tp_ref(rank: int, job: dict) -> dict:
     logits, tokens = [], []
     for i in range(prompt.shape[1]):
         tok, lg, state = step(blocks, state, prompt[:, i])
-    out["prompt_positions"] = state.kv.positions.numpy().copy()
+    if state.kv is not None:
+        out["prompt_positions"] = state.kv.positions.numpy().copy()
     for _ in range(job["new"]):
         logits.append(lg.numpy())
         tokens.append(tok.numpy())
         tok, lg, state = step(blocks, state, tok)
-    out.update(logits=logits, tokens=tokens, cache=tuple(state.kv.k.shape),
-               positions=state.kv.positions.numpy())
+    out.update(logits=logits, tokens=tokens,
+               state={f"{part}.{name}": tuple(getattr(getattr(state, part), name).shape)
+                      for part in ("kv", "ssm", "rwkv") if getattr(state, part) is not None
+                      for name in getattr(state, part)._fields})
+    if state.kv is not None:
+        out.update(cache=tuple(state.kv.k.shape), positions=state.kv.positions.numpy())
     return out
 
 
