@@ -2853,6 +2853,14 @@ SHARD_SMOKE = ("qwen3-4b", "hubert-xlarge", "olmoe-1b-7b")
 SHARD_SMOKE_STEPS = 2
 SHARD_OPT32 = dict(lr=1e-4, eps=1e-6, warmup_steps=1, total_steps=8)
 SHARD_TOL32 = dict(loss=1e-5, leaf=1e-4)
+# FSDP serving on the cut at data=2 (the row replicated on both ranks): prefill
+# 1 x TP_PREFILL, a one-token prompt and FSDP_NEW greedy tokens, one profiled;
+# every decode step gathers the whole cut unit by unit over gloo (~3.2 GB)
+FSDP_PROMPT, FSDP_NEW, FSDP_PROFILED = 1, 4, 1
+# the per-rank peaks of the step that gathered every leaf whole before the
+# forward (the cut at data=2 on two gloo ranks of one H100 80GB HBM3 at 700 W;
+# olmoe-1b-7b whole at FSDP data=4 over NCCL on four), printed beside this run's
+PEAK_WHOLE_GATHER = {"qwen3-4b cut": 15.909e9, "olmoe-1b-7b": 49.135e9}
 
 
 def _resident(*trees) -> int:
@@ -2894,6 +2902,7 @@ def _shard_width(rank: int, job: dict, device: str) -> dict:
                            log=lambda i, m: metrics.append(m))
     counts = K.launch_counts()
     peak = torch.cuda.max_memory_allocated(dev)
+    feed = tr.feed.summary() if tr.feed is not None else None
     st = tr.latency_summary()
     batch = make_batch_np(cfg, data, job["steps"])
     # the step's arguments at rest: blocks, moments, AdamW's scalars, the rank's rows
@@ -2915,7 +2924,7 @@ def _shard_width(rank: int, job: dict, device: str) -> dict:
             copy_us += _device_us(e) if "memcpy" in e.key.lower() else 0.0
             nccl_us += _device_us(e) if "nccl" in e.key.lower() else 0.0
     return dict(busy_ms=busy_us / 1e3, copy_ms=copy_us / 1e3, nccl_ms=nccl_us / 1e3,
-                metrics=metrics, counts=counts, peak=peak, step_ms=st.mean * 1e3,
+                metrics=metrics, counts=counts, peak=peak, feed=feed, step_ms=st.mean * 1e3,
                 step_cv=st.cv, init_s=init_s, resident=_resident(params, state.mu, state.nu),
                 arguments=arguments, prof_wall_ms=wall_ms, collectives=coll)
 
@@ -3014,27 +3023,41 @@ def phase_sharded_train(dev, smi: str) -> dict:
        the same cut: each rank's resident bytes of parameter and moment
        blocks exactly half the one rank's but for the leaves no rule
        splits (q_norm/k_norm), each step's loss within SHARD_BAND, launch
-       counts held to steps x train_launches on each rank; per-rank peak
-       memory, step wall, and the collectives' share of a step (the
-       layout's ``collective:*`` ranges in torch.profiler).  Then at f32 on
+       counts held to steps x train_launches on each rank; the step runs
+       through the FSDP feed (``distributed/fsdp.py``: a unit gathered where
+       it is used, its gradient reduced in the backward), whose high-water
+       mark of gathered bytes (alone and with the gradients being reduced)
+       equals the dry-run's plan of the rank's step to the byte, and whose
+       per-rank peak (``torch.cuda.max_memory_allocated``, printed beside
+       the whole-gather step's 15.909 GB) is held under arguments + the
+       feed's high-water + (one rank's peak - its arguments); step wall,
+       and the collectives' share of a step (the layout's
+       ``collective:*`` ranges in torch.profiler).  In the same group,
+       FSDP serving on the cut: prefill 1 x TP_PREFILL, then FSDP_NEW greedy
+       tokens through the meshed decode step, judged by ``_serve_ties``
+       against one rank, logits within SERVE_BAND, launches held, the
+       feed's marks the dry-run's.  Then at f32 on
        smoke qwen3-4b, hubert-xlarge and olmoe-1b-7b, two ranks against one
        rank on the card: loss within 1e-5 relative, every leaf within 1e-4
        of its largest element after SHARD_SMOKE_STEPS steps;
     3. with two cards or more, olmoe-1b-7b at full depth (16 layers), FSDP
-       with data = the card count over NCCL; on one card one line says
-       that it was skipped and why.
+       with data = the card count over NCCL (its peak printed beside the
+       whole-gather step's 49.135 GB); on one card one line says that it
+       was skipped and why.
 
-    Returns the two-rank run's launches, summed over the ranks, under
-    ``train_sharded:qwen3-4b``, and the one rank's run of the cut (phase
-    10b trains the same cut tensor-parallel against it)."""
+    Returns the two-rank runs' launches, summed over the ranks, under
+    ``train_sharded:qwen3-4b`` and ``fsdp_serve:qwen3-4b``, and the one
+    rank's run of the cut (phase 10b trains the same cut tensor-parallel
+    against it)."""
     import tempfile
 
-    from repro_torch.configs import get_config
+    from repro_torch.configs import InputShape, get_config
     from repro_torch.distributed import default_rules, layout, shard_params_spec
     from repro_torch.distributed.spawn import run_ranks
+    from repro_torch.launch.lowering import build_lowered
     from repro_torch.launch.mesh import LogicalMesh, make_train_mesh
     from repro_torch.models import Model
-    from repro_torch.train import (AdamWConfig, DataConfig, TrainConfig, Trainer,
+    from repro_torch.train import (AdamWConfig, DataConfig, TrainConfig, Trainer, make_batch_np,
                                    synthetic_batches)
     from repro_torch.train.optimizer import _walk
 
@@ -3089,11 +3112,23 @@ def phase_sharded_train(dev, smi: str) -> dict:
         f"{one_step.mean * 1e3:.3f} ms; params+moments {one_bytes / 1e9:.3f} GB; peak "
         f"{one_peak / 1e9:.3f} GB")
 
+    # the one rank's step arguments: parameters, moments, AdamW's two scalars, the batch
+    one_args = one_bytes + 8 + sum(v.nbytes for v in make_batch_np(
+        cfg, DataConfig(SHARD_B, SHARD_S), 0).values())
+    # one rank serving the cut, before the ranks start
+    tokens = np.random.default_rng(6).integers(0, cfg.vocab_size, (1, TP_PREFILL)).astype(
+        np.int32)
+    ref = _one_rank_serve(dev, cfg, tokens, FSDP_PROMPT)
+    torch.cuda.empty_cache()
+
     smoke_jobs = [dict(kind="smoke", cfg=get_config(a, smoke=True),
                        opt=AdamWConfig(**SHARD_OPT32), data=2, batch=4, seq=64,
                        steps=SHARD_SMOKE_STEPS) for a in SHARD_SMOKE]
     jobs = [dict(kind="width", cfg=cfg, opt=opt, data=2, batch=SHARD_B, seq=SHARD_S,
-                 steps=SHARD_STEPS)] + smoke_jobs
+                 steps=SHARD_STEPS),
+            dict(kind="tp_serve", cfg=cfg, mesh=dict(data=2), fsdp=True, tokens=tokens,
+                 prompt=FSDP_PROMPT, force=ref["tokens"][:FSDP_NEW], context=TP_CONTEXT,
+                 profiled=FSDP_PROFILED)] + smoke_jobs
     with tempfile.TemporaryDirectory() as d:
         t1 = time.perf_counter()
         ranks = run_ranks(_sharded_ranks, 2, init_file=str(Path(d) / "pg"), backend="gloo",
@@ -3102,10 +3137,28 @@ def phase_sharded_train(dev, smi: str) -> dict:
     per_step = train_launches(model)
     want = {k: SHARD_STEPS * v for k, v in per_step.items()}
     total = dict.fromkeys(KERNELS, 0)
+    mesh2 = LogicalMesh((2, 1), ("data", "model"))
     for r, res in enumerate(ranks):
         w = res[0]
         if w["counts"] != want:
             raise AssertionError(f"sharded: rank {r} launches {w['counts']}, expected {want}")
+        # the feed against the dry-run's plan of this rank's step, and the peak under it
+        lowered = build_lowered("qwen3-4b", InputShape("fsdp_train", SHARD_S, SHARD_B, "train"),
+                                mesh2, cfg_overrides={"num_layers": SHARD_LAYERS}, fsdp=True,
+                                grad_accum=1, rank=r)
+        plan, feed = lowered.feed, w["feed"]
+        if (feed["high"], feed["high_total"], feed["gathers"], feed["reductions"]) != (
+                plan.high, plan.high_total, plan.gathers, plan.reductions):
+            raise AssertionError(f"sharded: rank {r} feed {feed} against the dry-run's plan "
+                                 f"{plan.summary()}")
+        if w["arguments"] != sum(lowered.resident.values()):
+            raise AssertionError(f"sharded: rank {r} holds {w['arguments']} bytes of step "
+                                 f"arguments, the dry-run's are {lowered.resident}")
+        peak_cap = w["arguments"] + feed["high_total"] + (one_peak - one_args)
+        if w["peak"] > peak_cap:
+            raise AssertionError(f"sharded: rank {r} peak {w['peak']} above its arguments "
+                                 f"{w['arguments']} + the feed's high-water {feed['high_total']} "
+                                 f"+ one rank's peak above its arguments {one_peak - one_args}")
         for k in KERNELS:
             total[k] += w["counts"][k]
         if w["resident"] != want_bytes:
@@ -3124,7 +3177,14 @@ def phase_sharded_train(dev, smi: str) -> dict:
             f"GB ({w['resident'] / one_bytes:.6f} of one rank's; {whole_bytes} bytes in leaves "
             f"no rule splits); losses {[round(m['loss'], 6) for m in w['metrics']]} (relative "
             f"to one rank {rel}, band {SHARD_BAND}); step mean {w['step_ms']:.3f} ms (cv {w['step_cv']:.4f}; one rank "
-            f"{one_step.mean * 1e3:.3f} ms); peak {w['peak'] / 1e9:.3f} GB; init {w['init_s']:.1f}s")
+            f"{one_step.mean * 1e3:.3f} ms); peak {w['peak'] / 1e9:.3f} GB (the whole-gather "
+            f"step's {PEAK_WHOLE_GATHER['qwen3-4b cut'] / 1e9:.3f}; held under "
+            f"{peak_cap / 1e9:.3f} = arguments {w['arguments'] / 1e9:.3f} + feed "
+            f"{feed['high_total'] / 1e9:.3f} + one rank's {(one_peak - one_args) / 1e9:.3f}); "
+            f"feed: gathered units at once {feed['high']} bytes, with the gradients being "
+            f"reduced {feed['high_total']} = the dry-run's plan; gathers a step "
+            f"{sum(feed['gathers'].values())}, reductions {sum(feed['reductions'].values())} "
+            f"(dry-run gathered {lowered.gathered}); init {w['init_s']:.1f}s")
         log(f"{tag} rank {r} profiled step {w['prof_wall_ms']:.3f} ms wall: device busy "
             f"{w['busy_ms']:.3f} ms ({w['busy_ms'] / w['prof_wall_ms']:.3f}; {w['copy_ms']:.3f} ms "
             f"of it copies), collectives "
@@ -3136,13 +3196,54 @@ def phase_sharded_train(dev, smi: str) -> dict:
     log(f"{tag} two ranks: launches {nz(total)} (a rank a step: {nz(per_step)}); one rank's "
         f"{nz(one_counts)}; spawn to results {spawn_s:.1f}s")
 
+    # ---- FSDP serving on the cut against one rank
+    serve = dict.fromkeys(KERNELS, 0)
+    want_pre, per_token = serve_launches(model)
+    want_all = {k: want_pre[k] + (FSDP_PROMPT + FSDP_NEW) * per_token[k] for k in KERNELS}
+    ref_n = dict(tokens=ref["tokens"][:FSDP_NEW], logits=ref["logits"][:FSDP_NEW])
+    plans = {kind: build_lowered("qwen3-4b", InputShape(f"fsdp_{kind}", n, 1, kind), mesh2,
+                                 cfg_overrides={"num_layers": SHARD_LAYERS}, fsdp=True).feed
+             for kind, n in (("prefill", TP_PREFILL), ("decode", TP_CONTEXT))}
+    for r, res in enumerate(ranks):
+        w = res[1]
+        if w["after_prefill"] != want_pre or w["counts"] != want_all:
+            raise AssertionError(f"sharded: FSDP serving rank {r} launches {w['after_prefill']} "
+                                 f"/ {w['counts']}, expected {want_pre} / {want_all}")
+        for k in KERNELS:
+            serve[k] += w["counts"][k]
+        for kind, plan in plans.items():
+            got = w["feeds"][kind]
+            if (got["high"], got["gathers"]) != (plan.high, plan.gathers):
+                raise AssertionError(f"sharded: FSDP {kind} rank {r} feed {got} against the "
+                                     f"dry-run's plan {plan.summary()}")
+        clear, ties = _serve_ties(w, ref_n)
+        pre_rel = _rel(w["prefill"], ref["prefill"])
+        step_rel = max(_rel(a, b) for a, b in zip(w["logits"], ref_n["logits"]))
+        if not (pre_rel <= SERVE_BAND and step_rel <= SERVE_BAND):
+            raise AssertionError(f"sharded: FSDP serving rank {r} logits differ from one rank's "
+                                 f"by {pre_rel:.3e} (prefill), {step_rel:.3e} (decode)")
+        coll_ms = sum(v[0] for v in w["collectives"].values())
+        log(f"{tag} FSDP serving rank {r} of data=2 (the row on both ranks): prefill 1 x "
+            f"{TP_PREFILL} {w['prefill_ms']:.3f} ms (one rank {ref['prefill_ms']:.3f}); greedy "
+            f"tokens equal to one rank's at the {clear} of {FSDP_NEW} steps with a clear margin, "
+            f"{len(ties)} tie(s) {ties}; logits within {pre_rel:.3e} (prefill), {step_rel:.3e} "
+            f"(decode) of the largest (band {SERVE_BAND}); token {w['token_ms']:.3f} ms (one "
+            f"rank {ref['token_ms']:.3f}); feed's gathered units at once "
+            f"{w['feeds']['prefill']['high']} bytes (prefill), {w['feeds']['decode']['high']} (a "
+            f"decode step) = the dry-run's; "
+            f"resident params {w['resident'] / 1e9:.3f} GB; peak {w['peak'] / 1e9:.3f} GB; "
+            f"{FSDP_PROFILED} profiled token {w['prof_ms']:.3f} ms, collectives {coll_ms:.3f} ms: "
+            + ", ".join(f"{k[11:]} {v[0]:.3f} ms x{v[1]}"
+                        for k, v in sorted(w["collectives"].items()))
+            + f"; launches {nz(w['counts'])}")
+
     # ---- f32 smoke: two ranks against one rank on the card
     for j, arch in enumerate(SHARD_SMOKE):
         m1, p1 = _one_rank_smoke(dev, arch, SHARD_SMOKE_STEPS, 4, 64)
-        got = ranks[0][1 + j]
+        got = ranks[0][2 + j]
         worst_loss = 0.0
         for r in range(2):
-            for a, b in zip(ranks[r][1 + j]["metrics"], m1):
+            for a, b in zip(ranks[r][2 + j]["metrics"], m1):
                 rel = abs(a["loss"] - b["loss"]) / abs(b["loss"])
                 worst_loss = max(worst_loss, rel)
                 if not rel <= SHARD_TOL32["loss"]:
@@ -3166,9 +3267,9 @@ def phase_sharded_train(dev, smi: str) -> dict:
     else:
         sharded_many_cards(smi, n)
     log(f"{tag} phase {time.perf_counter() - t0:.1f}s")
-    return {"train_sharded:qwen3-4b": total}, dict(model=model, opt=opt, one=one,
-                                                   one_bytes=one_bytes, one_step=one_step,
-                                                   one_peak=one_peak, one_counts=one_counts)
+    return {"train_sharded:qwen3-4b": total, "fsdp_serve:qwen3-4b": serve}, dict(
+        model=model, opt=opt, one=one, one_bytes=one_bytes, one_step=one_step, one_peak=one_peak,
+        one_counts=one_counts)
 
 
 def sharded_many_cards(smi: str, n: int) -> None:
@@ -3176,12 +3277,15 @@ def sharded_many_cards(smi: str, n: int) -> None:
     data = n, one rank per card over NCCL, global batch n x SHARD_S,
     SHARD_STEPS steps at TRAIN_LR: launches held to steps x
     train_launches on every rank, every metric finite and equal on every
-    rank; per rank resident bytes, peak memory, step wall and the
-    collectives' share of a profiled step."""
+    rank, the feed's high-water marks the dry-run's plan; per rank
+    resident bytes, peak memory (beside the whole-gather step's 49.135 GB),
+    step wall and the collectives' share of a profiled step."""
     import tempfile
 
-    from repro_torch.configs import get_config
+    from repro_torch.configs import InputShape, get_config
     from repro_torch.distributed.spawn import run_ranks
+    from repro_torch.launch.lowering import build_lowered
+    from repro_torch.launch.mesh import LogicalMesh
     from repro_torch.models import Model
     from repro_torch.train import AdamWConfig
 
@@ -3203,12 +3307,21 @@ def sharded_many_cards(smi: str, n: int) -> None:
             raise AssertionError(f"sharded: olmoe rank {r} metrics not finite: {w['metrics']}")
         if w["metrics"] != res[0][0]["metrics"]:
             raise AssertionError(f"sharded: olmoe ranks 0 and {r} report other metrics")
+        plan = build_lowered("olmoe-1b-7b", InputShape("fsdp_train", SHARD_S, n, "train"),
+                             LogicalMesh((n, 1), ("data", "model")), fsdp=True, grad_accum=1,
+                             rank=r).feed
+        if (w["feed"]["high"], w["feed"]["high_total"]) != (plan.high, plan.high_total):
+            raise AssertionError(f"sharded: olmoe rank {r} feed {w['feed']} against the "
+                                 f"dry-run's plan {plan.summary()}")
         coll_ms = sum(v[0] for v in w["collectives"].values())
         log(f"[sharded] ({smi}) olmoe-1b-7b at full depth ({moe.num_layers} layers, "
             f"{pm.num_params() / 1e9:.3f}B params), FSDP data={n} over NCCL, rank {r} on "
             f"cuda:{r}: losses {[round(m['loss'], 6) for m in w['metrics']]}; "
             f"drop_fraction {[round(m['drop_fraction'], 4) for m in w['metrics']]}; resident "
-            f"params+moments {w['resident'] / 1e9:.3f} GB; peak {w['peak'] / 1e9:.3f} GB; step "
+            f"params+moments {w['resident'] / 1e9:.3f} GB; peak {w['peak'] / 1e9:.3f} GB (the "
+            f"whole-gather step's {PEAK_WHOLE_GATHER['olmoe-1b-7b'] / 1e9:.3f}); feed: gathered "
+            f"units at once {w['feed']['high'] / 1e9:.3f} GB, with the gradients being reduced "
+            f"{w['feed']['high_total'] / 1e9:.3f} GB; step "
             f"mean {w['step_ms']:.3f} ms (cv {w['step_cv']:.4f}); profiled step "
             f"{w['prof_wall_ms']:.3f} ms, device busy {w['busy_ms']:.3f} ms ({w['copy_ms']:.3f} ms "
             f"copies, {w['nccl_ms']:.3f} ms NCCL kernels); collectives' host ranges "
@@ -3300,7 +3413,7 @@ def _tp_serve(rank: int, job: dict, device: str) -> dict:
     dev = torch.device(device)
     model = Model(job["cfg"])
     mesh = make_train_mesh(device=dev, **job["mesh"])
-    rules = default_rules(model.cfg, mesh)
+    rules = default_rules(model.cfg, mesh, fsdp=job.get("fsdp", False))
     spec = shard_params_spec(model, rules)
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
@@ -3316,6 +3429,7 @@ def _tp_serve(rank: int, job: dict, device: str) -> dict:
     torch.cuda.synchronize(dev)
     prefill_ms = (time.perf_counter() - t0) * 1e3
     after_prefill = K.launch_counts()
+    feeds = {"prefill": prefill.feed.summary() if prefill.feed is not None else None}
     state = model.init_decode_state(tokens.shape[0], job["context"], dev, mesh=mesh,
                                     rules=rules)
     for i in range(job["prompt"]):
@@ -3329,13 +3443,14 @@ def _tp_serve(rank: int, job: dict, device: str) -> dict:
         torch.cuda.synchronize(dev)
         walls.append(time.perf_counter() - t0)
     counts = K.launch_counts()
+    feeds["decode"] = step.feed.summary() if step.feed is not None else None
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(TP_PROFILED_TOKENS):
+        for _ in range(job.get("profiled", TP_PROFILED_TOKENS)):
             tok, lg, state = step(params, state, tok)
         torch.cuda.synchronize(dev)
         prof_ms = (time.perf_counter() - t0) * 1e3
-    return dict(prefill=pre.float().cpu().numpy(), logits=logits, tokens=out,
+    return dict(prefill=pre.float().cpu().numpy(), logits=logits, tokens=out, feeds=feeds,
                 after_prefill=after_prefill, counts=counts, init_s=init_s,
                 prefill_ms=prefill_ms, token_ms=statistics.mean(walls) * 1e3,
                 resident=_resident(params), peak=torch.cuda.max_memory_allocated(dev),

@@ -40,7 +40,8 @@ the module at call time inside a ``collective:<op>`` profiler range, so
 
 ``split_spec`` divides a leaf's spec into the part the layer computes on
 (the TP axes mapped to ``model``: the leaf stays a block along them) and
-the rest (the data axes under FSDP: gathered before the step, as before).
+the rest (the data axes under FSDP: gathered unit by unit by the feed,
+``distributed/fsdp.py``).
 """
 from __future__ import annotations
 
@@ -195,8 +196,8 @@ def merge_partials(out: torch.Tensor, lse: torch.Tensor,
 def split_spec(axes: tuple, spec: tuple, mesh) -> tuple[tuple, tuple]:
     """(``keep``, ``rest``) of a leaf with logical ``axes`` under ``spec``:
     ``keep`` the dims a TP axis splits over ``model`` alone (the layer
-    computes on the block), ``rest`` every other split (gathered before
-    the step).  A TP axis split over ``model`` together with another axis
+    computes on the block), ``rest`` every other split (gathered by the
+    FSDP feed).  A TP axis split over ``model`` together with another axis
     raises."""
     keep, rest = [], []
     for a, e in zip(axes, spec):

@@ -71,8 +71,13 @@ def run_one(arch: str, shape: str, mesh_kind: str, overrides=None, fsdp=None, gr
         rec.update(status="ok", lower_s=round(t_lower, 1), fsdp=step.fsdp,
                    grad_accum=step.grad_accum)
         mem = rec["memory_analysis"]
+        feed = (f": the feed's units {mem['gathered_params'] / 1e9:.3f} at once"
+                + (f" + {mem['gathered_feed_grads'] / 1e9:.3f} of gradients reduced"
+                   if "gathered_feed_grads" in mem else "")
+                + (f", block gradients {mem['gathered_grads'] / 1e9:.3f}"
+                   if "gathered_feed_grads" in mem else "")) if step.feed is not None else ""
         print(f"  per rank {mem['total'] / 1e9:.3f} GB (arguments {mem['arguments'] / 1e9:.3f}, "
-              f"gathered {mem['gathered'] / 1e9:.3f}, activations "
+              f"gathered {mem['gathered'] / 1e9:.3f}{feed}, activations "
               f"{mem.get('activations_estimate', 0.0) / 1e9:.3f}); fits {rec['fits']}")
         if analysis:
             print(f"  {report.bound_summary()}")

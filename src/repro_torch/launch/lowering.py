@@ -10,17 +10,26 @@ rank's shapes (``layout.block_shape`` of each leaf; the rank's rows of
 the batch).  It counts **the step the port runs**:
 
 * ``train_step`` — the meshed ``Trainer``'s step
-  (``train.loop.make_sharded_train_step``): the splits over the data axes
-  gathered, ``Model.loss`` and its gradient on the rank's rows
-  (``grad_accum`` microbatches) computed tensor-parallel over ``model``
-  (``distributed/tp.py``), the gradients
-  reduced to the rank's blocks, AdamW on the blocks;
+  (``train.loop.make_sharded_train_step``): ``Model.loss`` and its
+  gradient on the rank's rows (``grad_accum`` microbatches) computed
+  tensor-parallel over ``model`` (``distributed/tp.py``), each unit's
+  splits over the data axes gathered where it is used and its gradient
+  reduced to the rank's blocks in the backward (``distributed/fsdp.py``),
+  AdamW on the blocks;
 * ``prefill_step`` / ``serve_step`` — ``make_sharded_prefill`` and
   ``make_sharded_decode_step``, the reference's ``prefill`` and ``serve``
   closures as steps that ranks run: ``Model.prefill`` (next-token
   logits) or one ``Model.decode_step`` and its greedy token, on the
-  rank's blocks, rows of the batch and blocks of the decode state
-  (``decode_state_spec``).
+  rank's blocks (gathered unit by unit under FSDP), rows of the batch and
+  blocks of the decode state (``decode_state_spec``).
+
+``gathered`` is what a step holds beyond its arguments by the feed's
+plan (``fsdp.plan``, the bookkeeping the feed itself runs): ``params``
+the most gathered bytes live at once, ``feed_grads`` what the gradients
+being reduced add at the feed's peak, and for training ``grads`` the
+block-gradient buffers (without a feed: every gradient at the shape the
+model takes the leaf).  ``LoweredStep.feed`` is that plan, with the
+gathers and reductions per unit.
 
 Collectives are not issued: while a step is counted, ``layout``'s
 ``all_gather_flat``/``reduce_scatter_flat`` and ``dist.all_reduce`` are
@@ -43,12 +52,13 @@ import torch.distributed as dist
 from repro_torch.analysis.cert.costs import Counts, count_program
 from repro_torch.configs import SHAPES, InputShape, get_config, input_specs, shape_applicability
 from repro_torch.distributed import layout
+from repro_torch.distributed.fsdp import Feed, Schedule, plan as feed_plan
 from repro_torch.distributed.mesh import LogicalMesh, TrainMesh
 from repro_torch.distributed.sharding import (Ruleset, _data_or_replicated, axis_size,
                                               default_rules, shard_params_spec)
 from repro_torch.models import Model
 from repro_torch.models.params import ParamSpec, resolve_dtype
-from repro_torch.train.loop import MeshedLayout, _rebuild, make_sharded_train_step
+from repro_torch.train.loop import MeshedLayout, make_sharded_train_step
 from repro_torch.train.optimizer import AdamWConfig, AdamWState, _walk
 
 __all__ = ["LoweredStep", "build_lowered", "param_shapes", "opt_shapes", "auto_policies",
@@ -160,7 +170,7 @@ def record_collectives(table: dict):
         rec["bytes"] += float(t.numel() * t.element_size())
 
     saved = (layout.all_gather_flat, layout.reduce_scatter_flat, dist.all_reduce)
-    layout.all_gather_flat = lambda out, inp, group: bump("all_gather", out)
+    layout.all_gather_flat = lambda out, inp, group, async_op=False: bump("all_gather", out)
     layout.reduce_scatter_flat = lambda out, inp, group: bump("reduce_scatter", out)
     dist.all_reduce = lambda t, *a, **kw: bump("all_reduce", t)
     try:
@@ -185,8 +195,9 @@ class LoweredStep:
     fsdp: bool
     grad_accum: int
     resident: dict                # per-rank bytes at rest by part
-    gathered: dict                # per-rank bytes a step gathers or makes full
+    gathered: dict                # per-rank bytes a step holds beyond them
     input_shape: InputShape
+    feed: Optional[Schedule] = None   # the feed's plan, where the step has one
 
     def count(self) -> tuple[Counts, dict]:
         """The step counted on fake tensors, and its collective table."""
@@ -225,17 +236,28 @@ def _rows(batch: dict, mesh, rules, grad_accum: int = 1) -> dict:
     return out
 
 
+def _fed(feed: Optional[Feed], params: dict):
+    """The step's feed bound to ``params`` (a fresh count), or nothing."""
+    if feed is None:
+        return contextlib.nullcontext()
+    feed.reset()
+    return feed.step(params)
+
+
 def make_sharded_prefill(model: Model, mesh: TrainMesh, param_spec: dict) -> Callable:
     """The reference's ``prefill`` closure as a step that a rank runs:
     ``(param blocks laid out by param_spec, the rank's rows of the batch)
     → next-token logits (rows, vocab)``, every rank of a data row the
-    same (tensor-parallel over ``model``)."""
+    same (tensor-parallel over ``model``).  ``prefill.feed`` is its feed
+    (None where no leaf is split over the data axes)."""
     lay = MeshedLayout(model, mesh, param_spec)
+    feed = lay.feed("prefill")
 
     def prefill(params: dict, batch: dict) -> torch.Tensor:
-        with torch.no_grad():
-            return lay.net.prefill(_rebuild(params, iter(lay.local(params))), batch)
+        with torch.no_grad(), _fed(feed, params):
+            return lay.net.prefill(params, batch)
 
+    prefill.feed = feed
     return prefill
 
 
@@ -243,16 +265,18 @@ def make_sharded_decode_step(model: Model, mesh: TrainMesh, param_spec: dict) ->
     """The reference's ``serve`` closure as a step that a rank runs:
     ``(param blocks, decode state blocks (Model.init_decode_state with the
     mesh and rules), the rank's rows of tokens) → (greedy next tokens
-    int32, their logits, state)``, the state updated in place."""
+    int32, their logits, state)``, the state updated in place.
+    ``serve.feed`` is its feed, as ``make_sharded_prefill``'s."""
     lay = MeshedLayout(model, mesh, param_spec)
+    feed = lay.feed("decode")
 
     def serve(params: dict, state, tokens: torch.Tensor):
-        with torch.no_grad():
-            logits, state = lay.net.decode_step(_rebuild(params, iter(lay.local(params))),
-                                                state, tokens)
+        with torch.no_grad(), _fed(feed, params):
+            logits, state = lay.net.decode_step(params, state, tokens)
             nxt = torch.argmax(logits, -1).to(torch.int32)
         return nxt, logits, state
 
+    serve.feed = feed
     return serve
 
 
@@ -282,15 +306,25 @@ def build_lowered(arch: str, shape: str | InputShape, mesh: LogicalMesh, *,
     resident = {"params": _tree_bytes(blocks)}
     lay = MeshedLayout(model, view, spec)
     psize = resolve_dtype(cfg.param_dtype).itemsize
-    # the leaves a step gathers over the data axes (at the shape the model
-    # takes them); for training also its gradients before the reduction
-    gathered = {"params": lay.gathered_bytes(psize)}
+    train = shape.kind == "train"
+    data = rules.lookup("batch")
+    data_axes = () if data is None else ((data,) if isinstance(data, str) else tuple(data))
+    # what the step holds beyond its arguments: the feed's plan (module
+    # docstring)
+    feed = Feed.of(lay, view, cfg, shape.kind, data_axes if train else ())
+    plan = feed_plan(feed.units, feed.order, train, grad_accum) if feed is not None else None
+    gathered = {"params": float(plan.high) if plan else 0.0}
     batch = input_specs(cfg, shape)
 
-    if shape.kind == "train":
+    if train:
         opt = opt_shapes(blocks)
         resident["adamw"] = _tree_bytes({"mu": opt.mu, "nu": opt.nu}) + 8.0
-        gathered["grads"] = float(sum(math.prod(sh) for *_, sh in lay.items) * psize)
+        if plan is None:
+            gathered["grads"] = float(sum(math.prod(sh) for *_, sh in lay.items) * psize)
+        else:
+            gathered["feed_grads"] = float(plan.high_total - plan.high)
+            # the block-gradient buffers: the blocks' dtype, f32 to accumulate
+            gathered["grads"] = resident["params"] * (1 if grad_accum <= 1 else 4 / psize)
         rows = _rows(batch, view, rules, grad_accum)
         resident["batch"] = _tree_bytes(rows)
         fn = make_sharded_train_step(model, AdamWConfig(), view, rules, spec, grad_accum)
@@ -315,7 +349,7 @@ def build_lowered(arch: str, shape: str | InputShape, mesh: LogicalMesh, *,
     return LoweredStep(arch=arch, shape=shape.name, mesh_desc=mesh_desc, kind=kind, fn=fn,
                        args=args, cfg=cfg, mesh=view, rules=rules, fsdp=fsdp,
                        grad_accum=grad_accum, resident=resident, gathered=gathered,
-                       input_shape=shape)
+                       input_shape=shape, feed=plan)
 
 
 def _leaves(x) -> list:

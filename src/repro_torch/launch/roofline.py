@@ -27,9 +27,10 @@ on every rank of a data row, keep it below 1.
 
 ``memory_analysis`` is per rank, in bytes: ``arguments`` (the rank's
 parameter blocks, AdamW moments, rows of the batch, decode state),
-``gathered`` (the leaves the step gathers over the data axes, and for
-training the gradients it makes before their reduction, at the shapes
-the model computes on), ``activations_estimate`` (the most that tensors saved for
+``gathered`` (what the step holds beyond them by the FSDP feed's plan,
+``launch.lowering``: the most gathered units at once, the gradients being
+reduced at that peak, and for training the block gradients),
+``activations_estimate`` (the most that tensors saved for
 backward hold at once, from the counter: an estimate, not an allocator's
 peak)
 and ``total``; ``fits`` is ``total <= hw.hbm_bytes``.

@@ -36,6 +36,13 @@ the loss a vocab-parallel cross-entropy; RWKV6 and Mamba2 on their heads
 and ``mlp`` columns (``rwkv6.py``, ``mamba2.py``), Zamba2's shared block as
 a dense layer.  The decode state is built at the rank's shapes by
 ``init_decode_state(..., mesh=, rules=)``.
+
+FSDP: ``Model(cfg, tp, feed)`` with a ``distributed.fsdp.Feed`` draws
+every leaf through the feed, unit by unit (the embedding, the projector,
+each layer or site, the shared block, the head): ``params`` are then the
+rank's blocks, and each unit is gathered over the data axes where it is
+used (``_run``, ``_unit``).  Without a feed the layers are views of the
+stacked leaves, as above.
 """
 from __future__ import annotations
 
@@ -147,6 +154,32 @@ def _remat(cfg: ModelConfig, fn, *args):
 class Model:
     cfg: ModelConfig
     tp: Optional[ModelParallel] = None
+    feed: Any = None
+
+    # ---------------- units (the feed's, or views of params) ----------------
+    def _unit(self, params: dict, name: str) -> dict:
+        """The leaves of a table unit (``embed``, ``projector``, ``shared``,
+        ``head``) under their top-level keys: ``params`` itself without a
+        feed."""
+        return params if self.feed is None else self.feed.leaves(name)
+
+    def _run(self, params: dict, name: str, fn, *args):
+        """``fn(the table unit's leaves, *args)``."""
+        if self.feed is None:
+            return fn(params, *args)
+        return self.feed.run(name, fn, *args)
+
+    def _stack(self, params: dict) -> Optional[list]:
+        """The layers (sites) as views of the stacked leaves, or None where
+        the feed gathers them (``_layer``)."""
+        return _unstack(params["layers"]) if self.feed is None else None
+
+    def _layer(self, layers: Optional[list], i: int, fn, *args, remat: bool = True):
+        """``fn(layer i's leaves, *args)``, under ``cfg.remat`` where grad
+        is on (not for the decode step)."""
+        if self.feed is None:
+            return _remat(self.cfg, fn, layers[i], *args) if remat else fn(layers[i], *args)
+        return self.feed.run(i, fn, *args, remat=remat and self.cfg.remat)
 
     # ---------------- specs ----------------
     def specs(self) -> dict:
@@ -226,15 +259,20 @@ class Model:
         cfg = self.cfg
         dtype = resolve_dtype(cfg.dtype)
         if cfg.family == "audio":
-            x = batch["frames"].to(dtype) @ params["frontend_proj"]
+            x = self._run(params, "embed", lambda p, f: f.to(dtype) @ p["frontend_proj"],
+                          batch["frames"])
             return x + _sinusoid(x.shape[1], cfg.d_model, x.device).to(dtype)
-        txt = self._embed(params, batch["tokens"]).to(dtype)
+        txt = self._run(params, "embed", self._embed, batch["tokens"]).to(dtype)
         if cfg.family != "vlm":
             return txt
-        proj = params["projector"]
-        img = batch["patch_embeds"].to(dtype) @ proj["w1"]
-        img = F.gelu(img.float(), approximate="tanh").to(dtype)   # jax.nn.gelu's default
-        return torch.cat([img @ proj["w2"], txt], dim=1)
+
+        def project(p: dict, patches: torch.Tensor) -> torch.Tensor:
+            img = patches.to(dtype) @ p["projector"]["w1"]
+            img = F.gelu(img.float(), approximate="tanh").to(dtype)   # jax.nn.gelu's default
+            return img @ p["projector"]["w2"]
+
+        return torch.cat([self._run(params, "projector", project, batch["patch_embeds"]), txt],
+                         dim=1)
 
     def _embed(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
         table = params["embed"]["table"]
@@ -253,6 +291,10 @@ class Model:
     def _head(self, params: dict, x: torch.Tensor) -> torch.Tensor:
         """Vocab logits (f32, exactly vocab_size columns; gathered over
         ``model`` where the head is split)."""
+        return self._logits(self._unit(params, "head"), x)
+
+    def _logits(self, params: dict, x: torch.Tensor) -> torch.Tensor:
+        """``_head`` on the head's leaves (``final_ln``, ``lm_head``)."""
         cfg = self.cfg
         tp, _, _ = self._vocab(params)
         x = L.rmsnorm(params["final_ln"], x, cfg.norm_eps)
@@ -275,12 +317,13 @@ class Model:
         positions = torch.arange(s, dtype=torch.int32, device=x.device)
         causal = not cfg.encoder_only
         window = cfg.effective_window(s)
+        layers = self._stack(params)
         if cfg.family == "ssm":
-            for lp in _unstack(params["layers"]):
-                x = _remat(cfg, rwkv6_block, lp, x, cfg, self.tp)
+            for i in range(cfg.num_layers):
+                x = self._layer(layers, i, rwkv6_block, x, cfg, self.tp)
             return x, {}
         if cfg.family == "hybrid":
-            shared = params["shared_attn"]
+            shared = self._unit(params, "shared")["shared_attn"]
 
             def site(site_params: dict, x: torch.Tensor) -> torch.Tensor:
                 for lp in _unstack(site_params):
@@ -292,8 +335,8 @@ class Model:
                 z = L.rmsnorm(shared["ln2"], x, cfg.norm_eps)
                 return x + self._shared_mlp(shared, z)
 
-            for site_params in _unstack(params["layers"]):
-                x = _remat(cfg, site, site_params, x)
+            for i in range(self.n_attn_sites()):
+                x = self._layer(layers, i, site, x)
             return x, {}
 
         def layer(lp: dict, x: torch.Tensor) -> tuple[torch.Tensor, dict]:
@@ -304,8 +347,8 @@ class Model:
             return x + y, aux
 
         auxs = []
-        for lp in _unstack(params["layers"]):
-            x, aux = _remat(cfg, layer, lp, x)
+        for i in range(cfg.num_layers):
+            x, aux = self._layer(layers, i, layer, x)
             auxs.append(aux)
         return x, {k: torch.stack([a[k] for a in auxs]).mean() for k in auxs[0]}
 
@@ -338,7 +381,7 @@ class Model:
         over ``model``."""
         tp, v0, nv = self._vocab(params)
         if tp is None:
-            logits = self._head(params, h)
+            logits = self._logits(params, h)
             lse = torch.logsumexp(logits, dim=-1)
             picked = logits.gather(-1, t.long()[..., None])[..., 0]
             return ((lse - picked) * m).sum()
@@ -370,6 +413,8 @@ class Model:
             chunk -= 1
         if mask is None:
             mask = torch.ones(targets.shape, dtype=torch.float32, device=targets.device)
+        # the head, gathered once and taken by every chunk as an input
+        params = self._unit(params, "head")
         tot = cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
         for i in range(0, s, chunk):
             args = (params, hidden[:, i:i + chunk], targets[:, i:i + chunk], mask[:, i:i + chunk])
@@ -462,12 +507,13 @@ class Model:
         caches and recurrent states in place and returns it with the
         logits (B, vocab)."""
         cfg = self.cfg
-        x = self._embed(params, tokens[:, None]).to(resolve_dtype(cfg.dtype))
+        x = self._run(params, "embed", self._embed, tokens[:, None]).to(resolve_dtype(cfg.dtype))
+        layers = self._stack(params)
         if cfg.family == "ssm":
             st = state.rwkv
-            for i, lp in enumerate(_unstack(params["layers"])):
-                x = rwkv6_decode_step(lp, x, cfg, st.s[i], st.shift_t[i], st.shift_c[i],
-                                      self.tp)
+            for i in range(cfg.num_layers):
+                x = self._layer(layers, i, lambda lp, x, i: rwkv6_decode_step(
+                    lp, x, cfg, st.s[i], st.shift_t[i], st.shift_c[i], self.tp), x, i, remat=False)
             return self._head(params, x)[:, 0], state
 
         cache = state.kv
@@ -475,8 +521,9 @@ class Model:
         slot = cache_write_slot(cache.positions, cache.next_pos)
         cache.positions.index_copy_(0, slot, cache.next_pos.reshape(1))
         if cfg.family == "hybrid":
-            ssm, shared = state.ssm, params["shared_attn"]
-            for site, site_params in enumerate(_unstack(params["layers"])):
+            ssm, shared = state.ssm, self._unit(params, "shared")["shared_attn"]
+
+            def site_step(site_params: dict, x: torch.Tensor, site: int) -> torch.Tensor:
                 for j, lp in enumerate(_unstack(site_params)):
                     i = site * cfg.attn_every + j
                     z = L.rmsnorm(lp["ln"], x, cfg.norm_eps)
@@ -487,14 +534,20 @@ class Model:
                     shared["attn"], z, cfg, cache.k[site], cache.v[site], cache.positions,
                     cache.next_pos, slot, window, self.tp)
                 z = L.rmsnorm(shared["ln2"], x, cfg.norm_eps)
-                x = x + self._shared_mlp(shared, z)
+                return x + self._shared_mlp(shared, z)
+
+            for site in range(self.n_attn_sites()):
+                x = self._layer(layers, site, site_step, x, site, remat=False)
         else:
-            for i, lp in enumerate(_unstack(params["layers"])):
+            def layer_step(lp: dict, x: torch.Tensor, i: int) -> torch.Tensor:
                 h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
                 x = x + decode_attention_block(
                     lp["attn"], h, cfg, cache.k[i], cache.v[i], cache.positions,
                     cache.next_pos, slot, window, self.tp)
                 h = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
-                x = x + _ffn(cfg, lp, h, self.tp)[0]
+                return x + _ffn(cfg, lp, h, self.tp)[0]
+
+            for i in range(cfg.num_layers):
+                x = self._layer(layers, i, layer_step, x, i, remat=False)
         cache.next_pos.add_(1)
         return self._head(params, x)[:, 0], state

@@ -16,12 +16,15 @@ moments are laid out by the reference's ruleset (``default_rules``, with
 (``distributed/layout.py``).  The model computes tensor-parallel over
 ``model`` (``Model(cfg, tp)``, ``distributed/tp.py``): a leaf split over
 ``model`` by a rule the layer computes on (heads, kv_heads, mlp, expert,
-vocab) stays the rank's block, and only the splits over the data axes
-(FSDP's ``embed``) are gathered before the step.  A step runs
-``Model.loss`` and ``autograd.grad`` on the rank's rows of the batch,
-reduces the gradients over the data ranks to the rank's blocks (in f32,
-cast back) and updates its blocks and moments; a replicated leaf's
-gradient is already whole and equal on every model rank.  It gives the
+vocab) stays the rank's block.  Over data ranks the model draws its
+leaves through a feed (``Model(cfg, tp, feed)``, ``distributed/fsdp.py``):
+each unit (a layer, a table) gathered where it is used (FSDP's ``embed``
+split), one ahead, and its gradient reduced over the data ranks to the
+rank's blocks (in f32, cast back) by the backward as soon as it is
+complete, into block-gradient buffers.  A step runs ``Model.loss`` and its
+backward on the rank's rows of the batch and updates its blocks and
+moments; a replicated leaf's gradient is already whole and equal on every
+model rank.  It gives the
 one-device trajectory: each rank's cross-entropy gradient is weighted by
 its share of the global target count (hubert's masked frames differ per
 rank), the MoE aux terms (means over equal group counts) by one over the
@@ -30,7 +33,6 @@ data ranks, and the clip's norm is global.
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Any, Callable, Iterator, Optional
 
 import torch
@@ -38,6 +40,7 @@ import torch.distributed as dist
 
 from repro_torch.core.timing import StageTimer, TimelineRecorder, fence
 from repro_torch.distributed import layout
+from repro_torch.distributed.fsdp import Feed
 from repro_torch.distributed.layout import Sharding
 from repro_torch.distributed.mesh import TrainMesh
 from repro_torch.distributed.sharding import Ruleset, default_rules, shard_params_spec
@@ -120,10 +123,10 @@ def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
 class MeshedLayout:
     """How a meshed step uses the rank's parameter blocks: ``net`` is the
     model that computes on them (``Model(cfg, tp)`` on a model axis, else
-    ``model``), and each leaf's ``rest`` spec (the splits gathered before
-    the step) and ``local`` shape (the leaf as ``net`` takes it: the
-    rank's block over ``model`` along the dims the layer computes on,
-    whole elsewhere)."""
+    ``model``), and each leaf's ``rest`` spec (the splits the feed
+    gathers) and ``local`` shape (the leaf as ``net`` takes it: the rank's
+    block over ``model`` along the dims the layer computes on, whole
+    elsewhere)."""
 
     def __init__(self, model: Model, mesh: TrainMesh, param_spec: dict) -> None:
         tp = ModelParallel.of(mesh)
@@ -138,17 +141,14 @@ class MeshedLayout:
             self.items.append((path, spec, rest,
                                layout.block_shape(shapes[path], keep, mesh)))
 
-    def local(self, params: dict) -> list[torch.Tensor]:
-        """The leaves ``net`` takes, in sorted-key order: the rank's
-        blocks with their ``rest`` splits gathered."""
-        return [layout.gather(p, rest, shape, self.mesh)
-                for (_, _, rest, shape), (_, p) in zip(self.items, _walk(params))]
-
-    def gathered_bytes(self, dtype_size: int) -> float:
-        """Bytes of the leaves a step gathers (at their ``local`` shape)."""
-        return float(sum(math.prod(shape) * dtype_size
-                         for _, _, rest, shape in self.items
-                         if layout.split_axes(rest, self.mesh)))
+    def feed(self, kind: str, data_axes: tuple = ()) -> Optional[Feed]:
+        """The feed of a ``kind`` step (``fsdp.Feed.of``), with ``net``
+        drawing its leaves through it; None (``net`` as it is) where the
+        step needs none."""
+        feed = Feed.of(self, self.mesh, self.net.cfg, kind, data_axes)
+        if feed is not None:
+            self.net = dataclasses.replace(self.net, feed=feed)
+        return feed
 
 
 def make_sharded_train_step(model: Model, opt_cfg: AdamWConfig, mesh: TrainMesh,
@@ -164,6 +164,7 @@ def make_sharded_train_step(model: Model, opt_cfg: AdamWConfig, mesh: TrainMesh,
     dgroup = mesh.group(data_axes)
     n_data = mesh.axis_size(data_axes)
     lay = MeshedLayout(model, mesh, param_spec)
+    feed = lay.feed("train", data_axes)
     net = lay.net
     norm_groups = {}
     for path, spec, _, _ in lay.items:
@@ -172,22 +173,26 @@ def make_sharded_train_step(model: Model, opt_cfg: AdamWConfig, mesh: TrainMesh,
             node = node.setdefault(k, {})
         node[path[-1]] = mesh.group(layout.split_axes(spec, mesh))
 
-    def one(full: dict, leaves: list, mb: dict, weight: torch.Tensor):
+    def one(params: dict, leaves: list, mb: dict, weight: torch.Tensor):
+        """One microbatch: its objective, weighted CE and aux; the
+        gradients of ``leaves`` (no feed), or none: the feed's backward
+        reduces them into its buffers."""
         with torch.enable_grad():
-            loss, metrics = net.loss(full, mb)
+            loss, metrics = net.loss(params, mb)
             ce = metrics["ce"]
             obj = weight * ce
             if "load_balance_loss" in metrics:
                 # the MoE aux terms: means over the rank's groups, as many
                 # on every rank, so the global value is their mean
                 obj = obj + (loss - ce) / n_data
+            if feed is not None:
+                feed.backward()
+                leaves = [feed.anchor]
             grads = torch.autograd.grad(obj, leaves)
         aux = {k: v.detach() / n_data for k, v in metrics.items() if k not in ("ce", "loss")}
         return obj.detach(), (weight * ce).detach(), aux, list(grads)
 
     def train_step(params: dict, opt_state: AdamWState, batch: dict):
-        leaves = [p.detach().requires_grad_() for p in lay.local(params)]
-        full = _rebuild(params, iter(leaves))
         if grad_accum <= 1:
             micro = [batch]
         else:
@@ -197,26 +202,42 @@ def make_sharded_train_step(model: Model, opt_cfg: AdamWConfig, mesh: TrainMesh,
         counts = torch.stack([model.ce_targets(mb) for mb in micro])
         totals = _all_reduce(counts.clone(), dgroup)
         weights = counts / torch.clamp(totals, min=1.0)
-        gsum, objs, ces, auxs = None, [], [], []
-        for i, mb in enumerate(micro):
-            o, c, a, g = one(full, leaves, mb, weights[i])
-            if grad_accum <= 1:
-                gsum = g
-            elif gsum is None:
-                gsum = [x.float() for x in g]
-            else:
-                for acc, x in zip(gsum, g):
-                    acc.add_(x)
-            objs.append(o)
-            ces.append(c)
-            auxs.append(a)
-        del full, leaves
-        grads = gsum if grad_accum <= 1 else [g / grad_accum for g in gsum]
-        del gsum
-        blocks = []
-        for i, (_, _, rest, _) in enumerate(lay.items):
-            blocks.append(layout.reduce_grad(grads[i], rest, mesh, data_axes))
-            grads[i] = None
+        objs, ces, auxs = [], [], []
+        if feed is None:
+            # one data rank: the blocks are the leaves (summed in f32 over
+            # microbatches), with nothing to gather or reduce
+            leaves = [p.detach().requires_grad_() for _, p in _walk(params)]
+            full = _rebuild(params, iter(leaves))
+            gsum = None
+            for i, mb in enumerate(micro):
+                o, c, a, g = one(full, leaves, mb, weights[i])
+                if grad_accum <= 1:
+                    gsum = g
+                elif gsum is None:
+                    gsum = [x.float() for x in g]
+                else:
+                    for acc, x in zip(gsum, g):
+                        acc.add_(x)
+                objs.append(o)
+                ces.append(c)
+                auxs.append(a)
+            del full, leaves
+            blocks = gsum if grad_accum <= 1 else [g / grad_accum for g in gsum]
+        else:
+            # the block-gradient buffers: the leaves' dtype, f32 to accumulate
+            blocks = [torch.zeros(p.shape, device=p.device,
+                                  dtype=p.dtype if grad_accum <= 1 else torch.float32)
+                      for _, p in _walk(params)]
+            feed.reset()
+            for i, mb in enumerate(micro):
+                with feed.step(params, blocks, accumulate=grad_accum > 1):
+                    o, c, a, _ = one(params, [], mb, weights[i])
+                objs.append(o)
+                ces.append(c)
+                auxs.append(a)
+            if grad_accum > 1:
+                for b in blocks:
+                    b.div_(grad_accum)
         keys = sorted(auxs[0])
         vec = torch.stack([torch.stack(objs), torch.stack(ces)]
                           + [torch.stack([a[k] for a in auxs]) for k in keys])
@@ -236,6 +257,7 @@ def make_sharded_train_step(model: Model, opt_cfg: AdamWConfig, mesh: TrainMesh,
         metrics["loss"] = loss
         return params, opt_state, metrics
 
+    train_step.feed = feed
     return train_step
 
 
@@ -254,7 +276,9 @@ class Trainer:
     fsdp=fsdp)`` lays the parameters and moments out; each rank holds its
     blocks on ``mesh.device``, takes its rows of each global batch
     (``batch_rows``) and runs ``make_sharded_train_step``; ``rules`` and
-    ``fsdp`` need a mesh.  Either way every step's wall time goes to a
+    ``fsdp`` need a mesh; ``feed`` is the step's ``distributed.fsdp.Feed``
+    (None without data ranks, or off a mesh), whose counters describe the
+    step just run.  Either way every step's wall time goes to a
     ``TimelineRecorder`` (the paper's instrumentation stack)."""
 
     def __init__(self, model: Model, device: str | torch.device | TrainMesh = "cuda",
@@ -271,12 +295,13 @@ class Trainer:
             self._shapes = _shapes(model)
             self._step_fn = make_sharded_train_step(model, self.cfg.opt, device, self.rules,
                                                     self.param_spec, self.cfg.grad_accum)
+            self.feed = self._step_fn.feed
             return
         if rules is not None or fsdp:
             raise TypeError("rules= and fsdp= lay the parameters out over a training mesh: "
                             "pass a TrainMesh (repro_torch.launch.mesh.make_train_mesh), not "
                             f"the device {str(device)!r}")
-        self.mesh = None
+        self.mesh = self.feed = None
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Trainer(device='cuda') needs a CUDA device; pass device='cpu' "

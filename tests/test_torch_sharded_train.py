@@ -21,6 +21,18 @@ checkpoint loaded by the two ranks, and the raises; four ranks for the
 data=4; two ranks on one thread each for AdamW's default lr and eps.
 Smoke configs at f32, global batches of make_batch_np, 4 steps.
 
+FSDP runs through the feed (``distributed/fsdp.py``): every unit gathered
+where the model uses it and its gradient reduced in the backward.  Beside
+the jobs above, rwkv6-3b and zamba2-2.7b (its shared block gathered once
+and reduced once a step) train at data=2 with FSDP against the one-device
+trajectory, and qwen3-4b and zamba2-2.7b serve at data=2 with FSDP: the
+prefill's next-token logits and 8 greedy decode steps after a 4-token
+prompt against one rank's (``fsdp_serve``, at the tensor-parallel serving
+job's tolerance).  Every meshed step's feed counters are held against the
+dry-run's plan of the same rank's step (``launch.lowering.build_lowered``):
+the most gathered bytes live at once to the byte, at most two units plus
+the largest table, and the gathers and reductions per unit.
+
 Tensor-parallel compute (``distributed/tp.py``): every job with
 ``model=2`` computes on the rank's blocks.  Smoke qwen3-4b has one KV
 head, so it is the kv-deficit case (whole K/V on each rank; in decode the
@@ -62,6 +74,7 @@ process (``split_rows_run``).  Init blocks, gathers and checkpoints are
 exact.  Against the reference jitted without a mesh: 1e-5 relative a
 step.
 """
+import dataclasses
 import re
 from concurrent.futures import ThreadPoolExecutor
 
@@ -78,9 +91,10 @@ from repro.train import data as jax_data  # noqa: E402
 from repro.train import loop as jax_loop  # noqa: E402
 from repro.train import optimizer as jax_opt  # noqa: E402
 
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import InputShape, get_config  # noqa: E402
 from repro_torch.distributed import default_rules, shard_params_spec  # noqa: E402
 from repro_torch.distributed.spawn import run_ranks  # noqa: E402
+from repro_torch.launch.lowering import build_lowered  # noqa: E402
 from repro_torch.launch.mesh import LogicalMesh  # noqa: E402
 from repro_torch.models import Model, from_numpy  # noqa: E402
 from repro_torch.train import (AdamWConfig, DataConfig, TrainConfig, Trainer,  # noqa: E402
@@ -103,6 +117,8 @@ TP_PORT_WEIGHTS = ("rwkv6-3b", "zamba2-2.7b")
 # the loss and gradients only: a vlm under a kv deficit, with qkv biases
 TP_GRAD_ARCH = "internvl2-1b"
 TP_B, TP_PROMPT, TP_CONTEXT, TP_NEW = 2, 4, 16, 8
+# FSDP serving at data=2: a global batch of 4 rows, 2 a rank
+SERVE_ARCHS, SERVE_B = ("qwen3-4b", "zamba2-2.7b"), 4
 SCALAR, GRAD_RTOL, LOGIT_TOL = dict(atol=1e-6, rtol=1e-5), 1e-4, 1e-4
 # internvl2-1b's q and k biases start at zero, so after 4 steps at lr 1e-4
 # their largest element is ~3e-4 and "1e-5 of it" is ~3e-9: the last bits
@@ -154,6 +170,8 @@ TWO = {
     "rwkv6-heads-whole": _job("rwkv6-3b", dict(data=1, model=2), fsdp=False,
                               overrides=dict(heads=None)),
     "zamba2-model2": _job("zamba2-2.7b", dict(data=1, model=2), fsdp=False),
+    "rwkv6-fsdp": _job("rwkv6-3b", dict(data=2)),
+    "zamba2-fsdp": _job("zamba2-2.7b", dict(data=2)),
 }
 FOUR = {
     "qwen3-pod": _job("qwen3-4b", dict(pod=2, data=2, model=1)),
@@ -222,6 +240,11 @@ def runs(tmp_path_factory):
                                    params=tp_ref[arch], batch=batch,
                                    prompt=batch["tokens"][:, :TP_PROMPT].copy(),
                                    context=TP_CONTEXT, new=TP_NEW)
+    for arch in SERVE_ARCHS:
+        batch = make_batch_np(get_config(arch, smoke=True), DataConfig(SERVE_B, S), 0)
+        extra[f"serve-{arch}"] = dict(kind="fsdp_serve", arch=arch, mesh=dict(data=2),
+                                      batch=batch, prompt=batch["tokens"][:, :TP_PROMPT].copy(),
+                                      context=TP_CONTEXT, new=TP_NEW)
     extra[f"tp-{TP_GRAD_ARCH}"] = dict(
         kind="tp_ref", arch=TP_GRAD_ARCH, mesh=dict(data=1, model=2), params=tp_ref[TP_GRAD_ARCH],
         batch=make_batch_np(get_config(TP_GRAD_ARCH, smoke=True), DataConfig(TP_B, S), 0))
@@ -246,6 +269,7 @@ def runs(tmp_path_factory):
     out["eps8"], out["split"] = [r[0] for r in eps8], [r[1] for r in eps8]
     out["one_ckpt"] = one
     out["ref"] = ref
+    out["serve_jobs"] = {arch: extra[f"serve-{arch}"] for arch in SERVE_ARCHS}
     out["tmp"] = tmp
     return out
 
@@ -560,3 +584,107 @@ def test_tensor_parallel_vlm_gradients_match_the_reference(runs):
     weights: the loss, its metrics and every gradient leaf (the q and k
     biases' among them) against the reference's unsharded Model."""
     _assert_loss_and_grads(runs[f"tp-{TP_GRAD_ARCH}"], runs["tp_want"][TP_GRAD_ARCH])
+
+
+def _smoke_overrides(arch):
+    cfg = get_config(arch, smoke=True)
+    return {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+
+
+def _mesh_of(m):
+    shape = {"pod": m.get("pod"), "data": m.get("data", 1), "model": m.get("model", 1)}
+    shape = {a: n for a, n in shape.items() if n is not None}
+    return LogicalMesh(tuple(shape.values()), tuple(shape))
+
+
+def _assert_feed_is_planned(got, step):
+    """A rank's feed counters against the dry-run's plan of its step: the
+    gathered bytes' high-water mark to the byte (and with the gradients
+    being reduced), the gathers and reductions per unit; the mark at most
+    two stack units plus the largest table."""
+    plan = step.feed
+    assert got["high"] == plan.high == step.gathered["params"]
+    assert got["high_total"] == plan.high_total
+    if step.kind == "train_step":
+        assert plan.high_total == step.gathered["params"] + step.gathered["feed_grads"]
+    assert got["gathers"] == plan.gathers and got["reductions"] == plan.reductions
+    units = plan.units.values()
+    stack = max(u.gathered for u in units if u.stack)
+    table = max(u.gathered for u in units if not u.stack)
+    assert plan.high <= 2 * stack + table
+
+
+FED = [name for name, job in TRAIN.items() if job["mesh"].get("data", 1) > 1]
+
+
+@pytest.mark.parametrize("name", FED)
+def test_feed_holds_what_the_dry_run_plans(runs, name):
+    """Every rank of every job with data ranks trains through the feed,
+    which holds what ``build_lowered`` plans for that rank's step: with
+    FSDP each unit gathered once in the forward and once more in the
+    backward (a layer; the tables once), every unit reduced once a
+    microbatch; data-parallel only, nothing gathered and every unit
+    all-reduced."""
+    job = TRAIN[name]
+    ga = job.get("grad_accum", 1)
+    for rank, r in enumerate(runs[name]):
+        step = build_lowered(job["arch"], InputShape("t", job["seq"], job["batch"], "train"),
+                             _mesh_of(job["mesh"]), cfg_overrides=_smoke_overrides(job["arch"]),
+                             fsdp=job["fsdp"], grad_accum=ga, rank=rank,
+                             rules=default_rules(get_config(job["arch"], smoke=True),
+                                                 _mesh_of(job["mesh"]), fsdp=job["fsdp"])
+                             .with_overrides(**job.get("overrides", {})))
+        _assert_feed_is_planned(r["feed"], step)
+        plan = step.feed
+        assert plan.reductions == dict.fromkeys(plan.order, ga)
+        if job["fsdp"]:
+            assert plan.gathers == {n: ga * (2 if u.stack else 1) for n, u in plan.units.items()}
+            assert 0 < plan.high < plan.high_total
+        else:
+            assert plan.high == 0 and set(plan.gathers.values()) == {0}
+
+
+def _one_rank_serving(job):
+    """The one-device Model from seed 0 on the job's batch: the prefill's
+    next-token logits, and the prompt then greedy decode (every step's
+    logits and token)."""
+    model = Model(get_config(job["arch"], smoke=True))
+    params = model.init(0, "cpu")
+    with torch.no_grad():
+        prefill = model.prefill(params, {"tokens": torch.from_numpy(job["batch"]["tokens"])})
+        state = model.init_decode_state(SERVE_B, job["context"], "cpu")
+        for t in range(TP_PROMPT):
+            lg, state = model.decode_step(params, state, torch.from_numpy(job["prompt"][:, t]))
+        logits, tokens = [], []
+        for _ in range(job["new"]):
+            tok = torch.argmax(lg, -1).to(torch.int32)
+            logits.append(lg.numpy())
+            tokens.append(tok.numpy())
+            lg, state = model.decode_step(params, state, tok)
+    return prefill.numpy(), logits, tokens
+
+
+@pytest.mark.parametrize("arch", SERVE_ARCHS)
+def test_fsdp_serving_matches_one_rank(runs, arch):
+    """data=2 with FSDP: each rank's rows of the prefill's next-token logits
+    and of 8 greedy decode steps within 1e-4 of the largest of one rank's,
+    the tokens equal; the prefill's and a decode step's feed counters
+    those the dry-run plans (each unit gathered once a step)."""
+    job = runs["serve_jobs"][arch]
+    prefill, logits, tokens = _one_rank_serving(job)
+    cfg_over = _smoke_overrides(arch)
+    for rank, r in enumerate(runs[f"serve-{arch}"]):
+        rows = slice(*r["rows"])
+        np.testing.assert_allclose(r["prefill"], prefill[rows], rtol=0,
+                                   atol=LOGIT_TOL * float(np.abs(prefill[rows]).max()))
+        for i, (lg, wl) in enumerate(zip(r["logits"], logits)):
+            np.testing.assert_allclose(lg, wl[rows], rtol=0,
+                                       atol=LOGIT_TOL * float(np.abs(wl[rows]).max()),
+                                       err_msg=f"decode step {i}")
+        np.testing.assert_array_equal(np.stack(r["tokens"]), np.stack(tokens)[:, rows])
+        for key, shape in (("prefill_feed", InputShape("p", S, SERVE_B, "prefill")),
+                           ("decode_feed", InputShape("d", TP_CONTEXT, SERVE_B, "decode"))):
+            step = build_lowered(arch, shape, _mesh_of(job["mesh"]), cfg_overrides=cfg_over,
+                                 fsdp=True, rank=rank)
+            _assert_feed_is_planned(r[key], step)
+            assert step.feed.gathers == dict.fromkeys(step.feed.order, 1)

@@ -391,10 +391,18 @@ def test_rank_summed_products_are_one_rank_s_plus_the_replicated(arch):
 
 
 def test_fsdp_gathers_only_over_the_data_axes():
-    """data=2 x model=2 with FSDP: the step's all-gathers bring each leaf
-    split over ``data`` to the rank's block over ``model``, never to full."""
+    """data=2 x model=2 with FSDP: the step's all-gathers bring each unit's
+    leaves split over ``data`` to the rank's block over ``model``, never
+    to full: their bytes are each unit's gathered bytes times the gathers
+    the step makes of it (once in the forward, once more in the backward
+    for a layer), and the most a step holds at once is less than half the
+    model."""
     _, table, step = _count("qwen3-4b", ((2, 2), ("data", "model")), fsdp=True)
     full = sum(math.prod(s.shape) for _, s in _walk(Model(get_config(
         "qwen3-4b", smoke=True)).specs())) * 4
-    assert table["all_gather"]["bytes"] == step.gathered["params"]
-    assert 0 < step.gathered["params"] < full / 1.9
+    plan = step.feed
+    assert table["all_gather"]["bytes"] == sum(u.gathered * plan.gathers[name]
+                                               for name, u in plan.units.items())
+    assert plan.gathers == {name: 2 if u.stack else 1 for name, u in plan.units.items()}
+    assert plan.reductions == dict.fromkeys(plan.units, 1)
+    assert 0 < step.gathered["params"] == plan.high < full / 1.9

@@ -11,8 +11,10 @@ and reference trajectories in its own process.  A job is a dict:
   batches of ``make_batch_np`` and ``steps`` AdamW steps at ``opt``, from
   seed 0 or from full ``params`` (NumPy, the reference's weights);
   returns every step's metrics, the rank's coordinates, its init blocks,
-  and (rank 0) the full parameters gathered at init and at the end; with
-  ``save`` it then saves a checkpoint there from the ranks' blocks;
+  its feed's counters for the last step (``distributed/fsdp.py``; None
+  without one) and (rank 0) the full parameters gathered at init and at
+  the end; with ``save`` it then saves a checkpoint there from the ranks'
+  blocks;
 - ``load``: loads the one-device checkpoint at ``path`` into a sharded
   template and returns the rank's blocks and the gathered full params;
 - ``split``: ``split_rows_run`` of the job, the one-process counterpart
@@ -31,7 +33,13 @@ and reference trajectories in its own process.  A job is a dict:
   fed through the meshed decode step into a ``context``-slot state
   followed by ``new`` greedy tokens (every step's logits and token), with
   the shapes of the rank's decode state and, where it has a KV cache, the
-  ring's positions after the prompt and at the end.
+  ring's positions after the prompt and at the end;
+- ``fsdp_serve``: serving through the feed with FSDP on ``mesh``, from the
+  rank's seed-0 blocks: the meshed prefill's next-token logits of the
+  rank's rows of ``batch``, then its rows of ``prompt`` through the meshed
+  decode step into a ``context``-slot state and ``new`` greedy tokens
+  (every step's logits and token), with the prefill's and a decode step's
+  feed counters.
 """
 from __future__ import annotations
 
@@ -72,6 +80,7 @@ def _train(rank: int, job: dict) -> dict:
         model.cfg, DataConfig(job["batch"], job["seq"])), job["steps"], log=lambda i, m:
         metrics.append(m))
     out["metrics"] = metrics
+    out["feed"] = tr.feed.summary() if tr.feed is not None else None
     out["resident"] = sum(t.numel() * t.element_size() for t in
                           [p for _, p in _walk(params)] + [m for _, m in _walk(state.mu)]
                           + [v for _, v in _walk(state.nu)])
@@ -203,7 +212,8 @@ def _tp_ref(rank: int, job: dict) -> dict:
     blocks = _rebuild(full, iter(layout.take_block(p, sp, mesh)
                                  for (_, p), (_, sp) in zip(_walk(full), _walk(spec))))
     lay = MeshedLayout(model, mesh, spec)
-    leaves = [p.detach().requires_grad_() for p in lay.local(blocks)]
+    # data=1: the blocks are the leaves the model takes
+    leaves = [p.detach().requires_grad_() for _, p in _walk(blocks)]
     batch = to_device(job["batch"], "cpu")
     loss, metrics = lay.net.loss(_rebuild(blocks, iter(leaves)), batch)
     grads = torch.autograd.grad(loss, leaves)
@@ -238,8 +248,36 @@ def _tp_ref(rank: int, job: dict) -> dict:
     return out
 
 
+def _fsdp_serve(rank: int, job: dict) -> dict:
+    model = Model(get_config(job["arch"], smoke=True))
+    mesh = make_train_mesh(device="cpu", **job["mesh"])
+    rules = default_rules(model.cfg, mesh, fsdp=True)
+    spec = shard_params_spec(model, rules)
+    params = model.init_blocks(0, "cpu", spec, mesh)
+    n, i = mesh.shape["data"], mesh.coords["data"]
+    rows = job["batch"]["tokens"].shape[0] // n
+    mine = slice(i * rows, (i + 1) * rows)
+    prefill = make_sharded_prefill(model, mesh, spec)
+    out = {"prefill": prefill(params, {"tokens": torch.from_numpy(
+        job["batch"]["tokens"][mine])}).numpy(), "prefill_feed": prefill.feed.summary()}
+    prompt = torch.from_numpy(job["prompt"][mine])
+    state = model.init_decode_state(job["prompt"].shape[0], job["context"], "cpu", mesh=mesh,
+                                    rules=rules)
+    step = make_sharded_decode_step(model, mesh, spec)
+    for t in range(prompt.shape[1]):
+        tok, lg, state = step(params, state, prompt[:, t])
+    out["decode_feed"] = step.feed.summary()
+    logits, tokens = [], []
+    for _ in range(job["new"]):
+        logits.append(lg.numpy())
+        tokens.append(tok.numpy())
+        tok, lg, state = step(params, state, tok)
+    return dict(out, logits=logits, tokens=tokens, rows=(mine.start, mine.stop))
+
+
 JOBS = {"train": _train, "split": split_rows_run, "reduce": _reduce, "load": _load,
-        "raises": _raises, "collectives": _collectives, "tp_ref": _tp_ref}
+        "raises": _raises, "collectives": _collectives, "tp_ref": _tp_ref,
+        "fsdp_serve": _fsdp_serve}
 
 
 def run_jobs(rank: int, jobs: list) -> list:

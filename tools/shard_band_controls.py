@@ -11,8 +11,9 @@ gloo) against one rank of the same cut, three times in one spawned group:
 as committed; with the gradient reduced in its own dtype (bf16) instead of
 f32; and with each rank's gradient left unreduced (its own rows only).
 Prints each step's loss against the one rank's, relative, and whether it
-falls inside ``SHARD_BAND``.  The faults replace ``layout.reduce_grad`` in
-the spawned ranks only; the committed sources are not changed.
+falls inside ``SHARD_BAND``.  The faults replace ``layout.reduce_grads``
+(each leaf in turn) in the spawned ranks only; the committed sources are
+not changed.
 
 ``--many-cards``: ``chip_smoke.sharded_many_cards`` over every visible
 card (olmoe-1b-7b whole, FSDP over NCCL, one rank per card).
@@ -37,7 +38,7 @@ import chip_smoke as C  # noqa: E402
 from repro_torch.distributed import layout  # noqa: E402
 from repro_torch.distributed.spawn import run_ranks  # noqa: E402
 
-COMMITTED = layout.reduce_grad
+COMMITTED = layout.reduce_grads
 
 
 def reduce_in_own_dtype(grad, spec, mesh, data_axes):
@@ -66,16 +67,22 @@ def own_rows_only(grad, spec, mesh, data_axes):
     return layout.take_block(grad, spec, mesh)
 
 
-FAULTS = {"committed": COMMITTED, "bf16 reduction": reduce_in_own_dtype,
-          "unreduced": own_rows_only}
+def _each(fault):
+    """A fault of one leaf as ``layout.reduce_grads`` of several."""
+    return lambda grads, specs, mesh, data_axes: [fault(g, sp, mesh, data_axes)
+                                                  for g, sp in zip(grads, specs)]
+
+
+FAULTS = {"committed": COMMITTED, "bf16 reduction": _each(reduce_in_own_dtype),
+          "unreduced": _each(own_rows_only)}
 
 
 def _control_ranks(rank: int, jobs: list, devices: list) -> list:
     out = []
     for job in jobs:
-        layout.reduce_grad = FAULTS[job["fault"]]
+        layout.reduce_grads = FAULTS[job["fault"]]
         out += C._sharded_ranks(rank, [job], devices)
-    layout.reduce_grad = COMMITTED
+    layout.reduce_grads = COMMITTED
     return out
 
 
