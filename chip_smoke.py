@@ -3,18 +3,19 @@
 
     python3 chip_smoke.py
 
-Eight serving paths at full width, five hand-written kernels (the four
-forwards and the flash attention backward), the perception frame path,
+Eight serving paths at full width, seven hand-written kernels (the four
+forwards, the flash attention backward and the two scans' backward), the
+perception frame path,
 batched multi-camera perception and scenario replay (which run none of
 them), chaos at one shard (none either),
 multi-tenant decode serving (decode_attention in every shared
 step), training (every family: the flash forward and backward
-kernels, and the scans' forward kernels with their chunked forms'
-gradients) and sharded training (two ranks on the card): qwen3-4b
-(dense: flash_attention, decode_attention), rwkv6-3b (ssm: rwkv6_wkv),
-zamba2-2.7b (hybrid: mamba2_ssd, and flash/decode attention at head_dim 80
-in the shared block), olmoe-1b-7b (moe, 64 experts top-8: the moe, vlm and
-audio slice's main path), internvl2-1b (vlm: 256 patch embeddings then
+kernels, and the scans' forward and backward kernels) and sharded
+training (two ranks on the card): qwen3-4b (dense: flash_attention,
+decode_attention), rwkv6-3b (ssm: rwkv6_wkv), zamba2-2.7b (hybrid:
+mamba2_ssd, and flash/decode attention at head_dim 80 in the shared
+block), olmoe-1b-7b (moe, 64 experts top-8: the moe, vlm and audio
+slice's main path), internvl2-1b (vlm: 256 patch embeddings then
 text; head_dim 64, GQA group 7), hubert-xlarge (audio encoder: non-causal
 flash at head_dim 80, no decode), mixtral-8x22b (moe, 8 experts top-2,
 depth cut to 2 of 56 layers; a 4096 window over an 8192 prefill) and
@@ -55,7 +56,17 @@ Phases (each raises on failure; none is caught):
              hubert's non-causal head_dim 80, mixtral's 4096 window over
              8192, internvl2's group of 7); at each, the forward's lse
              against ref.flash_attention_lse_ref and its output with and
-             without the lse buffer, bit for bit;
+             without the lse buffer, bit for bit.  The scans' backward
+             kernels (phase_scan_grad_kernels) against their plain versions,
+             the chunked forms' gradients under autograd on the card
+             (wkv_chunked_grads, ssd_chunked_grads), at GRAD_BAND of each
+             gradient's largest element (dlogw at logw = -25 at DLOGW_ATOL,
+             absolute, also against the f64 recurrence's): the sweeps'
+             shapes, ragged lengths (37, 96, 100), logw = -25, zamba2's initial
+             dt·a ≈ -0.69 over 256 rows, the training shapes (rwkv6-3b
+             (2,1024,40,64) chunk 64, zamba2-2.7b (2,1024,80,64,64) chunk
+             256) and the rank shapes of RWKV_RANK / MAMBA_RANK; finite,
+             and the same bits on a second call;
 3. model   — for each arch of PATHS: the port's CUDA path against its CPU
              path on the smoke model (f32, 1e-3: cuBLAS and CPU sum in
              different orders); then the arch's main path at full width in
@@ -92,9 +103,10 @@ Phases (each raises on failure; none is caught):
              printed; the scans as medians of ROUNDS rounds too); the bound
              from the shapes and the H100's peaks.  No single PyTorch call
              computes either scan, so their library_ms is null.  Then the
-             scans' gradients at the training shapes: the autograd
-             backward of the chunked forms (the baseline of a backward
-             kernel still to write) against its bound;
+             scans' backward kernels at the training shapes and the rank
+             shapes against their plain versions (the chunked forms'
+             gradients under autograd, between CUDA events) and their
+             bounds (kernels/cost.py's gradient costs);
 5. perception — the perception frame path (repro_torch.perception and
              repro_torch.anytime), which runs none of the kernels:
              every registered pipeline at lambda = 1 and the five rungs of
@@ -227,15 +239,14 @@ Phases (each raises on failure; none is caught):
              backward).  The launch counters are reset just before fit and
              read just after, and held exactly: per step the flash forward
              twice and its backward kernel once per attention site, the
-             WKV or SSD forward kernel twice per layer (the scans' gradients
-             are their chunked forms' under autograd, which launch
-             nothing), nothing else.  The first step's loss against a
+             WKV or SSD forward kernel twice per layer and its backward
+             kernel once, nothing else.  The first step's loss against a
              no-grad Model.loss of the same batch, every loss and MoE aux
              finite, the last loss below the first; step mean, CV, p99,
              tokens/s, peak memory, the device's busy share of one step
              (torch.profiler) and, for the scan families, the scans'
-             share of it split into the forward kernels and the autograd
-             backward; for zamba2-2.7b the bf16 model against its f32 copy
+             share of it split into the forward and the backward kernels;
+             for zamba2-2.7b the bf16 model against its f32 copy
              at the training batch.  Then on smoke models a checkpoint round
              trip on the card, and rwkv6-3b and zamba2-2.7b's loss and every
              gradient leaf on the card against the CPU;
@@ -343,6 +354,20 @@ TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5), torch.bfloat16: dict(atol=2e-5
 # The scans take and return f32; held against the step recurrences at the
 # reference sweep's 2e-4 (tests/test_kernels.py:96-180).
 SCAN_TOL = dict(atol=2e-4, rtol=2e-4)
+# The scans' backward kernels against their plain versions (the chunked
+# forms' gradients under autograd, f32 on the card): 1e-3 of each
+# gradient's largest element.  The plain version's own rounding against the
+# f64 recurrence reaches 3e-5 to 1e-4 of a leaf's largest element where a
+# gradient sums over the whole sequence (da, dlogw, ddt).  One exception: at
+# logw = -25 dlogw is of order exp(-25), while the kernel's reverse sum
+# (the telescoping identity) cancels f32 terms of order 1e2, so there it
+# resolves dlogw only to an absolute error near 1e-4 (1.0e-4 against the
+# f64 recurrence at (2, 1024, 40, 64) on the H100, 4e-6 to 4e-5 at the
+# sweep's shapes); that leaf is held at DLOGW_ATOL, absolute, against the
+# plain version and against the f64 recurrence (tests/test_torch_cuda.py's
+# GRAD_BAND).
+GRAD_BAND = 1e-3
+DLOGW_ATOL = 3e-4
 
 # the reference's kernel sweeps (tests/test_kernels.py:27-92)
 FLASH_SWEEP = [(1, 128, 4, 4, 32), (2, 256, 4, 2, 32), (1, 128, 8, 1, 64)]
@@ -407,7 +432,7 @@ DECODE_FULL = [(B, 16, 16, 128, CONTEXT, None),             # olmoe-1b-7b
 TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_LR = 2, 1024, 6, 1e-3
 TRAIN_PATHS = {
     "qwen3-4b": {},
-    "rwkv6-3b": {},          # the WKV kernel; its gradient the chunked form's
+    "rwkv6-3b": {},          # the WKV kernel and its backward kernel
     "zamba2-2.7b": {},       # the SSD kernel, and flash at head_dim 80 at the 9 sites
     "internvl2-1b": {},      # the text-only loss after 256 patch embeddings
     "hubert-xlarge": {},     # the encoder's masked labels, non-causal flash
@@ -440,15 +465,17 @@ FLASH_BWD_FULL = [(TRAIN_B, TRAIN_S, H, KV, D, True, None),   # qwen3-4b trainin
                   (B, S_PREFILL, 14, 2, 64, True, None)]      # internvl2-1b, G = 7
 
 KERNELS = ("flash_attention", "flash_attention_bwd", "decode_attention", "rwkv6_wkv",
-           "mamba2_ssd")
-# each kernel's source, and what it replaces: a TPU kernel, or for the
-# backward the gradient JAX takes of its jnp attention (the TPU package
-# has no Pallas backward)
+           "rwkv6_wkv_bwd", "mamba2_ssd", "mamba2_ssd_bwd")
+# each kernel's source, and what it replaces: a TPU kernel, or for a
+# backward the jnp code whose gradient JAX takes (the TPU package has no
+# Pallas backward): its attention, the scans' chunked forms
 SOURCES = {"flash_attention": ("flash_attention.cu", "kernels/flash_attention.py:85"),
            "flash_attention_bwd": ("flash_attention_bwd.cu", "models/attention.py:100"),
            "decode_attention": ("decode_attention.cu", "kernels/decode_attention.py:75"),
            "rwkv6_wkv": ("rwkv6_scan.cu", "kernels/rwkv6_scan.py:109"),
-           "mamba2_ssd": ("mamba2_ssd.cu", "kernels/mamba2_ssd.py:66")}
+           "rwkv6_wkv_bwd": ("rwkv6_scan_bwd.cu", "models/rwkv6.py:125"),
+           "mamba2_ssd": ("mamba2_ssd.cu", "kernels/mamba2_ssd.py:66"),
+           "mamba2_ssd_bwd": ("mamba2_ssd_bwd.cu", "models/mamba2.py:81")}
 # Each kernel's design
 DESIGNS = {"flash_attention": {"bfloat16": "wgmma+tma", "float32": "fma"},
            "flash_attention_bwd": {"bfloat16": "delta pass + wgmma/tma dK/dV (64 keys a "
@@ -460,7 +487,16 @@ DESIGNS = {"flash_attention": {"bfloat16": "wgmma+tma", "float32": "fma"},
            "decode_attention": "cp.async ring + cluster merge",
            "rwkv6_wkv": "scores pre-pass + mma.sync split tf32, 16-row sub-blocks, "
                         "cp.async double buffer",
-           "mamba2_ssd": "C.B^T pre-pass + mma.sync split tf32, cp.async double buffer"}
+           "mamba2_ssd": "C.B^T pre-pass + mma.sync split tf32, cp.async double buffer",
+           "rwkv6_wkv_bwd": "a block per (batch, head), the 64x64 state in registers (4x4 a "
+                            "thread): states forward, then D backwards; f32 FMAs, shuffle row "
+                            "sums, column sums through shared memory a 16-step tile; dlogw as "
+                            "an f64 reverse sum; du over the batch in a second launch",
+           "mamba2_ssd_bwd": "a block per (batch, head), the 64x64 state in registers (4x4 a "
+                             "thread): h forward, then G backwards; f32 FMAs, shuffle row "
+                             "sums, column sums through shared memory a 16-step tile; dl as "
+                             "an f64 reverse sum; dB, dC over the heads and da over the "
+                             "batch in a second launch"}
 # Kernel times are medians of ROUNDS timings; for attention each kernel
 # round is followed by one of SDPA, so the two see the same state of the card.
 ROUNDS = 5
@@ -660,6 +696,7 @@ def phase_kernels(dev):
     errs = {name: full[(name, torch.bfloat16)] for name in ("flash_attention", "decode_attention")}
     errs["flash_attention_bwd"] = phase_bwd_kernel(dev, gen)
     errs.update(phase_scan_kernels(dev, gen))
+    errs.update(phase_scan_grad_kernels(dev, gen))
     return errs
 
 
@@ -794,6 +831,126 @@ def phase_scan_kernels(dev, gen):
     log(f"[kernels] scans at full width, split TF32: rwkv6_wkv max |err| "
         f"{full['rwkv6_wkv']:.3e}, mamba2_ssd max |err| {full['mamba2_ssd']:.3e} (limit 2e-4 + "
         f"2e-4 |want|)")
+    return full
+
+
+# the scans' gradients at the training paths' shapes (phase 9)
+RWKV_TRAIN = (TRAIN_B, TRAIN_S, 40, 64)
+MAMBA_TRAIN = (TRAIN_B, TRAIN_S, 80, 64, 64)
+GRAD_LEAVES = {"rwkv6_wkv_bwd": ("dr", "dk", "dv", "dlogw", "du"),
+               "mamba2_ssd_bwd": ("dx", "ddt", "da", "dB", "dC")}
+
+
+def grad_band(name: str, got, want, atol: dict | None = None) -> tuple[float, float]:
+    """Each gradient of ``got`` finite and within GRAD_BAND of the largest
+    |element| of its ``want``, or, for a leaf named in ``atol``, within that
+    absolute band; returns the largest |err| and the largest |err| over its
+    leaf's largest element, of the leaves held relative."""
+    worst, rel = 0.0, 0.0
+    for leaf, g, w in zip(GRAD_LEAVES[name], got, want):
+        scale = w.abs().max().item()
+        err = (g - w).abs().max().item()
+        band = (atol or {}).get(leaf, GRAD_BAND * scale)
+        if not torch.isfinite(g).all() or not err <= band:
+            raise AssertionError(f"{leaf}: max |err| {err:.3e} against a largest element "
+                                 f"{scale:.3e} (band {band:.3e})")
+        if leaf not in (atol or {}):
+            worst, rel = max(worst, err), max(rel, err / scale)
+    return worst, rel
+
+
+def dlogw_against_f64(ins, dy, chunk: int, got) -> tuple[float, float]:
+    """At logw = -25: the kernel's dlogw (``got[3]``) and the plain
+    version's in f32, each against the chunked form's gradient in f64 (the
+    recurrence's, to f64 rounding), held at DLOGW_ATOL; returns both
+    largest |err|."""
+    from repro_torch.kernels.rwkv6_scan import wkv_chunked_grads
+
+    exact = wkv_chunked_grads([t.double() for t in ins], chunk, dy.double())[3]
+    plain = wkv_chunked_grads(ins, chunk, dy)[3]
+    errs = [(g.double() - exact).abs().max().item() for g in (got[3], plain)]
+    if not errs[0] <= DLOGW_ATOL:
+        raise AssertionError(f"dlogw at logw = -25: max |err| {errs[0]:.3e} against the f64 "
+                             f"recurrence's (largest element {exact.abs().max().item():.3e}; "
+                             f"band {DLOGW_ATOL:g} absolute)")
+    return errs[0], errs[1]
+
+
+def mamba2_init_inputs(gen, shape, dev):
+    """As mamba2_inputs, with zamba2-2.7b's initial decay: dt = softplus(0)
+    = log 2 and a = -1, dt·a ≈ -0.69 a step."""
+    x, dt, a, bm, cm = mamba2_inputs(gen, shape, dev)
+    return x, torch.full_like(dt, math.log(2.0)), -torch.ones_like(a), bm, cm
+
+
+def phase_scan_grad_kernels(dev, gen):
+    """The scans' backward kernels against their plain versions (the
+    chunked forms' gradients under autograd, wkv_chunked_grads and
+    ssd_chunked_grads, on the card) at GRAD_BAND, finite, and the same bits
+    on a second call; returns the largest training-shape error of each."""
+    from repro_torch.kernels.mamba2_ssd import mamba2_ssd_bwd_cuda, ssd_chunked_grads
+    from repro_torch.kernels.rwkv6_scan import rwkv6_wkv_bwd_cuda, wkv_chunked_grads
+
+    full = {"rwkv6_wkv_bwd": 0.0, "mamba2_ssd_bwd": 0.0}
+    n, rel_worst = 0, 0.0
+    cases = [(shape, c, ds) for shape in RWKV_SWEEP for c in (16, 64) for ds in (0.5, 6.0)]
+    cases += [((1, 64, 1, 16), 32, None)]                 # logw = -25
+    # ragged and odd lengths, with the chunk the model picks for the gradient
+    # (the largest divisor of S up to ssm_chunk = 64), every head width
+    cases += [((2, s, 3, dk), c, ds) for s, c in ((37, 37), (96, 48), (100, 50))
+              for dk in (16, 32, 64) for ds in (0.5, 6.0, None)]
+    cases += [(RWKV_TRAIN, RWKV_CHUNK, ds) for ds in (0.5, 6.0, None)]
+    cases += [(shape, RWKV_CHUNK, ds) for shape in RWKV_RANK for ds in (0.5, 6.0)]
+    jobs = [("rwkv6_wkv_bwd", shape, chunk, None, ds) for shape, chunk, ds in cases]
+    cases = [(shape, c, 2, "rand") for shape in MAMBA_SWEEP for c in (16, 32)]
+    cases += [((1, 100, 4, 8, 16), 100, 4, "rand")]
+    cases += [((2, s, 4, p, nn), s, 4, "rand") for s in (37, 96, 100)
+              for p, nn in ((16, 32), (32, 64), (64, 16))]
+    cases += [((1, 256, 4, 64, 64), 256, 4, "init")]     # dt·a ≈ -0.69 over 256 rows
+    cases += [(MAMBA_TRAIN, MAMBA_CHUNK, MAMBA_HB, kind) for kind in ("rand", "init")]
+    cases += [(shape, MAMBA_CHUNK, hb, "rand") for shape, hb in MAMBA_RANK]
+    jobs += [("mamba2_ssd_bwd", shape, chunk, hb, kind) for shape, chunk, hb, kind in cases]
+    for name, shape, chunk, hb, how in jobs:
+        if name == "rwkv6_wkv_bwd":
+            ins = rwkv6_inputs(gen, shape, how, dev)
+            dy = randn(gen, shape, torch.float32, dev)
+            call = lambda: rwkv6_wkv_bwd_cuda(*ins, dy, chunk)  # noqa: E731
+            plain = lambda: wkv_chunked_grads(ins, chunk, dy)  # noqa: E731
+            what = f"{shape} chunk {chunk} decay strength {how}"
+        else:
+            ins = (mamba2_init_inputs if how == "init" else mamba2_inputs)(gen, shape, dev)
+            dy = randn(gen, shape[:4], torch.float32, dev)
+            call = lambda: mamba2_ssd_bwd_cuda(*ins, dy, chunk, hb)  # noqa: E731
+            plain = lambda: ssd_chunked_grads(ins, chunk, dy)  # noqa: E731
+            what = f"x {shape[:4]} N {shape[4]} chunk {chunk} head_block {hb} dt {how}"
+        got, again = call(), call()
+        if not all(torch.equal(g, a) for g, a in zip(got, again)):
+            raise AssertionError(f"{name} at {what}: two calls on the same inputs differ")
+        tiny = {"dlogw": DLOGW_ATOL} if name == "rwkv6_wkv_bwd" and how is None else None
+        try:
+            err, rel = grad_band(name, got, plain(), tiny)
+            if tiny:
+                f64_err, plain_f64_err = dlogw_against_f64(ins, dy, chunk, got)
+                log(f"[kernels] {name} at {what}: dlogw's max |err| against the f64 "
+                    f"recurrence's {f64_err:.3e} (the plain version's in f32 {plain_f64_err:.3e}; "
+                    f"band {DLOGW_ATOL:g} absolute)")
+        except AssertionError as e:
+            raise AssertionError(f"{name} at {what}: {e}") from None
+        n += 1
+        rel_worst = max(rel_worst, rel)
+        if shape in (RWKV_TRAIN, MAMBA_TRAIN):
+            full[name] = max(full[name], err)
+        if shape in (RWKV_TRAIN, MAMBA_TRAIN) or shape in RWKV_RANK \
+                or (shape, hb) in MAMBA_RANK:
+            log(f"[kernels] {name} at {what}: max |err| {err:.3e}, {rel:.3e} of the leaf's "
+                f"largest element")
+        del ins, dy, got, again
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"[kernels] {n} scan-gradient comparisons within {GRAD_BAND:g} of each leaf's largest "
+        f"element against the chunked forms' autograd gradients on the card (worst "
+        f"{rel_worst:.3e}; dlogw at logw = -25 within {DLOGW_ATOL:g} absolute, also of the f64 "
+        f"recurrence's), finite, each the same bits on a second call")
     return full
 
 
@@ -1301,63 +1458,87 @@ def time_scans(K, R, gen, dev):
 
 
 def scan_grad_work(name: str, shape: tuple, chunk: int):
-    """The declared cost of a scan's gradient through its chunked form at
-    ``shape`` and ``chunk`` (``kernels.cost.rwkv6_wkv_grad_cost`` /
-    ``mamba2_ssd_grad_cost``: each input and the output's gradient read
-    once, each input's gradient written once; twice the chunked forward's
-    arithmetic, the intra-chunk terms over the triangle the data needs), at
-    the f32 CUDA-core rate."""
+    """The least work of a scan's gradient at ``shape``, and the declared
+    cost the static counter gives its backward kernel at ``chunk``
+    (``kernels.cost.rwkv6_wkv_grad_cost`` / ``mamba2_ssd_grad_cost``: twice
+    the chunked forward's f32 arithmetic, the intra-chunk pair terms
+    included).  The least work reads each input and dy once and writes each
+    gradient once (the declared cost's bytes), against the recurrence's
+    least arithmetic counted as time_scans counts the forwards': a
+    multiply-add per state element, per position and head, for each pass
+    over the state, at split TF32 (three passes at 495 TFLOP/s).  WKV: the
+    state's update, its read S_{t-1}·dy, its gradient D's update, D·v and
+    Dᵀ·k (10 K² flops).  SSD: h's update, dC's Σ_p dy[p] h[p,:], the
+    gradient G's update, dz = G·B and dB's Σ_p z[p] G[p,:] (10 P N flops;
+    ⟨dy, y⟩ is ⟨dC's head term, C⟩, no read of y).  The decays and the u,
+    skip and dt terms are O(K) or O(P) a position and are left out."""
+    import dataclasses
+
     from repro_torch.kernels.cost import mamba2_ssd_grad_cost, rwkv6_wkv_grad_cost
 
     if name == "rwkv6_wkv":
-        return rwkv6_wkv_grad_cost(shape, chunk)
-    b, s, h, p, n = shape
-    return mamba2_ssd_grad_cost((b, s, h, p), n, chunk)
+        b, s, h, k = shape
+        declared, flops = rwkv6_wkv_grad_cost(shape, chunk), 10.0 * b * s * h * k * k
+    else:
+        b, s, h, p, n = shape
+        declared, flops = mamba2_ssd_grad_cost((b, s, h, p), n, chunk), 10.0 * b * s * h * p * n
+    least = dataclasses.replace(declared, flops=flops, unit="tf32", passes=3)
+    return least, declared
 
 
-def time_scan_grads(K, gen, dev) -> dict:
-    """The scans' gradients at the training paths' shapes (rwkv6-3b: batch
-    2 x 1024, 40 heads of 64, the kernel's chunk 32 and the reference's 64
-    for the gradient; zamba2-2.7b: 80 heads, P = N = 64, chunk 256): the
-    autograd backward of RWKV6WKV / Mamba2SSD (the chunked form recomputed
-    and differentiated, the library baseline of a backward kernel still to
-    write) against the forward kernel at the same shape, medians of ROUNDS
-    rounds between CUDA events, and the backward's bound
-    (``scan_grad_work`` at the f32 CUDA-core rate against HBM)."""
+def time_scan_grads(gen, dev) -> dict:
+    """The scans' backward kernels at the training paths' shapes (rwkv6-3b:
+    batch 2 x 1024, 40 heads of 64, the reference's chunk 64 for the
+    gradient; zamba2-2.7b: 80 heads, P = N = 64, chunk 256) and at the rank
+    shapes (RWKV_RANK, MAMBA_RANK): the kernel as medians of ROUNDS rounds
+    (CUDA-graph replays), its plain version (wkv_chunked_grads /
+    ssd_chunked_grads: the chunked form recomputed and differentiated under
+    autograd) as medians of ROUNDS rounds between CUDA events, and the bound
+    (``scan_grad_work``'s least work; the declared cost's time is logged
+    beside it).  No single PyTorch call computes either gradient, so
+    library_ms is null."""
+    from repro_torch.analysis.cert.roofline import H100_SXM
+    from repro_torch.kernels.mamba2_ssd import mamba2_ssd_bwd_cuda, ssd_chunked_grads
+    from repro_torch.kernels.rwkv6_scan import rwkv6_wkv_bwd_cuda, wkv_chunked_grads
+
     res = {}
-    for name, shape in (("rwkv6_wkv", (TRAIN_B, TRAIN_S, 40, 64)),
-                        ("mamba2_ssd", (TRAIN_B, TRAIN_S, 80, 64, 64))):
-        if name == "rwkv6_wkv":
-            ins = rwkv6_inputs(gen, shape, 0.5, dev)
-            chunk = RWKV_CHUNK
-            call = lambda *a: K.rwkv6_wkv(*a, 32, grad_chunk=chunk)  # noqa: E731
+    jobs = [("rwkv6_wkv_bwd", shape, None) for shape in [RWKV_TRAIN] + RWKV_RANK]
+    jobs += [("mamba2_ssd_bwd", shape, hb) for shape, hb in [(MAMBA_TRAIN, MAMBA_HB)] + MAMBA_RANK]
+    for name, shape, hb in jobs:
+        if name == "rwkv6_wkv_bwd":
+            ins, chunk = rwkv6_inputs(gen, shape, 0.5, dev), RWKV_CHUNK
+            dy = randn(gen, shape, torch.float32, dev)
+            call = lambda: rwkv6_wkv_bwd_cuda(*ins, dy, chunk)  # noqa: E731
+            plain = lambda: wkv_chunked_grads(ins, chunk, dy)  # noqa: E731
+            cost, declared = scan_grad_work("rwkv6_wkv", shape, chunk)
+            what = f"{shape} f32, chunk {chunk}"
         else:
-            ins = mamba2_inputs(gen, shape, dev)
-            chunk = MAMBA_CHUNK
-            call = lambda *a: K.mamba2_ssd(*a, chunk, MAMBA_HB)  # noqa: E731
-        leaves = [x.detach().clone().requires_grad_() for x in ins]
-        y = call(*leaves)
-        dy = torch.randn(y.shape, generator=gen, device=dev)
-        grads = torch.autograd.grad(y, leaves, dy, retain_graph=True)
-        if not all(torch.isfinite(g).all() and g.abs().max() > 0 for g in grads):
-            raise AssertionError(f"{name}: a gradient at the training shape is zero or not finite")
-        fwd, bwd = [], []
-        for _ in range(ROUNDS):
-            with torch.no_grad():
-                fwd.append(event_ms(lambda: call(*ins), 5))
-            bwd.append(event_ms(lambda: torch.autograd.grad(y, leaves, dy, retain_graph=True), 3))
-        cost = scan_grad_work(name, shape, chunk)
-        nbytes, flops = cost.bytes, cost.flops
+            ins, chunk = mamba2_inputs(gen, shape, dev), MAMBA_CHUNK
+            dy = randn(gen, shape[:4], torch.float32, dev)
+            call = lambda: mamba2_ssd_bwd_cuda(*ins, dy, chunk, hb)  # noqa: E731
+            plain = lambda: ssd_chunked_grads(ins, chunk, dy)  # noqa: E731
+            cost, declared = scan_grad_work("mamba2_ssd", shape, chunk)
+            what = f"x {shape[:4]} N {shape[4]} f32, chunk {chunk} head_block {hb}"
+        ks = kernel_rounds(call, 10)
+        ps = [event_ms(plain, 2) for _ in range(ROUNDS)]
+        ms, plain_ms = statistics.median(ks), statistics.median(ps)
         b_ms, b_by = bound(cost)
-        ms, f_ms = statistics.median(bwd), statistics.median(fwd)
-        res[name] = dict(library_ms=ms, fwd_ms=f_ms, bound_ms=b_ms, bound_by=b_by)
-        log(f"[times] {name} gradient {shape} f32, chunk {chunk}: autograd backward (the "
-            f"chunked form recomputed and differentiated; the baseline of a backward kernel) "
-            f"{ms:.4f} ms, {ms / f_ms:.1f} x the forward kernel's {f_ms:.4f} ms at this shape; "
-            f"bound {b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP at "
-            f"67 TFLOP/s f32); {b_ms / ms:.3f} of bound")
-        log(f"[times]   {ROUNDS} rounds: backward {spread(bwd)}; forward kernel {spread(fwd)}")
-        del y, dy, grads, leaves, ins
+        row = dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by)
+        if shape in (RWKV_TRAIN, MAMBA_TRAIN):
+            res[name] = row
+        else:
+            res[name].setdefault("rank_shapes", []).append(dict(shape=list(shape), head_block=hb,
+                                                                **row))
+        d_ms, d_by = bound(declared)
+        log(f"[times] {name} {what}: kernel {ms:.4f} ms, plain (the chunked form under "
+            f"autograd) {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {cost.bytes / 1e6:.1f} MB "
+            f"at 3.35 TB/s = {cost.bytes / H100_SXM.mem_bw * 1e3:.4f} ms; the recurrence's "
+            f"{cost.flops / 1e9:.2f} GFLOP x 3 split-TF32 passes at 495 TFLOP/s = "
+            f"{3 * cost.flops / H100_SXM.peak('tf32') * 1e3:.4f} ms); {b_ms / ms:.3f} of bound, "
+            f"{plain_ms / ms:.1f} x faster than the plain version; the declared cost's "
+            f"{declared.flops / 1e9:.2f} GFLOP at 67 TFLOP/s f32 would read {d_ms:.4f} ms ({d_by})")
+        log(f"[times]   {ROUNDS} rounds: kernel {spread(ks)}; plain {spread(ps)}")
+        del ins, dy
         torch.cuda.empty_cache()
     return res
 
@@ -1378,7 +1559,7 @@ def phase_times(dev):
     time_decode(K, R, gen, dev, ZH, ZKV, ZD)
     time_decode(K, R, gen, dev, H, KV, D, B=MT_CAPACITY)      # the multi-tenant step's shape
     res.update(time_scans(K, R, gen, dev))
-    time_scan_grads(K, gen, dev)
+    res.update(time_scan_grads(gen, dev))
     return res
 
 
@@ -2553,18 +2734,12 @@ def phase_multi_tenant(dev):
     return counts["decode_attention"]
 
 
-# the scans' forward kernels (by the names in their sources) and their
-# autograd Functions' backward nodes, for the split of a train step's
-# device time
+# the scans' forward and backward kernels (by the names in their sources),
+# for the split of a train step's device time
 SCAN_FWD_KERNELS = {"rwkv6_wkv": ("wkv_scores_kernel", "wkv_fwd_kernel"),
                     "mamba2_ssd": ("ssd_scores_kernel", "ssd_fwd_kernel")}
-SCAN_BWD_NODES = {"rwkv6_wkv": "RWKV6WKVBackward", "mamba2_ssd": "Mamba2SSDBackward"}
-
-
-def _device_total_us(evt) -> float:
-    """A CPU op's device time with its children's (the kernels launched
-    inside it); the attribute's name changed across torch versions."""
-    return getattr(evt, "device_time_total", None) or getattr(evt, "cuda_time_total", 0)
+SCAN_BWD_KERNELS = {"rwkv6_wkv": ("wkv_bwd_kernel", "wkv_du_kernel"),
+                    "mamba2_ssd": ("ssd_bwd_kernel", "ssd_bc_kernel")}
 
 
 def _train_step_busy(model, params, opt_state, batch, opt_cfg, wall_s: float, tag: str) -> dict:
@@ -2572,8 +2747,7 @@ def _train_step_busy(model, params, opt_state, batch, opt_cfg, wall_s: float, ta
     device time (torch.profiler) over the unprofiled step's wall time; for
     the scan families the scans' share of it, split into the forward
     kernels (launched in the forward and in remat's recomputation) and the
-    autograd backward (the Function's backward node: the chunked form
-    recomputed and differentiated)."""
+    backward kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.train import make_train_step
@@ -2598,15 +2772,14 @@ def _train_step_busy(model, params, opt_state, batch, opt_cfg, wall_s: float, ta
         if not fwd:
             continue
         fwd_ms = sum(us for us, _ in fwd) / 1e3
-        bwd = [e for e in events if e.key == SCAN_BWD_NODES[name]]
-        bwd_ms = sum(_device_total_us(e) for e in bwd) / 1e3
+        bwd = [(us, c) for key, us, c in rows if any(k in key for k in SCAN_BWD_KERNELS[name])]
+        bwd_ms = sum(us for us, _ in bwd) / 1e3
         out[name] = dict(fwd_ms=fwd_ms, bwd_ms=bwd_ms)
         log(f"[train] {tag} {name} in the step: forward kernels {fwd_ms:.3f} ms "
             f"({fwd_ms / busy_ms:.3f} of device time, {sum(c for _, c in fwd)} launches of "
-            f"{len(kernels)} kernels); autograd backward "
-            + (f"{bwd_ms:.3f} ms ({bwd_ms / busy_ms:.3f}, {sum(e.count for e in bwd)} calls of "
-               f"{SCAN_BWD_NODES[name]})" if bwd_ms > 0 else
-               f"not measured (the profiler linked no device time to {SCAN_BWD_NODES[name]})"))
+            f"{len(kernels)} kernels); backward kernels {bwd_ms:.3f} ms "
+            f"({bwd_ms / busy_ms:.3f}, {sum(c for _, c in bwd)} launches of "
+            f"{len(SCAN_BWD_KERNELS[name])} kernels)")
     return out
 
 
@@ -2614,17 +2787,16 @@ def train_launches(model) -> dict:
     """The kernels' launches in one train step: per attention site the flash
     forward (twice with remat: the forward and the recomputation) and its
     backward kernel once; per RWKV6 or Mamba2 layer its scan's forward
-    kernel (twice with remat), whose gradient is the chunked form's under
-    autograd and launches nothing; no decode."""
+    kernel (twice with remat) and its backward kernel once; no decode."""
     cfg = model.cfg
     fwd = 2 if cfg.remat else 1
     sites = model.n_attn_sites()
     want = dict.fromkeys(KERNELS, 0)
     want.update(flash_attention=fwd * sites, flash_attention_bwd=sites)
     if cfg.family == "ssm":
-        want["rwkv6_wkv"] = fwd * cfg.num_layers
+        want.update(rwkv6_wkv=fwd * cfg.num_layers, rwkv6_wkv_bwd=cfg.num_layers)
     if cfg.family == "hybrid":
-        want["mamba2_ssd"] = fwd * cfg.num_layers
+        want.update(mamba2_ssd=fwd * cfg.num_layers, mamba2_ssd_bwd=cfg.num_layers)
     return want
 
 
@@ -2756,7 +2928,8 @@ def phase_train(dev, smi: str) -> dict:
     grad on the card against the CPU (launches held exactly, the loss
     within 1e-5 relative, every gradient leaf nonzero and within 1e-3 of its
     largest element: the scans' forward kernels against the step
-    recurrences, and the chunked forms' gradients on both devices).
+    recurrences, and their backward kernels against the chunked forms'
+    gradients on the CPU).
     Returns each path's launch counts and measurements."""
     import tempfile
 

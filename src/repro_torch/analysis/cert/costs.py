@@ -27,9 +27,8 @@ all keep the roofline latency a floor):
 * a kernel entry point of ``kernels.ops`` — its declared cost
   (``kernels/cost.py``), through ``ops.count_hook``: never the arithmetic
   of its plain version.  Under grad the kernel's backward is counted as
-  the port runs it: the flash backward kernel by its declared cost, the
-  scans' backward as the chunked form recomputed under autograd (aten
-  ops).
+  the port runs it on the card: its backward kernel by its declared cost
+  (the flash backward, the scans' backward kernels).
 * host-interaction ops (``aten._local_scalar_dense``, ``nonzero``,
   ``masked_select``, a copy across devices, and any op that raises
   ``DynamicOutputShapeException`` or ``DataDependentOutputException``) —
@@ -312,10 +311,10 @@ def _crosses_devices(name: str, args, kwargs) -> bool:
 
 
 class _CountedKernel(torch.autograd.Function):
-    """A kernel call under grad, as the port runs it: the forward counted
-    by its declared cost, the backward as the port's backward (the flash
-    backward kernel by its declared cost; a scan's chunked form recomputed
-    under autograd, op by op)."""
+    """A kernel call under grad, as the port runs it on the card: the
+    forward counted by its declared cost, the backward by its backward
+    kernel's (``flash_attention_bwd``, ``rwkv6_wkv_bwd``,
+    ``mamba2_ssd_bwd``)."""
 
     @staticmethod
     def forward(ctx, name, kw, hook, *args):
@@ -325,15 +324,7 @@ class _CountedKernel(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy):
-        saved = ctx.saved_tensors
-        if ctx.name == "flash_attention":
-            grads = ctx.hook.report("flash_attention_bwd", saved, ctx.kw)
-        elif ctx.name == "rwkv6_wkv":
-            from repro_torch.kernels.rwkv6_scan import wkv_chunked_grads
-            grads = wkv_chunked_grads(saved, ctx.kw["grad_chunk"], dy)
-        else:
-            from repro_torch.kernels.mamba2_ssd import ssd_chunked_grads
-            grads = ssd_chunked_grads(saved, ctx.kw["chunk"], dy)
+        grads = ctx.hook.report(f"{ctx.name}_bwd", ctx.saved_tensors, ctx.kw)
         return (None, None, None, *grads)
 
 

@@ -27,7 +27,7 @@ __all__ = ["SOURCES", "BUILD_DIR", "NVCC_FLAGS", "find_nvcc", "build", "build_al
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("flash_attention", "flash_attention_bwd", "decode_attention", "rwkv6_scan",
-           "mamba2_ssd")
+           "rwkv6_scan_bwd", "mamba2_ssd", "mamba2_ssd_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -188,8 +188,9 @@ def mamba2_ssd_grad_cost(x_shape, n_state: int, chunk: int) -> KernelCost:
 
 def call_cost(name: str, args: tuple, kw: dict) -> KernelCost:
     """The declared cost of one call of entry point ``name`` of
-    ``kernels.ops`` (``flash_attention_bwd``: the backward of a flash call)
-    on tensors ``args`` and flags ``kw``."""
+    ``kernels.ops`` (``flash_attention_bwd``, ``rwkv6_wkv_bwd``,
+    ``mamba2_ssd_bwd``: the backward of a call, on its saved inputs) on
+    tensors ``args`` and flags ``kw``."""
     if name == "flash_attention":
         q, k = args[0], args[1]
         return flash_attention_cost(q.shape, k.shape, q.dtype, kw.get("causal", True),
@@ -205,6 +206,10 @@ def call_cost(name: str, args: tuple, kw: dict) -> KernelCost:
         return rwkv6_wkv_cost(args[0].shape)
     if name == "mamba2_ssd":
         return mamba2_ssd_cost(args[0].shape, args[3].shape[-1])
+    if name == "rwkv6_wkv_bwd":
+        return rwkv6_wkv_grad_cost(args[0].shape, kw["grad_chunk"])
+    if name == "mamba2_ssd_bwd":
+        return mamba2_ssd_grad_cost(args[0].shape, args[3].shape[-1], kw["chunk"])
     raise KeyError(f"no declared cost for kernel {name!r}")
 
 
@@ -220,4 +225,6 @@ def call_outputs(name: str, args: tuple,
         return [(tuple(args[0].shape), torch.float32)]
     if name == "flash_attention_bwd":
         return [(tuple(t.shape), t.dtype) for t in args[:3]]
+    if name in ("rwkv6_wkv_bwd", "mamba2_ssd_bwd"):
+        return [(tuple(t.shape), torch.float32) for t in args[:5]]
     raise KeyError(f"no outputs declared for kernel {name!r}")

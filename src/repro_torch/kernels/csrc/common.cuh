@@ -1,5 +1,6 @@
-// Shared helpers for the hand-written attention kernels: dtype conversion
-// to and from the f32 working type, and 16-lane / 32-lane reductions.
+// Shared helpers for the hand-written kernels: dtype conversion to and from
+// the f32 working type, 16-lane / 32-lane reductions, and the scans'
+// backward kernels' row and column sums.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -41,6 +42,41 @@ __device__ __forceinline__ float group_sum(float x) {
   for (int off = width / 2; off > 0; off >>= 1)
     x += __shfl_xor_sync(0xffffffffu, x, off);
   return x;
+}
+
+// The two scans' backward kernels hold a 64 × 64 state as 4 × 4 a thread:
+// the 16 lanes of a half-warp share four rows, the two half-warps the
+// same four columns.  row_sum16: v[a] is the lane's partial sum of row a of
+// its four; returns the half-warp's whole sum of row 2·(lane&1) +
+// ((lane>>1)&1), each level keeping half the rows and sending the other
+// half (5 shuffles for 4 rows).
+__device__ __forceinline__ float row_sum16(const float v[4], int lane) {
+  const bool b0 = lane & 1, b1 = lane & 2;
+  float k0 = b0 ? v[2] : v[0], k1 = b0 ? v[3] : v[1];
+  const float s0 = b0 ? v[0] : v[2], s1 = b0 ? v[1] : v[3];
+  k0 += __shfl_xor_sync(0xffffffffu, s0, 1);
+  k1 += __shfl_xor_sync(0xffffffffu, s1, 1);
+  float kk = b1 ? k1 : k0;
+  const float s = b1 ? k0 : k1;
+  kk += __shfl_xor_sync(0xffffffffu, s, 2);
+  kk += __shfl_xor_sync(0xffffffffu, kk, 4);
+  kk += __shfl_xor_sync(0xffffffffu, kk, 8);
+  return kk;
+}
+
+// col_sum2: c[x] is the lane's partial sum of column x of its four over its
+// rows; returns the warp's sums of columns 2·hi and 2·hi + 1 (hi = lane >= 16).
+__device__ __forceinline__ float2 col_sum2(const float c[4], int lane) {
+  const bool hi = lane & 16;
+  float k0 = hi ? c[2] : c[0], k1 = hi ? c[3] : c[1];
+  const float s0 = hi ? c[0] : c[2], s1 = hi ? c[1] : c[3];
+  k0 += __shfl_xor_sync(0xffffffffu, s0, 16);
+  k1 += __shfl_xor_sync(0xffffffffu, s1, 16);
+  return make_float2(k0, k1);
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
 }
 
 // Opt a kernel into more than 48 KB of dynamic shared memory (once per

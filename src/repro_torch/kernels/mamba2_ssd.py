@@ -12,11 +12,16 @@ across them.  ``chunk`` and ``head_block`` are checked as the reference
 checks them and do not change the result (see the source's note).  The
 launch counter counts calls.
 
-``Mamba2SSD`` puts the kernel on the training path: its forward is the
-kernel (the plain version on a CPU tensor), and its gradient is that of the
-reference's chunked form, ``ref.mamba2_ssd_chunked``, recomputed in the
-backward under autograd at the model's ``ssm_chunk``, the chunk
-``jax.value_and_grad`` differentiates in the reference.
+``Mamba2SSD`` puts the kernels on the training path: its forward is the
+kernel, and its backward the hand-written backward kernel
+``csrc/mamba2_ssd_bwd.cu`` (``mamba2_ssd_bwd_cuda``).  The reference has no
+Pallas backward: ``jax.value_and_grad`` differentiates its chunked form at
+the model's ``ssm_chunk``, and the backward kernel computes that gradient,
+the recurrence's (the chunk changes only the rounding).  On a CPU tensor the
+forward is the step recurrence and the backward the plain version,
+``ssd_chunked_grads``: the reference's chunked form,
+``ref.mamba2_ssd_chunked``, recomputed at ``chunk`` and differentiated under
+autograd.
 """
 from __future__ import annotations
 
@@ -27,7 +32,8 @@ import torch
 from . import _build
 from . import ref as _ref
 
-__all__ = ["mamba2_ssd_cuda", "Mamba2SSD", "ssd_chunked_grads", "check_mamba2_inputs", "occupancy",
+__all__ = ["mamba2_ssd_cuda", "mamba2_ssd_bwd_cuda", "Mamba2SSD", "ssd_chunked_grads",
+           "check_mamba2_inputs", "occupancy",
            "MAX_DIM", "SUB_TILE", "STATE_ROWS"]
 
 MAX_DIM = 64         # the kernel's largest head width P and state size N (multiples of 4)
@@ -35,6 +41,7 @@ SUB_TILE = 64        # rows the kernel walks at a time, whatever the chunk
 STATE_ROWS = 32      # rows p of the state (columns of x) per block
 
 _fn = None
+_bwd_fn = None
 
 
 def _kernel():
@@ -45,6 +52,16 @@ def _kernel():
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
+
+
+def _bwd_kernel():
+    global _bwd_fn
+    if _bwd_fn is None:
+        fn = _build.load("mamba2_ssd_bwd").mamba2_ssd_bwd
+        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _bwd_fn = fn
+    return _bwd_fn
 
 
 def occupancy() -> dict:
@@ -107,11 +124,54 @@ def mamba2_ssd_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
 mamba2_ssd_cuda.launches = 0
 
 
+def mamba2_ssd_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                        bmat: torch.Tensor, cmat: torch.Tensor, dy: torch.Tensor,
+                        chunk: int = 64, head_block: int = 8) -> tuple:
+    """The SSD scan's gradient from a zero state: x (B,S,H,P), dt (B,S,H),
+    a (H,), B/C (B,S,N), float32 CUDA tensors, and dy (B,S,H,P) → (dx,
+    ddt, da, dB, dC) float32.  ``chunk`` and ``head_block`` are checked as
+    the reference checks them and not passed on: the kernel computes the
+    recurrence's gradient.  A non-contiguous dy (autograd's) is made
+    contiguous.  Launches on the current stream without synchronising."""
+    if x.device.type != "cuda":
+        raise ValueError(f"mamba2_ssd_bwd_cuda needs CUDA tensors, got {x.device}")
+    check_mamba2_inputs(x, dt, a, bmat, cmat, chunk, head_block)
+    dy = dy.contiguous()
+    if dy.shape != x.shape:
+        raise ValueError(f"dy {tuple(dy.shape)} for x {tuple(x.shape)}")
+    for t in (x, dt, a, bmat, cmat, dy):
+        if t.device != x.device or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError("mamba2_ssd_bwd_cuda takes contiguous float32 tensors on one device")
+    b, s, h, p = x.shape
+    n = bmat.shape[-1]
+    if p > MAX_DIM or n > MAX_DIM:
+        raise ValueError(f"head width {p} / state {n} not supported (up to {MAX_DIM})")
+    dx, ddt, da = torch.empty_like(x), torch.empty_like(dt), torch.empty_like(a)
+    dbm, dcm = torch.empty_like(bmat), torch.empty_like(cmat)
+    # <dy, y> per step and head, dB's and dC's partials per head, da's per
+    # batch row: the first kernel writes them, the second sums the partials
+    scratch = torch.empty(b * h * s + 2 * b * s * h * n + b * h, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _bwd_kernel()(x.data_ptr(), dt.data_ptr(), a.data_ptr(), bmat.data_ptr(),
+                            cmat.data_ptr(), dy.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
+                            da.data_ptr(), dbm.data_ptr(), dcm.data_ptr(), scratch.data_ptr(),
+                            b, s, h, p, n, stream)
+    if err:
+        raise RuntimeError(f"mamba2_ssd_bwd kernel launch failed: CUDA error {err}")
+    mamba2_ssd_bwd_cuda.launches += 1
+    return dx, ddt, da, dbm, dcm
+
+
+mamba2_ssd_bwd_cuda.launches = 0
+
+
 class Mamba2SSD(torch.autograd.Function):
-    """The SSD scan from a zero state with its gradient: on CUDA tensors the
-    forward kernel, on CPU tensors the step recurrence; the backward
-    recomputes ``ref.mamba2_ssd_chunked`` at ``chunk`` on the saved inputs
-    and differentiates it (dx, ddt, da, dB, dC)."""
+    """The SSD scan from a zero state with its gradient (dx, ddt, da, dB,
+    dC): on CUDA tensors the forward kernel and the backward kernel; on CPU
+    tensors the step recurrence, and the backward recomputes
+    ``ref.mamba2_ssd_chunked`` at ``chunk`` on the saved inputs and
+    differentiates it."""
 
     @staticmethod
     def forward(ctx, x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
@@ -121,12 +181,15 @@ class Mamba2SSD(torch.autograd.Function):
         else:
             y = _ref.mamba2_ssd_ref(x, dt, a, bmat, cmat)
         ctx.save_for_backward(x, dt, a, bmat, cmat)
-        ctx.chunk = chunk
+        ctx.chunk, ctx.head_block = chunk, head_block
         return y
 
     @staticmethod
     def backward(ctx, dy: torch.Tensor):
-        grads = ssd_chunked_grads(ctx.saved_tensors, ctx.chunk, dy)
+        if dy.device.type == "cuda":
+            grads = mamba2_ssd_bwd_cuda(*ctx.saved_tensors, dy, ctx.chunk, ctx.head_block)
+        else:
+            grads = ssd_chunked_grads(ctx.saved_tensors, ctx.chunk, dy)
         return (*(g if need else None for g, need in zip(grads, ctx.needs_input_grad)),
                 None, None)
 

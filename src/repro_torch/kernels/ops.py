@@ -9,10 +9,9 @@ show that its main path went through the kernels.
 Gradients: under grad with an input that requires grad, on either device,
 ``flash_attention`` applies ``FlashAttention`` (on the card the forward
 kernel, and the backward kernel for its gradient), and the two scans apply
-``RWKV6WKV`` and ``Mamba2SSD`` (on the card the forward kernel; the
-gradient is that of the reference's chunked form, recomputed in the
-backward under autograd).  On the CPU those Functions' forwards are the
-plain versions, so the CPU runs the backward that the card runs.
+``RWKV6WKV`` and ``Mamba2SSD`` (on the card the forward kernel, and the
+backward kernel for the gradient; on the CPU the step recurrence, and the
+gradient of the reference's chunked form recomputed under autograd).
 ``decode_attention`` has no backward and raises ``NotImplementedError`` on
 a CUDA tensor under grad, since its ctypes launch would hand autograd an
 output cut from its inputs (decode runs without grad).  Without grad every
@@ -35,8 +34,8 @@ import torch
 from . import ref as _ref
 from .decode_attention import decode_attention_cuda
 from .flash_attention import FlashAttention, flash_attention_bwd_cuda, flash_attention_cuda
-from .mamba2_ssd import Mamba2SSD, check_mamba2_inputs, mamba2_ssd_cuda
-from .rwkv6_scan import RWKV6WKV, check_rwkv6_inputs, rwkv6_wkv_cuda
+from .mamba2_ssd import Mamba2SSD, check_mamba2_inputs, mamba2_ssd_bwd_cuda, mamba2_ssd_cuda
+from .rwkv6_scan import RWKV6WKV, check_rwkv6_inputs, rwkv6_wkv_bwd_cuda, rwkv6_wkv_cuda
 
 __all__ = ["flash_attention", "decode_attention", "rwkv6_wkv", "mamba2_ssd",
            "launch_counts", "reset_launch_counts", "count_hook"]
@@ -48,7 +47,9 @@ _WRAPPERS = {
     "flash_attention_bwd": flash_attention_bwd_cuda,
     "decode_attention": decode_attention_cuda,
     "rwkv6_wkv": rwkv6_wkv_cuda,
+    "rwkv6_wkv_bwd": rwkv6_wkv_bwd_cuda,
     "mamba2_ssd": mamba2_ssd_cuda,
+    "mamba2_ssd_bwd": mamba2_ssd_bwd_cuda,
 }
 
 
@@ -107,8 +108,9 @@ def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Ten
               grad_chunk: Optional[int] = None) -> torch.Tensor:
     """The RWKV6 WKV scan from a zero state: r, k, v, logw (B,S,H,K), u
     (H,K) → y (B,S,H,K) float32.  ``chunk`` is checked on every device;
-    under grad the gradient is the chunked form's at ``grad_chunk``
-    (default ``chunk``), which must divide S."""
+    under grad ``grad_chunk`` (default ``chunk``), the reference's chunk for
+    the gradient, must divide S: the CPU differentiates the chunked form
+    at it, the card's backward kernel the recurrence."""
     if count_hook is not None:
         return count_hook("rwkv6_wkv", (r, k, v, logw, u),
                           {"chunk": chunk, "grad_chunk": chunk if grad_chunk is None
@@ -130,7 +132,8 @@ def mamba2_ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, bmat: torch.T
     """The Mamba2 SSD scan from a zero state, one B/C group: x (B,S,H,P),
     dt (B,S,H), a (H,), B/C (B,S,N) → y (B,S,H,P) float32 without the
     D-skip term.  ``chunk`` and ``head_block`` are checked on every device;
-    under grad the gradient is the chunked form's at ``chunk``."""
+    under grad the CPU differentiates the chunked form at ``chunk``, the
+    card's backward kernel the recurrence."""
     if count_hook is not None:
         return count_hook("mamba2_ssd", (x, dt, a, bmat, cmat),
                           {"chunk": chunk, "head_block": head_block})

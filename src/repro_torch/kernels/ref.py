@@ -20,7 +20,10 @@ them the chunked forms that the reference differentiates,
 ``rwkv6_wkv_chunked`` (its ``models/rwkv6.py::_wkv_chunked``) and
 ``mamba2_ssd_chunked`` (``models/mamba2.py::_ssd_chunked``), each from an
 initial state to a final one: the scan kernels' autograd Functions
-recompute them for the gradient.
+recompute them for the gradient on the CPU.  The scans' gradients in the
+backward kernels' formulas, ``rwkv6_wkv_bwd_ref`` and
+``mamba2_ssd_bwd_ref``: the recurrence run forwards for the states and
+backwards for their gradients, step by step.
 
 The kernel wrappers use these for CPU tensors; ``chip_smoke.py`` holds
 each kernel against them on the card.
@@ -34,8 +37,8 @@ import torch
 
 __all__ = ["NEG_INF", "flash_attention_ref", "flash_attention_lse_ref", "flash_attention_bwd_ref",
            "decode_attention_ref", "attention_mask",
-           "rwkv6_recurrent", "rwkv6_wkv_ref", "rwkv6_wkv_chunked", "mamba2_ssd_ref",
-           "mamba2_ssd_chunked"]
+           "rwkv6_recurrent", "rwkv6_wkv_ref", "rwkv6_wkv_chunked", "rwkv6_wkv_bwd_ref",
+           "mamba2_ssd_ref", "mamba2_ssd_chunked", "mamba2_ssd_bwd_ref"]
 
 NEG_INF = -1e30
 
@@ -278,3 +281,74 @@ def mamba2_ssd_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         hst = hst * dec[..., None, None] + upd
         ys.append(torch.einsum("bn,bhpn->bhp", cmat[:, t], hst))
     return torch.stack(ys, dim=1)
+
+
+def _reverse_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """Σ_{t' >= t} x[:, t'] along axis 1."""
+    return x.flip(1).cumsum(1).flip(1)
+
+
+def rwkv6_wkv_bwd_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      logw: torch.Tensor, u: torch.Tensor,
+                      dy: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """The WKV scan's gradient from a zero state in the backward kernel's
+    formulas (``csrc/rwkv6_scan_bwd.cu``), in the inputs' dtype: r, k, v,
+    logw (B,S,H,K), u (H,K) and dy → (dr, dk, dv, dlogw, du).  The states
+    S_t forwards give dr^s_t = S_{t-1} dy_t; D_t = ∂L/∂S_t backwards
+    (D_{t-1} = diag(w_t) D_t + r_t dy_tᵀ) gives dk^s_t = D_t v_t and
+    dv^s_t = D_tᵀ k_t; the bonus adds u ⊙ k (v·dy), u ⊙ r (v·dy) and
+    (Σ r u k) dy; du = Σ r ⊙ k (v·dy); and dlogw_s = Σ_{t>s} r ⊙ dr^s −
+    Σ_{t≥s} k ⊙ dk^s."""
+    b, s, h, dk = r.shape
+    w = torch.exp(logw)
+    st = torch.zeros((b, h, dk, dk), dtype=r.dtype, device=r.device)
+    drs = []
+    for t in range(s):
+        drs.append(torch.einsum("bhij,bhj->bhi", st, dy[:, t]))
+        st = st * w[:, t, :, :, None] + k[:, t, :, :, None] * v[:, t, :, None, :]
+    d = torch.zeros_like(st)
+    dks, dvs = [None] * s, [None] * s
+    for t in reversed(range(s)):
+        dks[t] = torch.einsum("bhij,bhj->bhi", d, v[:, t])
+        dvs[t] = torch.einsum("bhij,bhi->bhj", d, k[:, t])
+        d = d * w[:, t, :, :, None] + r[:, t, :, :, None] * dy[:, t, :, None, :]
+    drs, dks, dvs = (torch.stack(x, dim=1) for x in (drs, dks, dvs))
+    vdy = (v * dy).sum(-1, keepdim=True)
+    rdr, kdk = r * drs, k * dks
+    return (drs + u * k * vdy, dks + u * r * vdy,
+            dvs + (r * u * k).sum(-1, keepdim=True) * dy,
+            _reverse_cumsum(rdr) - rdr - _reverse_cumsum(kdk),
+            (r * k * vdy).sum((0, 1)))
+
+
+def mamba2_ssd_bwd_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                       bmat: torch.Tensor, cmat: torch.Tensor,
+                       dy: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """The SSD scan's gradient from a zero state in the backward kernel's
+    formulas (``csrc/mamba2_ssd_bwd.cu``), in the inputs' dtype: x
+    (B,S,H,P), dt (B,S,H), a (H,), B/C (B,S,N) and dy (B,S,H,P) → (dx,
+    ddt, da, dB, dC).  With z = dt·x, the states h_t forwards give y_t and
+    dC_t = Σ_h dy_tᵀ h_t; G_t = ∂L/∂h_t = dy_t ⊗ C_t + α_{t+1} G_{t+1}
+    backwards gives dz_t = G_t B_t and dB_t = Σ_h z_tᵀ G_t; dx = dt·dz; and
+    with dl the reverse cumulative sum of ⟨dy, y⟩ − ⟨dz, z⟩ per head,
+    ddt = a·dl + ⟨dz, x⟩ and da = Σ dt·dl."""
+    b, s, nh, p = x.shape
+    n = bmat.shape[-1]
+    alpha = torch.exp(dt * a)
+    z = dt[..., None] * x
+    hst = torch.zeros((b, nh, p, n), dtype=x.dtype, device=x.device)
+    ys, dcs = [], []
+    for t in range(s):
+        hst = hst * alpha[:, t, :, None, None] + z[:, t, :, :, None] * bmat[:, t, None, None, :]
+        ys.append(torch.einsum("bhpn,bn->bhp", hst, cmat[:, t]))
+        dcs.append(torch.einsum("bhpn,bhp->bn", hst, dy[:, t]))
+    g = torch.zeros_like(hst)
+    dzs, dbs = [None] * s, [None] * s
+    for t in reversed(range(s)):
+        g = g + dy[:, t, :, :, None] * cmat[:, t, None, None, :]
+        dzs[t] = torch.einsum("bhpn,bn->bhp", g, bmat[:, t])
+        dbs[t] = torch.einsum("bhpn,bhp->bn", g, z[:, t])
+        g = g * alpha[:, t, :, None, None]
+    y, dz, dbm, dcm = (torch.stack(v, dim=1) for v in (ys, dzs, dbs, dcs))
+    dl = _reverse_cumsum((dy * y).sum(-1) - (dz * z).sum(-1))
+    return dt[..., None] * dz, a * dl + (dz * x).sum(-1), (dt * dl).sum((0, 1)), dbm, dcm

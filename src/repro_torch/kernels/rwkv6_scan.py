@@ -14,12 +14,15 @@ state across tiles.  See the source's note for the arithmetic and what
 bounds it.  ``chunk`` is checked as the reference checks it and not passed
 on.  The launch counter counts calls.
 
-``RWKV6WKV`` puts the kernel on the training path: its forward is the
-kernel (the plain version on a CPU tensor), and its gradient is that of the
-reference's chunked form, ``ref.rwkv6_wkv_chunked``, recomputed in the
-backward under autograd at the reference's chunk.  The reference has no
-Pallas backward either: ``jax.value_and_grad`` differentiates the same
-chunked form.
+``RWKV6WKV`` puts the kernels on the training path: its forward is the
+kernel, and its backward the hand-written backward kernel
+``csrc/rwkv6_scan_bwd.cu`` (``rwkv6_wkv_bwd_cuda``).  The reference has no
+Pallas backward: ``jax.value_and_grad`` differentiates its chunked form, and
+the backward kernel computes that gradient, the recurrence's (the chunk
+changes only the rounding).  On a CPU tensor the forward is the step
+recurrence and the backward the plain version, ``wkv_chunked_grads``: the
+reference's chunked form, ``ref.rwkv6_wkv_chunked``, recomputed at the
+reference's chunk and differentiated under autograd.
 """
 from __future__ import annotations
 
@@ -30,7 +33,8 @@ import torch
 from . import _build
 from . import ref as _ref
 
-__all__ = ["rwkv6_wkv_cuda", "RWKV6WKV", "wkv_chunked_grads", "check_rwkv6_inputs", "occupancy",
+__all__ = ["rwkv6_wkv_cuda", "rwkv6_wkv_bwd_cuda", "RWKV6WKV", "wkv_chunked_grads",
+           "check_rwkv6_inputs", "occupancy",
            "STATE_TILE", "FOLD_TILE", "SUB_BLOCK", "STATE_COLUMNS", "MAX_HEAD_DIM"]
 
 STATE_TILE = 32      # the TPU kernel's _STATE_TILE, which its chunk check names
@@ -40,6 +44,7 @@ STATE_COLUMNS = 16   # columns of the state per block
 MAX_HEAD_DIM = 64    # the kernel's largest head width (a multiple of 16)
 
 _fn = None
+_bwd_fn = None
 
 
 def _kernel():
@@ -50,6 +55,16 @@ def _kernel():
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
+
+
+def _bwd_kernel():
+    global _bwd_fn
+    if _bwd_fn is None:
+        fn = _build.load("rwkv6_scan_bwd").rwkv6_wkv_bwd
+        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _bwd_fn = fn
+    return _bwd_fn
 
 
 def occupancy() -> dict:
@@ -63,17 +78,22 @@ def occupancy() -> dict:
     return dict(zip(("blocks_per_sm", "threads", "smem_bytes"), (o.value for o in out)))
 
 
+def _check_shapes(r, k, v, logw, u) -> None:
+    h, dk = r.shape[2:]
+    if k.shape != r.shape or v.shape != r.shape or logw.shape != r.shape \
+            or tuple(u.shape) != (h, dk):
+        raise ValueError(f"r {tuple(r.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}, "
+                         f"logw {tuple(logw.shape)}, u {tuple(u.shape)}")
+
+
 def check_rwkv6_inputs(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        logw: torch.Tensor, u: torch.Tensor, chunk: int) -> None:
     """The reference kernel's checks (``rwkv6_scan.py:120-130``), on any
     device: the sequence divides into chunks, and a chunk above the fold
     tile is a multiple of it (else the fold would degenerate to tiny
     tiles); plus matching shapes."""
-    b, s, h, dk = r.shape
-    if k.shape != r.shape or v.shape != r.shape or logw.shape != r.shape \
-            or tuple(u.shape) != (h, dk):
-        raise ValueError(f"r {tuple(r.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}, "
-                         f"logw {tuple(logw.shape)}, u {tuple(u.shape)}")
+    _check_shapes(r, k, v, logw, u)
+    s = r.shape[1]
     if chunk < 1 or s % chunk:
         raise ValueError(f"seq {s} not divisible by chunk {chunk}")
     if chunk > STATE_TILE and chunk % STATE_TILE:
@@ -111,12 +131,57 @@ def rwkv6_wkv_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 rwkv6_wkv_cuda.launches = 0
 
 
+def rwkv6_wkv_bwd_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       logw: torch.Tensor, u: torch.Tensor, dy: torch.Tensor,
+                       grad_chunk: int = 64) -> tuple:
+    """The WKV scan's gradient from a zero state: r, k, v, logw (B,S,H,K)
+    and u (H,K), float32 CUDA tensors, and dy (B,S,H,K) → (dr, dk, dv,
+    dlogw, du) float32.  ``grad_chunk`` is the chunk of the reference's
+    chunked form, checked as the reference checks it (it divides S) and
+    not passed on: the kernel computes the recurrence's gradient.  A
+    non-contiguous dy (autograd's) is made contiguous.  Launches on the
+    current stream without synchronising."""
+    if r.device.type != "cuda":
+        raise ValueError(f"rwkv6_wkv_bwd_cuda needs CUDA tensors, got {r.device}")
+    _check_shapes(r, k, v, logw, u)
+    dy = dy.contiguous()
+    b, s, h, dk = r.shape
+    if dy.shape != r.shape:
+        raise ValueError(f"dy {tuple(dy.shape)} for r {tuple(r.shape)}")
+    if grad_chunk < 1 or s % grad_chunk:
+        raise ValueError(f"seq {s} not divisible by grad_chunk {grad_chunk}")
+    for t in (r, k, v, logw, u, dy):
+        if t.device != r.device or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError("rwkv6_wkv_bwd_cuda takes contiguous float32 tensors on one device")
+    if dk > MAX_HEAD_DIM:
+        raise ValueError(f"head width {dk} not supported (up to {MAX_HEAD_DIM})")
+    dr, dkk, dv, dlogw = (torch.empty_like(r) for _ in range(4))
+    du = torch.empty_like(u)
+    # du's partial sum per batch row, which the first kernel writes and the
+    # second sums
+    scratch = torch.empty(b * h * dk, device=r.device)
+    with torch.cuda.device(r.device):
+        stream = torch.cuda.current_stream(r.device).cuda_stream
+        err = _bwd_kernel()(r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
+                            u.data_ptr(), dy.data_ptr(), dr.data_ptr(), dkk.data_ptr(),
+                            dv.data_ptr(), dlogw.data_ptr(), du.data_ptr(), scratch.data_ptr(),
+                            b, s, h, dk, stream)
+    if err:
+        raise RuntimeError(f"rwkv6_wkv_bwd kernel launch failed: CUDA error {err}")
+    rwkv6_wkv_bwd_cuda.launches += 1
+    return dr, dkk, dv, dlogw, du
+
+
+rwkv6_wkv_bwd_cuda.launches = 0
+
+
 class RWKV6WKV(torch.autograd.Function):
-    """The WKV scan from a zero state with its gradient: on CUDA tensors the
-    forward kernel, on CPU tensors the step recurrence; the backward
-    recomputes ``ref.rwkv6_wkv_chunked`` at ``grad_chunk`` on the saved
-    inputs and differentiates it (dr, dk, dv, dlogw, du).  ``chunk`` is the
-    kernel's, checked and not used by the backward."""
+    """The WKV scan from a zero state with its gradient (dr, dk, dv, dlogw,
+    du): on CUDA tensors the forward kernel and the backward kernel; on CPU
+    tensors the step recurrence, and the backward recomputes
+    ``ref.rwkv6_wkv_chunked`` at ``grad_chunk`` on the saved inputs and
+    differentiates it.  ``chunk`` is the forward kernel's; ``grad_chunk``
+    is checked by the backward kernel and changes only the CPU's rounding."""
 
     @staticmethod
     def forward(ctx, r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tensor,
@@ -131,7 +196,10 @@ class RWKV6WKV(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy: torch.Tensor):
-        grads = wkv_chunked_grads(ctx.saved_tensors, ctx.grad_chunk, dy)
+        if dy.device.type == "cuda":
+            grads = rwkv6_wkv_bwd_cuda(*ctx.saved_tensors, dy, ctx.grad_chunk)
+        else:
+            grads = wkv_chunked_grads(ctx.saved_tensors, ctx.grad_chunk, dy)
         return (*(g if need else None for g, need in zip(grads, ctx.needs_input_grad)),
                 None, None)
 
@@ -142,7 +210,7 @@ def wkv_chunked_grads(saved, grad_chunk: int, dy: torch.Tensor) -> tuple:
     inputs = [t.detach().requires_grad_() for t in saved]
     r = inputs[0]
     b, _, h, dk = r.shape
-    s0 = torch.zeros((b, h, dk, dk), dtype=torch.float32, device=r.device)
+    s0 = torch.zeros((b, h, dk, dk), dtype=r.dtype, device=r.device)
     with torch.enable_grad():
         y, _ = _ref.rwkv6_wkv_chunked(*inputs, grad_chunk, s0)
     return torch.autograd.grad(y, inputs, dy)

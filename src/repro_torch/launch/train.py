@@ -19,8 +19,7 @@ and exits naming the ranks it needs in a world of another size.  Other
 mesh shapes go through ``Trainer(model, make_train_mesh(...))``.  Rank 0
 prints and writes the checkpoint.  Every arch trains on either device;
 on the card the ssm and hybrid archs (``--arch rwkv6-3b``,
-``--arch zamba2-2.7b``) run their scans' forward kernels, and the scans'
-gradients are those of the reference's chunked forms under autograd.
+``--arch zamba2-2.7b``) run their scans' forward and backward kernels.
 Weights are random, from a ``torch.Generator`` seeded with 0.
 """
 from __future__ import annotations

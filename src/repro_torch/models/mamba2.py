@@ -8,7 +8,8 @@ The full-sequence form (prefill, and training) runs the SSD scan through
 ``kernels.mamba2_ssd`` from a zero state, which is how the reference's
 ``Model`` calls it (``state=None``; it drops the final state); under grad
 its gradient is that of the reference's chunked form at ``ssm_chunk``,
-ported as ``_ssd_chunked`` (``kernels.ref.mamba2_ssd_chunked``).  Decode is
+ported as ``_ssd_chunked`` (``kernels.ref.mamba2_ssd_chunked``), which is
+the recurrence's: the card's backward kernel computes it.  Decode is
 the O(1) single-step update in plain torch, with the layer's state and conv
 tail updated in place (about 283 MB of state at zamba2-2.7b width and
 batch 4, which a functional copy per token would move for nothing).

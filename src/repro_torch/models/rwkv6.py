@@ -9,7 +9,8 @@ The full-sequence form (prefill, and training) runs the WKV scan through
 ``kernels.rwkv6_wkv`` from a zero state, which is how the reference's
 ``Model`` calls it (``state=None``; it drops the final state); under grad
 its gradient is that of the reference's chunked form, ported as
-``_wkv_chunked`` (``kernels.ref.rwkv6_wkv_chunked``).  Decode is
+``_wkv_chunked`` (``kernels.ref.rwkv6_wkv_chunked``), which is the
+recurrence's: the card's backward kernel computes it.  Decode is
 the O(1) recurrence in plain torch, with the layer's state updated in
 place: at rwkv6-3b width and batch 4 the states are about 84 MB, and a
 functional copy per token would move them through memory for nothing.
@@ -203,7 +204,8 @@ def rwkv6_time_mix(params: Mapping[str, Any], x: torch.Tensor, cfg: ModelConfig,
     # STATE_TILE), which passes it.  The CUDA kernel walks its own fold tile
     # whatever the chunk, so the chunk does not change its work.  The
     # gradient is the chunked form's at the reference's own chunk, the
-    # arithmetic that jax.value_and_grad differentiates.
+    # arithmetic that jax.value_and_grad differentiates (on the card the
+    # backward kernel checks it and computes the recurrence's gradient).
     chunk = _largest_divisor(s, min(cfg.ssm_chunk, STATE_TILE))
     grad_chunk = _largest_divisor(s, cfg.ssm_chunk)
     return _time_mix(params, x, cfg, None, tp, lambda r, k, v, logw, u: kernels.rwkv6_wkv(

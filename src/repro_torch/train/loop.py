@@ -6,9 +6,8 @@ deadline policies and c_v are first-class training metrics too.
 The reference jits the step with mesh shardings; the port runs it eagerly,
 on one device or on the ranks of a training mesh.  The gradient comes from
 ``torch.autograd.grad`` of ``Model.loss``: on the card through the flash
-attention kernels' forward and backward and the scans' forward kernels
-(their gradients the chunked forms' under autograd), on the CPU through
-the plain versions.
+attention kernels' forward and backward and the scans' forward and
+backward kernels, on the CPU through the plain versions.
 
 On a mesh (``distributed.mesh.TrainMesh``) parameters, gradients and AdamW
 moments are laid out by the reference's ruleset (``default_rules``, with

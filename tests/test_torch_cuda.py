@@ -15,6 +15,19 @@ reference sweep's; summation order); bf16 the same plus half a bf16 ulp of
 the value, at most 2**-8 of it (rtol 4e-3).  The scan kernels take and
 return f32 and are held against the step recurrences at the reference
 sweep's 2e-4 (``test_kernels.py:96-180``).  TF32 off.
+
+The scans' backward kernels are held against their plain versions
+(``wkv_chunked_grads`` / ``ssd_chunked_grads``: the reference's chunked
+form differentiated under autograd, in f32 on the card) at ``GRAD_BAND``
+of each gradient's largest element.  Why 1e-3: both sides are f32, and the
+plain version's own rounding against the f64 recurrence reaches 3e-5 to
+1e-4 of a leaf's largest element where a gradient is a sum over the whole
+sequence (da, dlogw, ddt; a CPU estimate at 512 steps).  One exception:
+where dlogw is of order exp(-25) (logw = -25) the kernel's reverse sum
+cancels f32 terms of order 1e2, which resolves dlogw only to an absolute
+error near 1e-4 (1.0e-4 at (2, 1024, 40, 64) on the H100); that leaf is
+held at ``DLOGW_ATOL``, absolute, against the plain version and against
+the f64 recurrence (the chunked form's gradient in f64).
 """
 import contextlib
 
@@ -29,8 +42,10 @@ from repro_torch.kernels import ref as R  # noqa: E402
 from repro_torch.kernels.decode_attention import MAX_SPLITS, decode_attention_cuda, \
     splits_for  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention_cuda  # noqa: E402
-from repro_torch.kernels.mamba2_ssd import mamba2_ssd_cuda  # noqa: E402
-from repro_torch.kernels.rwkv6_scan import rwkv6_wkv_cuda  # noqa: E402
+from repro_torch.kernels.mamba2_ssd import mamba2_ssd_bwd_cuda, mamba2_ssd_cuda, \
+    ssd_chunked_grads  # noqa: E402
+from repro_torch.kernels.rwkv6_scan import rwkv6_wkv_bwd_cuda, rwkv6_wkv_cuda, \
+    wkv_chunked_grads  # noqa: E402
 
 TOL = {"float32": dict(atol=2e-5, rtol=2e-5), "bfloat16": dict(atol=2e-5, rtol=4e-3)}
 
@@ -52,6 +67,26 @@ MAMBA_SHAPES = [(1, 64, 4, 16, 16, 16), (2, 128, 8, 16, 24, 32), (1, 100, 4, 8, 
 MAMBA_SHAPES += [(2, s, 4, p, n, s) for s in (37, 96, 100) for p, n in ((16, 32), (32, 64), (64, 16))]
 MAMBA_SHAPES += [(4, 1024, 80, 64, 64, 256)]
 SCAN = dict(atol=2e-4, rtol=2e-4)
+# the scans' backward kernels (see the module's note): (b, s, h, dk,
+# grad_chunk, decay strength or None for logw = -25) — the sweep's shapes,
+# ragged and odd lengths with the chunk the model picks (the largest
+# divisor of S up to 64), rwkv6-3b's training shape and a rank's (20 heads)
+GRAD_BAND = 1e-3
+DLOGW_ATOL = 3e-4
+WKV_GRAD_SHAPES = [(1, 64, 2, 16, 16, 0.5), (2, 128, 3, 32, 64, 6.0), (1, 128, 1, 64, 64, 0.5),
+                   (1, 64, 1, 16, 32, None), (2, 37, 3, 64, 37, 0.5), (2, 96, 3, 32, 48, 6.0),
+                   (2, 100, 3, 16, 50, 0.5), (2, 100, 3, 64, 50, None),
+                   (2, 1024, 40, 64, 64, 0.5), (2, 1024, 40, 64, 64, 6.0),
+                   (2, 1024, 40, 64, 64, None), (2, 1024, 20, 64, 64, 0.5)]
+# (b, s, h, p, n, chunk, head_block, dt): "init" is zamba2-2.7b's initial
+# dt·A = softplus(0)·-1 ≈ -0.69 a step, where the reference's gradient
+# overflows over a 256-row chunk; zamba2-2.7b's training shape and a rank's
+# (40 heads at head_block 8, 5 at head_block 1)
+SSD_GRAD_SHAPES = [(1, 64, 4, 16, 16, 16, 2, "rand"), (2, 128, 8, 16, 24, 32, 4, "rand"),
+                   (2, 37, 4, 16, 32, 37, 4, "rand"), (2, 96, 4, 32, 64, 96, 4, "rand"),
+                   (2, 100, 4, 64, 16, 100, 4, "rand"), (1, 256, 4, 64, 64, 256, 4, "init"),
+                   (2, 1024, 80, 64, 64, 256, 8, "rand"), (2, 1024, 80, 64, 64, 256, 8, "init"),
+                   (2, 1024, 40, 64, 64, 256, 8, "rand"), (2, 1024, 5, 64, 64, 256, 1, "rand")]
 
 
 @pytest.fixture
@@ -225,6 +260,130 @@ def test_mamba2_kernel_matches_plain(dev, b, s, h, p, n, chunk):
     assert mamba2_ssd_cuda.launches == n0 + 1
     np.testing.assert_allclose(got.cpu().numpy(),
                                R.mamba2_ssd_ref(x, dt, a, bm, cm).cpu().numpy(), **SCAN)
+
+
+def _grad_band(got, want, name, atol=None):
+    """Finite and within GRAD_BAND of ``want``'s largest |element|, or
+    within ``atol``, absolute, where that is given."""
+    scale = want.abs().max().item()
+    band = GRAD_BAND * scale if atol is None else atol
+    err = (got - want).abs().max().item()
+    assert bool(torch.isfinite(got).all()) and err <= band, \
+        f"{name}: max |err| {err:.3e} against a largest element {scale:.3e} (band {band:.3e})"
+
+
+def _wkv_grad_inputs(dev, b, s, h, dk, decay, seed=40):
+    r, k, v, w, dy = _randn(dev, "float32", seed, *[(b, s, h, dk)] * 5)
+    u, = _randn(dev, "float32", seed + 1, (h, dk))
+    logw = torch.full_like(w, -25.0) if decay is None \
+        else -torch.nn.functional.softplus(w * decay)
+    return (r, k, v, logw, u), dy
+
+
+def _ssd_grad_inputs(dev, b, s, h, p, n, dt_kind, seed=42):
+    x, dt, a, bm, cm, dy = _randn(dev, "float32", seed, (b, s, h, p), (b, s, h), (h,),
+                                  (b, s, n), (b, s, n), (b, s, h, p))
+    if dt_kind == "init":
+        dt, a = torch.full_like(dt, float(np.log(2.0))), -torch.ones_like(a)
+    else:
+        dt, a = torch.nn.functional.softplus(dt), -torch.exp(a * 0.2)
+    return (x, dt, a, bm, cm), dy
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,dk,grad_chunk,decay", WKV_GRAD_SHAPES)
+def test_wkv_bwd_kernel_matches_plain(dev, b, s, h, dk, grad_chunk, decay):
+    """(dr, dk, dv, dlogw, du) against the chunked form's autograd gradient
+    at GRAD_BAND, finite (logw = -25 included, where dlogw is held at
+    DLOGW_ATOL against it and against the f64 recurrence's), the same bits
+    on a second call; one launch a call."""
+    ins, dy = _wkv_grad_inputs(dev, b, s, h, dk, decay)
+    n0 = rwkv6_wkv_bwd_cuda.launches
+    got = rwkv6_wkv_bwd_cuda(*ins, dy, grad_chunk)
+    again = rwkv6_wkv_bwd_cuda(*ins, dy, grad_chunk)
+    torch.cuda.synchronize()
+    assert rwkv6_wkv_bwd_cuda.launches == n0 + 2
+    want = wkv_chunked_grads(ins, grad_chunk, dy)
+    for name, g, g2, w in zip(("dr", "dk", "dv", "dlogw", "du"), got, again, want):
+        assert g.shape == w.shape and torch.equal(g, g2), name
+        _grad_band(g, w, name, DLOGW_ATOL if name == "dlogw" and decay is None else None)
+    if decay is None:
+        exact = wkv_chunked_grads([t.double() for t in ins], grad_chunk, dy.double())[3]
+        _grad_band(got[3].double(), exact, "dlogw against the f64 recurrence", DLOGW_ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,p,n,chunk,hb,dt_kind", SSD_GRAD_SHAPES)
+def test_ssd_bwd_kernel_matches_plain(dev, b, s, h, p, n, chunk, hb, dt_kind):
+    """(dx, ddt, da, dB, dC) against the chunked form's autograd gradient at
+    GRAD_BAND, finite (zamba2's initial decay over 256 rows included), the
+    same bits on a second call; one launch a call."""
+    ins, dy = _ssd_grad_inputs(dev, b, s, h, p, n, dt_kind)
+    n0 = mamba2_ssd_bwd_cuda.launches
+    got = mamba2_ssd_bwd_cuda(*ins, dy, chunk, hb)
+    again = mamba2_ssd_bwd_cuda(*ins, dy, chunk, hb)
+    torch.cuda.synchronize()
+    assert mamba2_ssd_bwd_cuda.launches == n0 + 2
+    want = ssd_chunked_grads(ins, chunk, dy)
+    for name, g, g2, w in zip(("dx", "ddt", "da", "dB", "dC"), got, again, want):
+        assert g.shape == w.shape and torch.equal(g, g2), name
+        _grad_band(g, w, name)
+
+
+@pytest.mark.cuda
+def test_scan_bwd_kernels_take_a_non_contiguous_dy(dev):
+    """A dy that autograd hands over strided gives the bits of its
+    contiguous copy; the wrappers check the reference's chunk rules."""
+    ins, dy = _wkv_grad_inputs(dev, 2, 96, 3, 32, 0.5)
+    strided = dy.transpose(2, 3).contiguous().transpose(2, 3)
+    assert not strided.is_contiguous() and torch.equal(strided, dy)
+    for g, w in zip(rwkv6_wkv_bwd_cuda(*ins, strided, 48), rwkv6_wkv_bwd_cuda(*ins, dy, 48)):
+        assert torch.equal(g, w)
+    with pytest.raises(ValueError, match="grad_chunk"):
+        rwkv6_wkv_bwd_cuda(*ins, dy, 64)
+    ins, dy = _ssd_grad_inputs(dev, 2, 64, 4, 16, 16, "rand")
+    strided = dy.transpose(2, 3).contiguous().transpose(2, 3)
+    for g, w in zip(mamba2_ssd_bwd_cuda(*ins, strided, 32, 2),
+                    mamba2_ssd_bwd_cuda(*ins, dy, 32, 2)):
+        assert torch.equal(g, w)
+    with pytest.raises(ValueError, match="chunk"):
+        mamba2_ssd_bwd_cuda(*ins, dy, 48, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "zamba2-2.7b"])
+def test_scan_plain_gradients_never_run_on_the_card(dev, arch, monkeypatch):
+    """The smoke model's loss and gradients on the card with the plain
+    gradients (wkv_chunked_grads, ssd_chunked_grads) made to raise: the
+    backward kernels carry every scan's gradient, one launch a layer."""
+    import importlib
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.train import DataConfig, make_batch_np
+    from repro_torch.train.data import to_device
+
+    def refuse(*args, **kw):
+        raise AssertionError("a scan's plain gradient ran on the card")
+
+    # the modules, not the kernels package's functions of the same names
+    wkv_mod = importlib.import_module("repro_torch.kernels.rwkv6_scan")
+    ssd_mod = importlib.import_module("repro_torch.kernels.mamba2_ssd")
+    monkeypatch.setattr(wkv_mod, "wkv_chunked_grads", refuse)
+    monkeypatch.setattr(ssd_mod, "ssd_chunked_grads", refuse)
+    model = Model(get_config(arch, smoke=True))
+    params = model.init(seed=3, device=dev)
+    leaves = [p.requires_grad_() for p in _leaves(params)]
+    batch = to_device(make_batch_np(model.cfg, DataConfig(2, 64), 0), dev)
+    K.reset_launch_counts()
+    loss, _ = model.loss(params, batch)
+    grads = torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize()
+    want = _train_launches(model)
+    assert K.launch_counts() == want
+    assert want["rwkv6_wkv_bwd" if arch == "rwkv6-3b" else "mamba2_ssd_bwd"] \
+        == model.cfg.num_layers
+    assert all(torch.isfinite(g).all() for g in grads)
 
 
 @pytest.mark.cuda
@@ -871,14 +1030,17 @@ def _train_launches(model) -> dict:
     """The kernels' launches in one forward and backward of ``model.loss``:
     per attention site the flash forward (twice with remat: the forward and
     the recomputation) and its backward kernel once; per RWKV6 or Mamba2
-    layer its scan's forward kernel (twice with remat), whose gradient is
-    the chunked form's under autograd, launching nothing."""
+    layer its scan's forward kernel (twice with remat) and its backward
+    kernel once."""
     cfg = model.cfg
     fwd = 2 if cfg.remat else 1
     sites = model.n_attn_sites()
+    ssm, hybrid = cfg.family == "ssm", cfg.family == "hybrid"
     return {"flash_attention": fwd * sites, "flash_attention_bwd": sites, "decode_attention": 0,
-            "rwkv6_wkv": fwd * cfg.num_layers if cfg.family == "ssm" else 0,
-            "mamba2_ssd": fwd * cfg.num_layers if cfg.family == "hybrid" else 0}
+            "rwkv6_wkv": fwd * cfg.num_layers if ssm else 0,
+            "rwkv6_wkv_bwd": cfg.num_layers if ssm else 0,
+            "mamba2_ssd": fwd * cfg.num_layers if hybrid else 0,
+            "mamba2_ssd_bwd": cfg.num_layers if hybrid else 0}
 
 
 @pytest.mark.cuda
@@ -886,8 +1048,8 @@ def _train_launches(model) -> dict:
                                   "rwkv6-3b", "zamba2-2.7b"])
 def test_loss_gradients_on_card_match_cpu(dev, arch):
     """Model.loss and every gradient leaf of the smoke model (f32) through
-    the kernels (flash forward and backward; the scans' forward kernels and
-    the chunked forms' gradients) against the plain versions on the CPU,
+    the kernels (flash forward and backward; the scans' forward and
+    backward kernels) against the plain versions on the CPU,
     which tests/test_torch_train.py holds against JAX.  Loss 1e-5
     relative; gradients 1e-3 of each leaf's largest magnitude and 1e-3
     relative (cuBLAS and the CPU sum in different orders, as the prefill's
@@ -921,11 +1083,11 @@ def test_loss_gradients_on_card_match_cpu(dev, arch):
 def test_decode_raises_and_the_scans_train_under_grad(dev):
     """Under grad on the card decode attention raises rather than hand
     autograd an output cut from its inputs; the scans launch their forward
-    kernels (y equal to the launch without grad, bit for bit) and return a
-    gradient for every input, held against the same Functions on the CPU
-    (the step recurrences forward, the chunked forms' gradients, which
-    tests/test_torch_scan_grad.py holds against JAX) at 1e-4 of each
-    input's largest gradient."""
+    kernels (y equal to the launch without grad, bit for bit) and their
+    backward kernels, and return a gradient for every input, held against
+    the same Functions on the CPU (the step recurrences forward, the
+    chunked forms' gradients, which tests/test_torch_scan_grad.py holds
+    against JAX) at 1e-4 of each input's largest gradient."""
     def check(op, name, ins, **kw):
         cuda_in = [x.to(dev).requires_grad_() for x in ins]
         cpu_in = [x.clone().requires_grad_() for x in ins]
@@ -935,7 +1097,9 @@ def test_decode_raises_and_the_scans_train_under_grad(dev):
         with torch.no_grad():
             assert torch.equal(y, op(*cuda_in, **kw))
         dy = torch.randn(y.shape, generator=torch.Generator().manual_seed(3))
+        b0 = K.launch_counts()[f"{name}_bwd"]
         got = torch.autograd.grad(y, cuda_in, dy.to(dev))
+        assert K.launch_counts()[f"{name}_bwd"] == b0 + 1
         torch.cuda.synchronize()
         want = torch.autograd.grad(op(*cpu_in, **kw), cpu_in, dy)
         for g, w in zip(got, want):
@@ -983,7 +1147,8 @@ def test_flash_launches_per_train_step(dev, remat):
     L = model.cfg.num_layers
     assert K.launch_counts() == {"flash_attention": (2 if remat else 1) * L,
                                  "flash_attention_bwd": L, "decode_attention": 0,
-                                 "rwkv6_wkv": 0, "mamba2_ssd": 0} == _train_launches(model)
+                                 "rwkv6_wkv": 0, "rwkv6_wkv_bwd": 0, "mamba2_ssd": 0,
+                                 "mamba2_ssd_bwd": 0} == _train_launches(model)
     assert torch.isfinite(metrics["loss"])
 
 
@@ -995,8 +1160,8 @@ def test_scan_launches_per_train_step(dev, arch, layers, remat):
     L times and, with remat, L more in the recomputation; zamba2-2.7b its
     SSD kernel likewise per Mamba2 layer, and per site of the shared block
     (one each 2 layers at smoke size, remat per site) the flash forward once
-    or twice and the backward kernel once.  The scans' gradients launch
-    nothing.  Every gradient leaf is finite and some nonzero."""
+    or twice and the backward kernel once.  The scans' backward kernels
+    launch once a layer.  Every gradient leaf is finite and some nonzero."""
     from repro_torch.configs import get_config
     from repro_torch.models import Model
     from repro_torch.train import DataConfig, make_batch_np
@@ -1012,7 +1177,8 @@ def test_scan_launches_per_train_step(dev, arch, layers, remat):
     torch.cuda.synchronize()
     want = _train_launches(model)
     assert K.launch_counts() == want
-    assert want["rwkv6_wkv" if arch == "rwkv6-3b" else "mamba2_ssd"] == (2 if remat else 1) * layers
+    scan = "rwkv6_wkv" if arch == "rwkv6-3b" else "mamba2_ssd"
+    assert want[scan] == (2 if remat else 1) * layers and want[f"{scan}_bwd"] == layers
     assert torch.isfinite(loss) and all(torch.isfinite(g).all() for g in grads)
     assert all(g.abs().max() > 0 for g in grads)
 

@@ -120,7 +120,8 @@ def test_cpu_dispatch_counts_no_launch():
     q, kk, v = _randn(1, (1, 64, 2, 32), (1, 64, 1, 32), (1, 64, 1, 32))
     K.flash_attention(*_t(q, kk, v))
     assert K.launch_counts() == {"flash_attention": 0, "flash_attention_bwd": 0,
-                                 "decode_attention": 0, "rwkv6_wkv": 0, "mamba2_ssd": 0}
+                                 "decode_attention": 0, "rwkv6_wkv": 0, "rwkv6_wkv_bwd": 0,
+                                 "mamba2_ssd": 0, "mamba2_ssd_bwd": 0}
 
 
 # ------------------------------------------------------ wrapper checks ----

@@ -219,6 +219,33 @@ def test_lowered_train_step_counts_each_kernel_once_per_call(smoke_steps):
     assert kernels.launch_counts() == dict.fromkeys(kernels.launch_counts(), 0)
 
 
+@pytest.mark.parametrize("arch,scan", [("rwkv6-3b", "rwkv6_wkv"), ("zamba2-2.7b", "mamba2_ssd")])
+def test_lowered_scan_train_steps_count_the_backward_kernels(arch, scan):
+    """A scan family's train step (smoke, B x S) counts each scan call's
+    backward as the card runs it: once per layer, by the backward kernel's
+    declared cost (``kernels/cost.py``'s gradient cost at the model's
+    chunk), and no aten op of the chunked form."""
+    from repro_torch.kernels.cost import call_cost
+
+    cfg = get_config(arch, smoke=True)
+    one = LogicalMesh((1, 1), ("data", "model"))
+    counts, _ = build_lowered(arch, InputShape("t", S, B, "train"), one,
+                              cfg_overrides=_smoke(arch), fsdp=False, grad_accum=1).count()
+    layers = cfg.num_layers
+    assert counts.kernels[scan] == counts.kernels[f"{scan}_bwd"] == layers
+    if scan == "rwkv6_wkv":
+        h, dk = cfg.num_heads, cfg.d_model // cfg.num_heads
+        shapes = [(B, S, h, dk)] * 4 + [(h, dk)]
+        kw = {"grad_chunk": math.gcd(S, cfg.ssm_chunk)}
+    else:
+        h, p, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+        shapes = [(B, S, h, p), (B, S, h), (h,), (B, S, n), (B, S, n)]
+        kw = {"chunk": cfg.ssm_chunk}
+    want = call_cost(f"{scan}_bwd", [torch.empty(sh) for sh in shapes], kw)
+    assert counts.by_prim[f"kernel:{scan}_bwd"] == layers * want.flops
+    assert "cumsum" not in counts.by_prim and counts.host_prims == []
+
+
 def test_counting_hook_raises_on_a_real_tensor():
     q = torch.zeros(1, 8, 2, 16)
     with counting(Counts()):

@@ -20,6 +20,15 @@ Tolerances, each with its reason:
   step recurrence in float64: 1e-9 of the largest element, and 1e-9
   absolute for a leaf whose gradient is all below 1 (dlogw at logw = -25
   is of order exp(-25); the chunked form's f64 rounding is 1e-15).
+
+The backward kernels' formulas (``ref.rwkv6_wkv_bwd_ref``,
+``ref.mamba2_ssd_bwd_ref``: the recurrence run forwards for the states and
+backwards for their gradients, dlogw and dl as reverse sums), in float64:
+against the reference's VJP at ``GRAD_RTOL``, against the plain version the
+CPU runs (``wkv_chunked_grads`` / ``ssd_chunked_grads``, in float64) at
+1e-9 of the leaf's largest element (both exact but for f64 rounding), and
+against autograd through the f64 step recurrence at 1e-9 as above, at a
+ragged length and where the reference overflows.
 """
 import numpy as np
 import pytest
@@ -33,8 +42,10 @@ from repro.models.rwkv6 import _wkv_chunked as jax_wkv_chunked  # noqa: E402
 
 from repro_torch import kernels as K  # noqa: E402
 from repro_torch.kernels import ref as R  # noqa: E402
-from repro_torch.kernels.mamba2_ssd import Mamba2SSD  # noqa: E402
-from repro_torch.kernels.rwkv6_scan import RWKV6WKV  # noqa: E402
+from repro_torch.kernels.mamba2_ssd import Mamba2SSD, mamba2_ssd_bwd_cuda, \
+    ssd_chunked_grads  # noqa: E402
+from repro_torch.kernels.rwkv6_scan import RWKV6WKV, rwkv6_wkv_bwd_cuda, \
+    wkv_chunked_grads  # noqa: E402
 from repro_torch.models import mamba2 as tmamba2  # noqa: E402
 from repro_torch.models import rwkv6 as trwkv6  # noqa: E402
 
@@ -289,3 +300,103 @@ def _ssd_recurrent64(x, dt, a, bm, cm):
             + torch.einsum("bh,bn,bhp->bhpn", dt[:, t], bm[:, t], x[:, t])
         ys.append(torch.einsum("bn,bhpn->bhp", cm[:, t], hst))
     return torch.stack(ys, dim=1)
+
+
+# ------------------------------------------ the backward kernels' formulas ----
+F64 = torch.float64
+WKV_LEAVES = ("r", "k", "v", "logw", "u")
+SSD_LEAVES = ("x", "dt", "a", "B", "C")
+
+
+def _cotangent(seed, shape):
+    return np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+
+
+@pytest.mark.parametrize("chunk", [16, 64])
+def test_wkv_bwd_formulas_match_reference_vjp(chunk):
+    """rwkv6_wkv_bwd_ref in float64 against the reference's VJP of
+    _wkv_chunked from a zero state (f32) at GRAD_RTOL, and against
+    wkv_chunked_grads (the CPU's backward) in float64 at 1e-9."""
+    ins, s0 = _rwkv_inputs(20, "model", s=64)
+    zero = jnp.zeros(s0.shape, jnp.float32)
+    dy = _cotangent(21, ins[0].shape)
+    want = _jit_vjp(lambda *a: jax_wkv_chunked(*a, chunk, zero)[0],
+                    list(map(jnp.asarray, ins)), jnp.asarray(dy))
+    got = R.rwkv6_wkv_bwd_ref(*_t(ins, dtype=F64), torch.tensor(dy, dtype=F64))
+    plain = wkv_chunked_grads(_t(ins, dtype=F64), chunk, torch.tensor(dy, dtype=F64))
+    for name, g, w, p in zip(WKV_LEAVES, got, want, plain):
+        assert g.shape == p.shape and g.dtype == F64, name
+        _grad_close(g, w, name)
+        _close(g, p, 1e-9, name)
+
+
+@pytest.mark.parametrize("chunk", [16, 32])
+def test_ssd_bwd_formulas_match_reference_vjp(chunk):
+    """mamba2_ssd_bwd_ref in float64 against the reference's VJP of
+    _ssd_chunked from a zero state (f32) at GRAD_RTOL, and against
+    ssd_chunked_grads (the CPU's backward) in float64 at 1e-9."""
+    ins, _ = _ssd_inputs(22, s=64)
+    dy = _cotangent(23, ins[0].shape)
+    want = _jit_vjp(lambda *a: jax_ssd_chunked(*a, chunk)[0], list(map(jnp.asarray, ins)),
+                    jnp.asarray(dy))
+    got = R.mamba2_ssd_bwd_ref(*_t(ins, dtype=F64), torch.tensor(dy, dtype=F64))
+    plain = ssd_chunked_grads(_t(ins, dtype=F64), chunk, torch.tensor(dy, dtype=F64))
+    for name, g, w, p in zip(SSD_LEAVES, got, want, plain):
+        assert g.shape == p.shape and g.dtype == F64, name
+        _grad_close(g, w, name)
+        _close(g, p, 1e-9, name)
+
+
+@pytest.mark.parametrize("decay,s", [("model", 37), (-25.0, 64)])
+def test_wkv_bwd_formulas_match_the_f64_recurrence(decay, s):
+    """At a ragged length (no chunk but 1 and 37 divides 37) and at
+    logw = -25, where the reference's dlogw is NaN: the formulas against
+    autograd through the f64 step recurrence, 1e-9 (absolute below 1:
+    dlogw at logw = -25 is of order exp(-25), while the reverse sum's terms
+    are of order 1)."""
+    ins, s0 = _rwkv_inputs(24, decay, b=1, s=s, h=2)
+    dy = torch.tensor(_cotangent(25, ins[0].shape), dtype=F64)
+    got = R.rwkv6_wkv_bwd_ref(*_t(ins, dtype=F64), dy)
+    rec = _t(ins, grad=True, dtype=F64)
+    y, _ = R.rwkv6_recurrent(*rec, torch.zeros(s0.shape, dtype=F64))
+    for name, g, w in zip(WKV_LEAVES, got, torch.autograd.grad(y, rec, dy)):
+        assert torch.isfinite(g).all(), name
+        _close(g, w, 1e-9, name, floor=1.0)
+
+
+@pytest.mark.parametrize("case", ["ragged", "zamba2_init", "large_dt"])
+def test_ssd_bwd_formulas_match_the_f64_recurrence(case):
+    """At a ragged length (S = 37), at zamba2-2.7b's initial dt·A ≈ -0.69 a
+    step over 256 rows and at dt scaled by 40, where the reference's ddt
+    and da are NaN at a chunk of the whole sequence: the formulas against
+    autograd through the f64 step recurrence, 1e-9 (absolute below 1)."""
+    if case == "ragged":
+        ins, _ = _ssd_inputs(26, b=1, s=37, h=2, p=4, n=4)
+    elif case == "zamba2_init":
+        ins, _ = _ssd_inputs(27, b=1, s=256, h=2, p=4, n=4)
+        ins[1] = np.full_like(ins[1], np.log(2.0))
+        ins[2] = -np.ones_like(ins[2])
+    else:
+        ins, _ = _ssd_inputs(28, b=1, s=64, h=2, p=4, n=4, dt_scale=40.0)
+    dy = torch.tensor(_cotangent(29, ins[0].shape), dtype=F64)
+    got = R.mamba2_ssd_bwd_ref(*_t(ins, dtype=F64), dy)
+    rec = _t(ins, grad=True, dtype=F64)
+    oracle = torch.autograd.grad(_ssd_recurrent64(*rec), rec, dy)
+    for name, g, w in zip(SSD_LEAVES, got, oracle):
+        assert torch.isfinite(g).all(), name
+        _close(g, w, 1e-9, name, floor=1.0)
+
+
+def test_backward_kernels_refuse_cpu_tensors():
+    """The backward kernels' wrappers take CUDA tensors only: on the CPU
+    the Functions run the plain versions, and a wrapper given CPU tensors
+    raises rather than stand in for a launch."""
+    ins, _ = _rwkv_inputs(30, "model", b=1, s=32, h=2)
+    r = _t(ins)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        rwkv6_wkv_bwd_cuda(*r, torch.zeros_like(r[0]), 32)
+    xs, _ = _ssd_inputs(31, b=1, s=32)
+    x = _t(xs)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        mamba2_ssd_bwd_cuda(*x, torch.zeros_like(x[0]), 32, 2)
+    assert rwkv6_wkv_bwd_cuda.launches == 0 and mamba2_ssd_bwd_cuda.launches == 0

@@ -362,10 +362,11 @@ def test_rank_summed_products_are_one_rank_s_plus_the_replicated(arch):
     each in its forward and two backward products: qwen3-4b's K/V
     projections under its kv deficit (x·wk and x·wv) a layer, olmoe-1b-7b's
     router a layer, rwkv6-3b's decay LoRA (x·w_lora_a) a layer, and a
-    zamba2-2.7b Mamba2 layer's B and C projections (x·in_b, x·in_c) and the
-    C·Bᵀ scores its SSD gradient's chunked form shares over the heads.  No
-    leaf is gathered: the train step's collectives are all-reduces, and
-    rwkv6-3b's all-gathers are the channel mix's gate, (B, S, d) a layer."""
+    zamba2-2.7b Mamba2 layer's B and C projections (x·in_b, x·in_c); the
+    SSD gradient is its backward kernel's, counted by its declared cost
+    outside these products.  No leaf is gathered: the train step's
+    collectives are all-reduces, and rwkv6-3b's all-gathers are the channel
+    mix's gate, (B, S, d) a layer."""
     cfg = get_config(arch, smoke=True)
     one, _, _ = _count(arch, ((1, 1), ("data", "model")))
     ranks = [_count(arch, ((1, 2), ("data", "model")), r) for r in range(2)]
@@ -377,8 +378,7 @@ def test_rank_summed_products_are_one_rank_s_plus_the_replicated(arch):
     elif arch == "rwkv6-3b":
         per_layer = 3 * (2.0 * t * cfg.d_model * 64)
     else:
-        per_layer = 3 * (2 * (2.0 * t * cfg.d_model * cfg.ssm_state)
-                         + 2.0 * t * cfg.ssm_chunk * cfg.ssm_state)
+        per_layer = 3 * 2 * (2.0 * t * cfg.d_model * cfg.ssm_state)
     replicated = cfg.num_layers * per_layer
     assert sum(r[0] for r in ranks) == one + replicated
     assert ranks[0][0] < one
