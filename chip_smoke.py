@@ -65,8 +65,9 @@ Phases (each raises on failure; none is caught):
              shapes, ragged lengths (37, 96, 100), logw = -25, zamba2's initial
              dt·a ≈ -0.69 over 256 rows, the training shapes (rwkv6-3b
              (2,1024,40,64) chunk 64, zamba2-2.7b (2,1024,80,64,64) chunk
-             256) and the rank shapes of RWKV_RANK / MAMBA_RANK; finite,
-             and the same bits on a second call;
+             256), the rank shapes of RWKV_RANK / MAMBA_RANK and the edges
+             of the kernels' segments and head groups (RWKV_SEG_EDGES,
+             MAMBA_SEG_EDGES); finite, and the same bits on a second call;
 3. model   — for each arch of PATHS: the port's CUDA path against its CPU
              path on the smoke model (f32, 1e-3: cuBLAS and CPU sum in
              different orders); then the arch's main path at full width in
@@ -488,15 +489,18 @@ DESIGNS = {"flash_attention": {"bfloat16": "wgmma+tma", "float32": "fma"},
            "rwkv6_wkv": "scores pre-pass + mma.sync split tf32, 16-row sub-blocks, "
                         "cp.async double buffer",
            "mamba2_ssd": "C.B^T pre-pass + mma.sync split tf32, cp.async double buffer",
-           "rwkv6_wkv_bwd": "a block per (batch, head), the 64x64 state in registers (4x4 a "
-                            "thread): states forward, then D backwards; f32 FMAs, shuffle row "
-                            "sums, column sums through shared memory a 16-step tile; dlogw as "
-                            "an f64 reverse sum; du over the batch in a second launch",
-           "mamba2_ssd_bwd": "a block per (batch, head), the 64x64 state in registers (4x4 a "
-                             "thread): h forward, then G backwards; f32 FMAs, shuffle row "
-                             "sums, column sums through shared memory a 16-step tile; dl as "
-                             "an f64 reverse sum; dB, dC over the heads and da over the "
-                             "batch in a second launch"}
+           "rwkv6_wkv_bwd": "64-row segments in parallel: summaries (U, W, decay) by "
+                            "mma.sync split tf32, a carry over the segments, the step "
+                            "recurrence in each segment from it (64x64 state in registers, "
+                            "cp.async double buffer, tails on every thread), dlogw's "
+                            "per-segment offsets and du in a finishing launch; no atomics",
+           "mamba2_ssd_bwd": "128-row segments in parallel: summaries (U, V, decay) by "
+                             "mma.sync split tf32, a carry over the segments, the step "
+                             "recurrence in each segment from it (64x64 state in registers, "
+                             "cp.async double buffer, dl's tail on 16 lanes); dB, dC summed "
+                             "over a head group (<= 8) in a thread block cluster through "
+                             "distributed shared memory; offsets, da and the groups' sums in "
+                             "a finishing launch; no atomics"}
 # Kernel times are medians of ROUNDS timings; for attention each kernel
 # round is followed by one of SDPA, so the two see the same state of the card.
 ROUNDS = 5
@@ -592,9 +596,17 @@ def phase_build():
                 f"(stores/loads)")
     import importlib
     for name in ("mamba2_ssd", "rwkv6_scan"):
-        occ = importlib.import_module(f"repro_torch.kernels.{name}").occupancy()
+        mod = importlib.import_module(f"repro_torch.kernels.{name}")
+        occ = mod.occupancy()
         log(f"[build]   {name} scan kernel: {occ['blocks_per_sm']} blocks per SM (occupancy "
             f"API) of {occ['threads']} threads and {occ['smem_bytes']} B dynamic smem")
+        occ = mod.occupancy(backward=True)
+        if occ["segment"] != mod.BWD_SEGMENT:
+            raise AssertionError(f"{name}'s backward kernel walks segments of {occ['segment']} "
+                                 f"rows, its wrapper says {mod.BWD_SEGMENT}")
+        log(f"[build]   {name} backward's segment kernel: {occ['blocks_per_sm']} blocks per SM "
+            f"of {occ['threads']} threads and {occ['smem_bytes']} B dynamic smem, segments of "
+            f"{occ['segment']} rows")
 
 
 def phase_kernels(dev):
@@ -837,6 +849,20 @@ def phase_scan_kernels(dev, gen):
 # the scans' gradients at the training paths' shapes (phase 9)
 RWKV_TRAIN = (TRAIN_B, TRAIN_S, 40, 64)
 MAMBA_TRAIN = (TRAIN_B, TRAIN_S, 80, 64, 64)
+# the edges of the backward kernels' segments (WKV's 64 rows, SSD's 128)
+# and of SSD's head groups (the largest divisor of H up to 8): S below one
+# segment, S one row past a multiple of it, one head, logw = -25 across segments; odd head counts (3,
+# 5 and 7 heads a group), 11 heads (groups of one), zamba2's initial decay
+# over 1024 rows at 12 heads (groups of 6).  WKV (shape, grad_chunk, decay
+# strength or None for logw = -25); SSD (shape, chunk, head_block, dt)
+RWKV_SEG_EDGES = [((2, 40, 3, 64), 40, 0.5), ((1, 129, 2, 32), 43, 0.5),
+                  ((2, 65, 1, 64), 13, 6.0), ((2, 200, 1, 64), 50, 0.5),
+                  ((1, 256, 2, 64), 64, None), ((2, 1025, 20, 64), 41, 0.5)]
+MAMBA_SEG_EDGES = [((2, 40, 4, 32, 64), 40, 4, "rand"), ((1, 129, 3, 64, 64), 129, 3, "rand"),
+                   ((2, 65, 1, 64, 64), 65, 1, "rand"), ((1, 200, 5, 64, 32), 200, 5, "init"),
+                   ((1, 192, 7, 64, 64), 64, 7, "rand"), ((1, 64, 11, 16, 16), 64, 11, "rand"),
+                   ((1, 1024, 12, 64, 64), 256, 4, "init"),
+                   ((2, 1025, 5, 64, 64), 205, 1, "rand")]
 GRAD_LEAVES = {"rwkv6_wkv_bwd": ("dr", "dk", "dv", "dlogw", "du"),
                "mamba2_ssd_bwd": ("dx", "ddt", "da", "dB", "dC")}
 
@@ -901,6 +927,7 @@ def phase_scan_grad_kernels(dev, gen):
               for dk in (16, 32, 64) for ds in (0.5, 6.0, None)]
     cases += [(RWKV_TRAIN, RWKV_CHUNK, ds) for ds in (0.5, 6.0, None)]
     cases += [(shape, RWKV_CHUNK, ds) for shape in RWKV_RANK for ds in (0.5, 6.0)]
+    cases += RWKV_SEG_EDGES
     jobs = [("rwkv6_wkv_bwd", shape, chunk, None, ds) for shape, chunk, ds in cases]
     cases = [(shape, c, 2, "rand") for shape in MAMBA_SWEEP for c in (16, 32)]
     cases += [((1, 100, 4, 8, 16), 100, 4, "rand")]
@@ -909,6 +936,7 @@ def phase_scan_grad_kernels(dev, gen):
     cases += [((1, 256, 4, 64, 64), 256, 4, "init")]     # dt·a ≈ -0.69 over 256 rows
     cases += [(MAMBA_TRAIN, MAMBA_CHUNK, MAMBA_HB, kind) for kind in ("rand", "init")]
     cases += [(shape, MAMBA_CHUNK, hb, "rand") for shape, hb in MAMBA_RANK]
+    cases += MAMBA_SEG_EDGES
     jobs += [("mamba2_ssd_bwd", shape, chunk, hb, kind) for shape, chunk, hb, kind in cases]
     for name, shape, chunk, hb, how in jobs:
         if name == "rwkv6_wkv_bwd":
@@ -1498,9 +1526,15 @@ def time_scan_grads(gen, dev) -> dict:
     beside it).  No single PyTorch call computes either gradient, so
     library_ms is null."""
     from repro_torch.analysis.cert.roofline import H100_SXM
+    import importlib
+
+    from repro_torch.kernels import _build
     from repro_torch.kernels.mamba2_ssd import mamba2_ssd_bwd_cuda, ssd_chunked_grads
     from repro_torch.kernels.rwkv6_scan import rwkv6_wkv_bwd_cuda, wkv_chunked_grads
 
+    # the modules, not the kernels package's functions of the same names
+    wkv_mod = importlib.import_module("repro_torch.kernels.rwkv6_scan")
+    ssd_mod = importlib.import_module("repro_torch.kernels.mamba2_ssd")
     res = {}
     jobs = [("rwkv6_wkv_bwd", shape, None) for shape in [RWKV_TRAIN] + RWKV_RANK]
     jobs += [("mamba2_ssd_bwd", shape, hb) for shape, hb in [(MAMBA_TRAIN, MAMBA_HB)] + MAMBA_RANK]
@@ -1524,6 +1558,17 @@ def time_scan_grads(gen, dev) -> dict:
         ms, plain_ms = statistics.median(ks), statistics.median(ps)
         b_ms, b_by = bound(cost)
         row = dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by)
+        # for the log: the segment kernel's blocks, the call's scratch (the
+        # segments' summaries and, for SSD, dB's and dC's partials per head
+        # group) and SSD's head group, as the library reports them
+        mod = wkv_mod if name == "rwkv6_wkv_bwd" else ssd_mod
+        b_, s_, h_ = shape[:3]
+        blocks = b_ * h_ * -(-s_ // mod.BWD_SEGMENT)
+        scratch = (mod._bwd_kernel()[1](b_, s_, h_) if mod is wkv_mod
+                   else mod._bwd_kernel()[1](b_, s_, h_, shape[4]))
+        design = f"{blocks} blocks, scratch {scratch / 1e6:.1f} MB" + (
+            f", head groups of {_build.load('mamba2_ssd_bwd').mamba2_ssd_bwd_group(h_)}"
+            if mod is ssd_mod else "")
         if shape in (RWKV_TRAIN, MAMBA_TRAIN):
             res[name] = row
         else:
@@ -1536,7 +1581,8 @@ def time_scan_grads(gen, dev) -> dict:
             f"{cost.flops / 1e9:.2f} GFLOP x 3 split-TF32 passes at 495 TFLOP/s = "
             f"{3 * cost.flops / H100_SXM.peak('tf32') * 1e3:.4f} ms); {b_ms / ms:.3f} of bound, "
             f"{plain_ms / ms:.1f} x faster than the plain version; the declared cost's "
-            f"{declared.flops / 1e9:.2f} GFLOP at 67 TFLOP/s f32 would read {d_ms:.4f} ms ({d_by})")
+            f"{declared.flops / 1e9:.2f} GFLOP at 67 TFLOP/s f32 would read {d_ms:.4f} ms ({d_by}); "
+            f"{design}")
         log(f"[times]   {ROUNDS} rounds: kernel {spread(ks)}; plain {spread(ps)}")
         del ins, dy
         torch.cuda.empty_cache()
@@ -2738,8 +2784,10 @@ def phase_multi_tenant(dev):
 # for the split of a train step's device time
 SCAN_FWD_KERNELS = {"rwkv6_wkv": ("wkv_scores_kernel", "wkv_fwd_kernel"),
                     "mamba2_ssd": ("ssd_scores_kernel", "ssd_fwd_kernel")}
-SCAN_BWD_KERNELS = {"rwkv6_wkv": ("wkv_bwd_kernel", "wkv_du_kernel"),
-                    "mamba2_ssd": ("ssd_bwd_kernel", "ssd_bc_kernel")}
+SCAN_BWD_KERNELS = {"rwkv6_wkv": ("wkv_summary_kernel", "wkv_carry_kernel",
+                                  "wkv_segment_kernel", "wkv_finish_kernel"),
+                    "mamba2_ssd": ("ssd_summary_kernel", "ssd_carry_kernel",
+                                   "ssd_segment_kernel", "ssd_finish_kernel")}
 
 
 def _train_step_busy(model, params, opt_state, batch, opt_cfg, wall_s: float, tag: str) -> dict:

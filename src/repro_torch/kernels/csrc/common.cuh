@@ -75,6 +75,31 @@ __device__ __forceinline__ float2 col_sum2(const float c[4], int lane) {
   return make_float2(k0, k1);
 }
 
+// The scans' backward kernels' carry across segments, for one state entry:
+// fwd[j] holds segment j's contribution to the state from a zero start and
+// bwd[j] its contribution to the gradient carried into segment j - 1 (each
+// `stride` floats after the last); dec[j] (`dstride` apart) the segment's
+// total decay.  Overwrites fwd[j] with the state entering segment j (0,
+// then x ← dec[j]·x + fwd[j]) and bwd[j] with the gradient entering
+// segment j from the later ones (0 for the last, then backwards), in
+// order, so two calls give the same bits.
+__device__ __forceinline__ void carry_entry(float* __restrict__ fwd, float* __restrict__ bwd,
+                                            const float* __restrict__ dec, int nseg,
+                                            size_t stride, size_t dstride) {
+  float x = 0.f;
+  for (int j = 0; j < nseg; ++j) {
+    const float part = fwd[j * stride];
+    fwd[j * stride] = x;
+    x = fmaf(dec[j * dstride], x, part);
+  }
+  x = 0.f;
+  for (int j = nseg - 1; j >= 0; --j) {
+    const float part = bwd[j * stride];
+    bwd[j * stride] = x;
+    x = fmaf(dec[j * dstride], x, part);
+  }
+}
+
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }

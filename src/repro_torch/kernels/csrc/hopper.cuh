@@ -3,7 +3,8 @@
 // tiles, 1-d f32 vectors), 16- and 4-byte cp.async, the warpgroup matrix
 // multiply (wgmma) with its shared-memory descriptor and fence / commit /
 // wait wrappers, and the warp-level TF32 product (mma.sync m16n8k8) in
-// split TF32 for the scans.
+// split TF32 for the scans (and the scans' backward's segment summaries,
+// gram64_acc).
 //
 // Swizzled tiles.  A TMA box whose inner extent is SWB bytes (32, 64 or
 // 128), loaded with the SWB-byte swizzle, lands in shared memory as rows of
@@ -122,6 +123,29 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// cp.async of `rows` rows of a (·, width) f32 tile with row stride ld from
+// src (row stride step, `cols` valid columns, `valid` valid rows): the
+// rest of each row and the rows past `valid` read as zeros.  16-byte
+// copies where cols is a multiple of 4 (rows 16-byte aligned), else 4-byte
+// ones.  Called by every thread of a block of `threads` threads.
+template <int width>
+__device__ __forceinline__ void stage_rows(float* dst, int ld, const float* __restrict__ src,
+                                           size_t step, int rows, int valid, int cols,
+                                           int threads) {
+  if ((cols & 3) == 0) {
+    for (int i = threadIdx.x; i < rows * (width / 4); i += threads) {
+      const int t = i / (width / 4), c = (i % (width / 4)) * 4;
+      const bool ok = t < valid && c < cols;
+      cp_async_16(dst + t * ld + c, ok ? src + (size_t)t * step + c : src, ok ? 16 : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < rows * width; i += threads) {
+      const int t = i / width, c = i % width;
+      const bool ok = t < valid && c < cols;
+      cp_async_4(dst + t * ld + c, ok ? src + (size_t)t * step + c : src, ok ? 4 : 0);
+    }
+  }
 }
 
 // ---- warpgroup register budget ---------------------------------------------
@@ -346,6 +370,45 @@ __device__ __forceinline__ void mma_split3(float (&d)[3][4], const uint32_t (&ah
 }
 __device__ __forceinline__ float sum3(const float (&d)[3][4], int i) {
   return d[2][i] + (d[0][i] + d[1][i]);
+}
+
+// acc (+)= Aᵀ·Bm summed over `rows` rows (a multiple of 8) of two
+// row-major shared-memory tiles, 64 columns each, row stride ld (ld % 32 ==
+// 8 keeps the fragment loads free of bank conflicts), in split TF32; acc is
+// this thread's part of the 64 × 64 product in three accumulators (sum3).
+// Eight warps: warp w the product's rows 16(w % 4).. and columns
+// 32(w / 4)..; A's columns are the product's rows, so its fragments are
+// read down the tile's columns.
+__device__ __forceinline__ void gram64_acc(float (&acc)[4][3][4], const float* A, const float* Bm,
+                                           int ld, int rows) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  const int m0 = 16 * (warp & 3), n0 = 32 * (warp >> 2);
+  for (int t0 = 0; t0 < rows; t0 += 8) {
+    const float* a = A + (t0 + q) * ld + m0 + g;
+    const float af[4] = {a[0], a[8], a[4 * ld], a[4 * ld + 8]};
+    uint32_t ahi[4], alo[4];
+    split_tf32(af, ahi, alo);
+    const float* bp = Bm + (t0 + q) * ld + n0 + g;
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const float bf[2] = {bp[8 * nt], bp[4 * ld + 8 * nt]};
+      mma_split3(acc[nt], ahi, alo, bf);
+    }
+  }
+}
+// out (64 × 64, row-major, global) = the product gram64_acc summed
+__device__ __forceinline__ void gram64_store(const float (&acc)[4][3][4],
+                                             float* __restrict__ out) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  const int m0 = 16 * (warp & 3), n0 = 32 * (warp >> 2);
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+    const int col = n0 + 8 * nt + 2 * q;
+    *reinterpret_cast<float2*>(out + (m0 + g) * 64 + col) =
+        make_float2(sum3(acc[nt], 0), sum3(acc[nt], 1));
+    *reinterpret_cast<float2*>(out + (m0 + g + 8) * 64 + col) =
+        make_float2(sum3(acc[nt], 2), sum3(acc[nt], 3));
+  }
 }
 
 // ---- host: tensor maps ---------------------------------------------------

@@ -17,7 +17,10 @@ kernel, and its backward the hand-written backward kernel
 ``csrc/mamba2_ssd_bwd.cu`` (``mamba2_ssd_bwd_cuda``).  The reference has no
 Pallas backward: ``jax.value_and_grad`` differentiates its chunked form at
 the model's ``ssm_chunk``, and the backward kernel computes that gradient,
-the recurrence's (the chunk changes only the rounding).  On a CPU tensor the
+the recurrence's (the chunk changes only the rounding), in segments of
+``BWD_SEGMENT`` rows worked on in parallel, dB and dC summed over each head
+group on chip (four launches a call; ``ref.mamba2_ssd_bwd_segments`` is its
+plain mirror).  On a CPU tensor the
 forward is the step recurrence and the backward the plain version,
 ``ssd_chunked_grads``: the reference's chunked form,
 ``ref.mamba2_ssd_chunked``, recomputed at ``chunk`` and differentiated under
@@ -34,11 +37,12 @@ from . import ref as _ref
 
 __all__ = ["mamba2_ssd_cuda", "mamba2_ssd_bwd_cuda", "Mamba2SSD", "ssd_chunked_grads",
            "check_mamba2_inputs", "occupancy",
-           "MAX_DIM", "SUB_TILE", "STATE_ROWS"]
+           "MAX_DIM", "SUB_TILE", "STATE_ROWS", "BWD_SEGMENT"]
 
 MAX_DIM = 64         # the kernel's largest head width P and state size N (multiples of 4)
 SUB_TILE = 64        # rows the kernel walks at a time, whatever the chunk
 STATE_ROWS = 32      # rows p of the state (columns of x) per block
+BWD_SEGMENT = 128    # rows of the backward kernel's segments (its SEG)
 
 _fn = None
 _bwd_fn = None
@@ -55,24 +59,33 @@ def _kernel():
 
 
 def _bwd_kernel():
+    """The backward kernel's entry point and its scratch-size query."""
     global _bwd_fn
     if _bwd_fn is None:
-        fn = _build.load("mamba2_ssd_bwd").mamba2_ssd_bwd
+        lib = _build.load("mamba2_ssd_bwd")
+        fn = lib.mamba2_ssd_bwd
         fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _bwd_fn = fn
+        size = lib.mamba2_ssd_bwd_scratch
+        size.argtypes = [ctypes.c_int] * 4
+        size.restype = ctypes.c_longlong
+        _bwd_fn = fn, size
     return _bwd_fn
 
 
-def occupancy() -> dict:
-    """What the occupancy API reports for the kernel: blocks per SM, and
-    the threads and shared-memory bytes of one block.  Builds the kernel."""
-    fn = _build.load("mamba2_ssd").mamba2_ssd_occupancy
-    out = [ctypes.c_int() for _ in range(3)]
+def occupancy(backward: bool = False) -> dict:
+    """What the occupancy API reports for the scan kernel (``backward``:
+    the backward's segment kernel): blocks per SM, and the threads and
+    shared-memory bytes of one block (and the backward's segment length).
+    Builds the kernel."""
+    names = ("blocks_per_sm", "threads", "smem_bytes") + (("segment",) if backward else ())
+    fn = (_build.load("mamba2_ssd_bwd").mamba2_ssd_bwd_occupancy if backward
+          else _build.load("mamba2_ssd").mamba2_ssd_occupancy)
+    out = [ctypes.c_int() for _ in names]
     err = fn(*(ctypes.byref(o) for o in out))
     if err:
         raise RuntimeError(f"mamba2_ssd occupancy query failed: CUDA error {err}")
-    return dict(zip(("blocks_per_sm", "threads", "smem_bytes"), (o.value for o in out)))
+    return dict(zip(names, (o.value for o in out)))
 
 
 def check_mamba2_inputs(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
@@ -148,15 +161,16 @@ def mamba2_ssd_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         raise ValueError(f"head width {p} / state {n} not supported (up to {MAX_DIM})")
     dx, ddt, da = torch.empty_like(x), torch.empty_like(dt), torch.empty_like(a)
     dbm, dcm = torch.empty_like(bmat), torch.empty_like(cmat)
-    # <dy, y> per step and head, dB's and dC's partials per head, da's per
-    # batch row: the first kernel writes them, the second sums the partials
-    scratch = torch.empty(b * h * s + 2 * b * s * h * n + b * h, device=x.device)
+    fn, size = _bwd_kernel()
+    # the segments' summaries (then the carried h and G), decays and dl
+    # totals, and dB's and dC's partials per head group, which the launches
+    # pass on to one another
+    scratch = torch.empty(size(b, s, h, n), dtype=torch.uint8, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _bwd_kernel()(x.data_ptr(), dt.data_ptr(), a.data_ptr(), bmat.data_ptr(),
-                            cmat.data_ptr(), dy.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
-                            da.data_ptr(), dbm.data_ptr(), dcm.data_ptr(), scratch.data_ptr(),
-                            b, s, h, p, n, stream)
+        err = fn(x.data_ptr(), dt.data_ptr(), a.data_ptr(), bmat.data_ptr(), cmat.data_ptr(),
+                 dy.data_ptr(), dx.data_ptr(), ddt.data_ptr(), da.data_ptr(), dbm.data_ptr(),
+                 dcm.data_ptr(), scratch.data_ptr(), b, s, h, p, n, stream)
     if err:
         raise RuntimeError(f"mamba2_ssd_bwd kernel launch failed: CUDA error {err}")
     mamba2_ssd_bwd_cuda.launches += 1

@@ -38,7 +38,8 @@ import torch
 __all__ = ["NEG_INF", "flash_attention_ref", "flash_attention_lse_ref", "flash_attention_bwd_ref",
            "decode_attention_ref", "attention_mask",
            "rwkv6_recurrent", "rwkv6_wkv_ref", "rwkv6_wkv_chunked", "rwkv6_wkv_bwd_ref",
-           "mamba2_ssd_ref", "mamba2_ssd_chunked", "mamba2_ssd_bwd_ref"]
+           "mamba2_ssd_ref", "mamba2_ssd_chunked", "mamba2_ssd_bwd_ref",
+           "rwkv6_wkv_bwd_segments", "mamba2_ssd_bwd_segments"]
 
 NEG_INF = -1e30
 
@@ -352,3 +353,138 @@ def mamba2_ssd_bwd_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     y, dz, dbm, dcm = (torch.stack(v, dim=1) for v in (ys, dzs, dbs, dcs))
     dl = _reverse_cumsum((dy * y).sum(-1) - (dz * z).sum(-1))
     return dt[..., None] * dz, a * dl + (dz * x).sum(-1), (dt * dl).sum((0, 1)), dbm, dcm
+
+
+def _segments(x: torch.Tensor, seg: int) -> torch.Tensor:
+    """(B, S, ...) → (B, nseg, seg, ...), the last segment padded with zeros
+    (a padded row's log-decay 0 is a decay of 1, and its inputs feed
+    nothing)."""
+    b, s = x.shape[:2]
+    pad = -s % seg
+    if pad:
+        x = torch.cat([x, x.new_zeros((b, pad, *x.shape[2:]))], dim=1)
+    return x.reshape(b, -1, seg, *x.shape[2:])
+
+
+def _unsegment(x: torch.Tensor, s: int) -> torch.Tensor:
+    """The inverse of ``_segments``: (B, nseg, seg, ...) → (B, S, ...)."""
+    return x.reshape(x.shape[0], -1, *x.shape[3:])[:, :s]
+
+
+def _segment_decays(lw: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """Per row of each segment of the log-decays lw (B, nseg, L, ...), each
+    a direct sum over the segment's rows, never a difference: the exclusive
+    and inclusive prefixes from the segment's start, the exclusive suffix
+    from its end, and the segment's total."""
+    inc = torch.cumsum(lw, dim=2)
+    exc = torch.cat([torch.zeros_like(inc[:, :, :1]), inc[:, :, :-1]], dim=2)
+    suf = torch.cumsum(lw.flip(2), dim=2).flip(2)
+    suf = torch.cat([suf[:, :, 1:], torch.zeros_like(suf[:, :, :1])], dim=2)
+    return exc, inc, suf, inc[:, :, -1]
+
+
+def _seg_carry(parts: torch.Tensor, decay: torch.Tensor, reverse: bool) -> torch.Tensor:
+    """The carry across segments: parts (B, nseg, ...) each segment's
+    contribution from a zero start, decay (B, nseg, ...) its total decay
+    (broadcast) → the value entering each segment, forwards (reverse False:
+    x_0 = 0, x_{j+1} = decay_j x_j + parts_j) or backwards (x_last = 0,
+    x_{j-1} = decay_j x_j + parts_j)."""
+    order = range(parts.shape[1] - 1, -1, -1) if reverse else range(parts.shape[1])
+    out = [None] * parts.shape[1]
+    x = torch.zeros_like(parts[:, 0])
+    for j in order:
+        out[j] = x
+        x = decay[:, j] * x + parts[:, j]
+    return torch.stack(out, dim=1)
+
+
+def _later_totals(tot: torch.Tensor) -> torch.Tensor:
+    """Σ_{j' > j} tot[:, j'] along the segment axis 1, summed from the last
+    segment."""
+    rc = torch.cumsum(tot.flip(1), dim=1).flip(1)
+    return torch.cat([rc[:, 1:], torch.zeros_like(rc[:, :1])], dim=1)
+
+
+def rwkv6_wkv_bwd_segments(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           logw: torch.Tensor, u: torch.Tensor, dy: torch.Tensor,
+                           seg: int) -> tuple[torch.Tensor, ...]:
+    """The segment form of ``rwkv6_wkv_bwd_ref``, the plain mirror of the
+    backward kernel ``csrc/rwkv6_scan_bwd.cu`` with its segment length
+    ``seg`` (the kernel's SEG) as an argument: → (dr, dk, dv, dlogw, du).
+    The sequence is cut into segments of ``seg`` rows (the last ragged).
+    Summaries of each segment from a zero start: its state
+    U = Σ_t (k_t ⊙ e^{suffix_t}) v_tᵀ, its part of D entering the previous
+    segment W = Σ_t (r_t ⊙ e^{prefix_t}) dy_tᵀ (suffix and prefix the
+    exclusive sums of logw from the segment's end and start) and its total
+    decay; the carry takes the state to each segment's start and D to
+    each segment's last row; the step recurrence then runs inside every
+    segment from those.  dlogw is each segment's own reverse sum plus one
+    offset, the later segments' totals."""
+    b, s, h, dk = r.shape
+    rs, ks, vs, lws, dys = (_segments(t, seg) for t in (r, k, v, logw, dy))
+    exc, _, suf, total = _segment_decays(lws)
+    dec = torch.exp(total)[..., None]                                   # (b,nseg,h,k,1)
+    ustate = torch.einsum("bjlhi,bjlhc->bjhic", ks * torch.exp(suf), vs)
+    wgrad = torch.einsum("bjlhi,bjlhc->bjhic", rs * torch.exp(exc), dys)
+    st = _seg_carry(ustate, dec, reverse=False)                         # S entering segment j
+    dd = _seg_carry(wgrad, dec, reverse=True)                           # D at its last row
+    w = torch.exp(lws)
+    drs, dks, dvs = [None] * seg, [None] * seg, [None] * seg
+    for t in range(seg):
+        drs[t] = torch.einsum("bjhic,bjhc->bjhi", st, dys[:, :, t])
+        st = st * w[:, :, t, :, :, None] + ks[:, :, t, :, :, None] * vs[:, :, t, :, None, :]
+    for t in reversed(range(seg)):
+        dks[t] = torch.einsum("bjhic,bjhc->bjhi", dd, vs[:, :, t])
+        dvs[t] = torch.einsum("bjhic,bjhi->bjhc", dd, ks[:, :, t])
+        dd = dd * w[:, :, t, :, :, None] + rs[:, :, t, :, :, None] * dys[:, :, t, :, None, :]
+    drs, dks, dvs = (torch.stack(x, dim=2) for x in (drs, dks, dvs))  # (b,nseg,L,h,k)
+    kdk = ks * dks
+    term = rs * drs - kdk
+    rc = torch.cumsum(term.flip(2), dim=2).flip(2)                    # Σ_{t' >= t} in segment
+    after = torch.cat([rc[:, :, 1:], torch.zeros_like(rc[:, :, :1])], dim=2)
+    dlogw = after - kdk + _later_totals(rc[:, :, 0])[:, :, None]
+    vdy = (vs * dys).sum(-1, keepdim=True)
+    grads = (drs + u * ks * vdy, dks + u * rs * vdy,
+             dvs + (rs * u * ks).sum(-1, keepdim=True) * dys, dlogw)
+    return (*(_unsegment(g, s) for g in grads), (rs * ks * vdy).sum((0, 1, 2)))
+
+
+def mamba2_ssd_bwd_segments(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                            bmat: torch.Tensor, cmat: torch.Tensor, dy: torch.Tensor,
+                            seg: int) -> tuple[torch.Tensor, ...]:
+    """The segment form of ``mamba2_ssd_bwd_ref``, the plain mirror of the
+    backward kernel ``csrc/mamba2_ssd_bwd.cu`` with its segment length
+    ``seg`` as an argument: → (dx, ddt, da, dB, dC).  Summaries of each
+    segment from a zero start: its state U = Σ_t e^{suffix_t} z_t ⊗ B_t,
+    its part of G carried into the previous segment
+    V = Σ_t e^{prefix_t} dy_t ⊗ C_t (suffix the exclusive sum of dt·a from
+    the segment's end, prefix the inclusive one from its start) and its
+    total decay; the carry; the step recurrence inside every segment, with
+    ⟨dy, y⟩ = ⟨C, dC's head term⟩; dl is each segment's own reverse sum
+    plus one offset, the later segments' totals."""
+    b, s, nh, p = x.shape
+    xs, dts, bs, cs, dys = (_segments(t, seg) for t in (x, dt, bmat, cmat, dy))
+    adt = dts * a                                                       # (b,nseg,L,h)
+    _, inc, suf, total = _segment_decays(adt)
+    dec = torch.exp(total)[..., None, None]                             # (b,nseg,h,1,1)
+    z = dts[..., None] * xs
+    ustate = torch.einsum("bjlhp,bjln->bjhpn", z * torch.exp(suf)[..., None], bs)
+    gcarry = torch.einsum("bjlhp,bjln->bjhpn", dys * torch.exp(inc)[..., None], cs)
+    hst = _seg_carry(ustate, dec, reverse=False)                        # h entering segment j
+    g = _seg_carry(gcarry, dec, reverse=True)                           # α G from the later ones
+    alpha = torch.exp(adt)[..., None, None]
+    dcs, dzs, dbs = [None] * seg, [None] * seg, [None] * seg
+    for t in range(seg):
+        hst = hst * alpha[:, :, t] + z[:, :, t, :, :, None] * bs[:, :, t, None, None, :]
+        dcs[t] = torch.einsum("bjhpn,bjhp->bjhn", hst, dys[:, :, t])
+    for t in reversed(range(seg)):
+        g = g + dys[:, :, t, :, :, None] * cs[:, :, t, None, None, :]
+        dzs[t] = torch.einsum("bjhpn,bjn->bjhp", g, bs[:, :, t])
+        dbs[t] = torch.einsum("bjhpn,bjhp->bjhn", g, z[:, :, t])
+        g = g * alpha[:, :, t]
+    dch, dz, dbh = (torch.stack(v, dim=2) for v in (dcs, dzs, dbs))  # (b,nseg,L,h,·)
+    dc = (dch * cs[:, :, :, None]).sum(-1) - (dz * z).sum(-1)
+    local = torch.cumsum(dc.flip(2), dim=2).flip(2)
+    dl = local + _later_totals(local[:, :, 0])[:, :, None]
+    return (_unsegment(dts[..., None] * dz, s), _unsegment(a * dl + (dz * xs).sum(-1), s),
+            (dts * dl).sum((0, 1, 2)), _unsegment(dbh.sum(3), s), _unsegment(dch.sum(3), s))

@@ -19,7 +19,9 @@ kernel, and its backward the hand-written backward kernel
 ``csrc/rwkv6_scan_bwd.cu`` (``rwkv6_wkv_bwd_cuda``).  The reference has no
 Pallas backward: ``jax.value_and_grad`` differentiates its chunked form, and
 the backward kernel computes that gradient, the recurrence's (the chunk
-changes only the rounding).  On a CPU tensor the forward is the step
+changes only the rounding), in segments of ``BWD_SEGMENT`` rows worked on in
+parallel (four launches a call; ``ref.rwkv6_wkv_bwd_segments`` is its plain
+mirror).  On a CPU tensor the forward is the step
 recurrence and the backward the plain version, ``wkv_chunked_grads``: the
 reference's chunked form, ``ref.rwkv6_wkv_chunked``, recomputed at the
 reference's chunk and differentiated under autograd.
@@ -35,13 +37,15 @@ from . import ref as _ref
 
 __all__ = ["rwkv6_wkv_cuda", "rwkv6_wkv_bwd_cuda", "RWKV6WKV", "wkv_chunked_grads",
            "check_rwkv6_inputs", "occupancy",
-           "STATE_TILE", "FOLD_TILE", "SUB_BLOCK", "STATE_COLUMNS", "MAX_HEAD_DIM"]
+           "STATE_TILE", "FOLD_TILE", "SUB_BLOCK", "STATE_COLUMNS", "MAX_HEAD_DIM",
+           "BWD_SEGMENT"]
 
 STATE_TILE = 32      # the TPU kernel's _STATE_TILE, which its chunk check names
 FOLD_TILE = 32       # rows the kernel folds into the state at once
 SUB_BLOCK = 16       # rows of the sub-blocks whose pairwise scores take exp directly
 STATE_COLUMNS = 16   # columns of the state per block
 MAX_HEAD_DIM = 64    # the kernel's largest head width (a multiple of 16)
+BWD_SEGMENT = 64     # rows of the backward kernel's segments (its SEG)
 
 _fn = None
 _bwd_fn = None
@@ -58,24 +62,33 @@ def _kernel():
 
 
 def _bwd_kernel():
+    """The backward kernel's entry point and its scratch-size query."""
     global _bwd_fn
     if _bwd_fn is None:
-        fn = _build.load("rwkv6_scan_bwd").rwkv6_wkv_bwd
+        lib = _build.load("rwkv6_scan_bwd")
+        fn = lib.rwkv6_wkv_bwd
         fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _bwd_fn = fn
+        size = lib.rwkv6_wkv_bwd_scratch
+        size.argtypes = [ctypes.c_int] * 3
+        size.restype = ctypes.c_longlong
+        _bwd_fn = fn, size
     return _bwd_fn
 
 
-def occupancy() -> dict:
-    """What the occupancy API reports for the kernel: blocks per SM, and
-    the threads and shared-memory bytes of one block.  Builds the kernel."""
-    fn = _build.load("rwkv6_scan").rwkv6_wkv_occupancy
-    out = [ctypes.c_int() for _ in range(3)]
+def occupancy(backward: bool = False) -> dict:
+    """What the occupancy API reports for the scan kernel (``backward``:
+    the backward's segment kernel): blocks per SM, and the threads and
+    shared-memory bytes of one block (and the backward's segment length).
+    Builds the kernel."""
+    names = ("blocks_per_sm", "threads", "smem_bytes") + (("segment",) if backward else ())
+    fn = (_build.load("rwkv6_scan_bwd").rwkv6_wkv_bwd_occupancy if backward
+          else _build.load("rwkv6_scan").rwkv6_wkv_occupancy)
+    out = [ctypes.c_int() for _ in names]
     err = fn(*(ctypes.byref(o) for o in out))
     if err:
         raise RuntimeError(f"rwkv6_wkv occupancy query failed: CUDA error {err}")
-    return dict(zip(("blocks_per_sm", "threads", "smem_bytes"), (o.value for o in out)))
+    return dict(zip(names, (o.value for o in out)))
 
 
 def _check_shapes(r, k, v, logw, u) -> None:
@@ -157,15 +170,15 @@ def rwkv6_wkv_bwd_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"head width {dk} not supported (up to {MAX_HEAD_DIM})")
     dr, dkk, dv, dlogw = (torch.empty_like(r) for _ in range(4))
     du = torch.empty_like(u)
-    # du's partial sum per batch row, which the first kernel writes and the
-    # second sums
-    scratch = torch.empty(b * h * dk, device=r.device)
+    fn, size = _bwd_kernel()
+    # the segments' summaries (then the carried state and D), decays, dlogw
+    # totals and du's partials, which the launches pass on to one another
+    scratch = torch.empty(size(b, s, h), dtype=torch.uint8, device=r.device)
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream
-        err = _bwd_kernel()(r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
-                            u.data_ptr(), dy.data_ptr(), dr.data_ptr(), dkk.data_ptr(),
-                            dv.data_ptr(), dlogw.data_ptr(), du.data_ptr(), scratch.data_ptr(),
-                            b, s, h, dk, stream)
+        err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(), u.data_ptr(),
+                 dy.data_ptr(), dr.data_ptr(), dkk.data_ptr(), dv.data_ptr(), dlogw.data_ptr(),
+                 du.data_ptr(), scratch.data_ptr(), b, s, h, dk, stream)
     if err:
         raise RuntimeError(f"rwkv6_wkv_bwd kernel launch failed: CUDA error {err}")
     rwkv6_wkv_bwd_cuda.launches += 1

@@ -9,6 +9,7 @@ selections, switches and predictions (to 1e-12 where floats are compared).
 qualities within 1e-6 (the boxes agree to 1e-4 px; a quality is a mean of
 IoUs); its latencies are wall clock and are not compared.
 """
+import functools
 import math
 
 import numpy as np
@@ -22,11 +23,13 @@ from repro.core import predictor as rpred  # noqa: E402
 from repro.core.timing import StageRecord as RRecord  # noqa: E402
 from repro.perception import SceneConfig as RCfg, run_pipeline as r_run  # noqa: E402
 from repro.perception import detector as rdet, lane as rlane  # noqa: E402
+from repro.perception import pipelines as rpipes  # noqa: E402
 from repro.sched import simulator as rsim  # noqa: E402
 from repro_torch import anytime as ta  # noqa: E402
 from repro_torch.core import predictor as tpred  # noqa: E402
 from repro_torch.core.timing import StageRecord as TRecord  # noqa: E402
 from repro_torch.perception import SceneConfig as TCfg  # noqa: E402
+from repro_torch.perception import pipelines as tpipes  # noqa: E402
 from repro_torch.sched import simulator as tsim  # noqa: E402
 
 EXACT = dict(rtol=1e-12, atol=0)
@@ -278,10 +281,27 @@ def test_calibrate_orders_and_scores_rungs_alike(ref_params, scenario, seed):
         assert math.isfinite(r.e2e_mean) and r.e2e_mean > 0
 
 
-def test_run_anytime_report_alike(ref_params):
+class _TickClock:
+    """A clock that advances 1 ms each time it is read."""
+
+    def __init__(self) -> None:
+        self.t = 0.0
+
+    def __call__(self) -> float:
+        self.t += 1e-3
+        return self.t
+
+
+def test_run_anytime_report_alike(ref_params, monkeypatch):
     """A fixed rung runs the same frames through the same pipeline in both
     packages: per-frame quality and proposals agree; the report's structure
-    matches; latencies are wall clock and only checked for sanity."""
+    matches; latencies are only checked for sanity.  Both packages' stage
+    timers read a clock of their own that advances 1 ms a read, not the
+    wall clock, so the latencies, and the fits, misses and rung choices
+    that follow from them, are the same on any host under any load."""
+    for pipes in (rpipes, tpipes):
+        monkeypatch.setattr(pipes, "StageTimer",
+                            functools.partial(pipes.StageTimer, clock=_TickClock()))
     rlad = ra.calibrate(ra.default_rungs(), RCfg("city", seed=3), n=4)
     built = ta.build_rungs(ta.default_rungs(), TCfg("city", seed=3), device="cpu",
                            params=ref_params)

@@ -70,23 +70,34 @@ SCAN = dict(atol=2e-4, rtol=2e-4)
 # the scans' backward kernels (see the module's note): (b, s, h, dk,
 # grad_chunk, decay strength or None for logw = -25) — the sweep's shapes,
 # ragged and odd lengths with the chunk the model picks (the largest
-# divisor of S up to 64), rwkv6-3b's training shape and a rank's (20 heads)
+# divisor of S up to 64), rwkv6-3b's training shape and a rank's (20 heads);
+# then the edges of the WKV kernel's 64-row segments: S below one segment,
+# S one row past a multiple of it, one head, logw = -25 across four segments
 GRAD_BAND = 1e-3
 DLOGW_ATOL = 3e-4
 WKV_GRAD_SHAPES = [(1, 64, 2, 16, 16, 0.5), (2, 128, 3, 32, 64, 6.0), (1, 128, 1, 64, 64, 0.5),
                    (1, 64, 1, 16, 32, None), (2, 37, 3, 64, 37, 0.5), (2, 96, 3, 32, 48, 6.0),
                    (2, 100, 3, 16, 50, 0.5), (2, 100, 3, 64, 50, None),
                    (2, 1024, 40, 64, 64, 0.5), (2, 1024, 40, 64, 64, 6.0),
-                   (2, 1024, 40, 64, 64, None), (2, 1024, 20, 64, 64, 0.5)]
+                   (2, 1024, 40, 64, 64, None), (2, 1024, 20, 64, 64, 0.5),
+                   (2, 40, 3, 64, 40, 0.5), (1, 129, 2, 32, 43, 0.5), (2, 65, 1, 64, 13, 6.0),
+                   (2, 200, 1, 64, 50, 0.5), (1, 256, 2, 64, 64, None)]
 # (b, s, h, p, n, chunk, head_block, dt): "init" is zamba2-2.7b's initial
 # dt·A = softplus(0)·-1 ≈ -0.69 a step, where the reference's gradient
 # overflows over a 256-row chunk; zamba2-2.7b's training shape and a rank's
-# (40 heads at head_block 8, 5 at head_block 1)
+# (40 heads at head_block 8, 5 at head_block 1); then the edges of the
+# kernel's segments and head groups: S below one segment, S one row past a
+# multiple of it, one head, odd head counts (3, 5 and 7 heads a group) and
+# 11 heads (a group of one), and zamba2's initial decay over 1024 rows
 SSD_GRAD_SHAPES = [(1, 64, 4, 16, 16, 16, 2, "rand"), (2, 128, 8, 16, 24, 32, 4, "rand"),
                    (2, 37, 4, 16, 32, 37, 4, "rand"), (2, 96, 4, 32, 64, 96, 4, "rand"),
                    (2, 100, 4, 64, 16, 100, 4, "rand"), (1, 256, 4, 64, 64, 256, 4, "init"),
                    (2, 1024, 80, 64, 64, 256, 8, "rand"), (2, 1024, 80, 64, 64, 256, 8, "init"),
-                   (2, 1024, 40, 64, 64, 256, 8, "rand"), (2, 1024, 5, 64, 64, 256, 1, "rand")]
+                   (2, 1024, 40, 64, 64, 256, 8, "rand"), (2, 1024, 5, 64, 64, 256, 1, "rand"),
+                   (2, 40, 4, 32, 64, 40, 4, "rand"), (1, 129, 3, 64, 64, 129, 3, "rand"),
+                   (2, 65, 1, 64, 64, 65, 1, "rand"), (1, 200, 5, 64, 32, 200, 5, "init"),
+                   (1, 192, 7, 64, 64, 64, 7, "rand"), (1, 64, 11, 16, 16, 64, 11, "rand"),
+                   (1, 1024, 12, 64, 64, 256, 4, "init")]
 
 
 @pytest.fixture

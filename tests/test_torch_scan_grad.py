@@ -28,7 +28,11 @@ against the reference's VJP at ``GRAD_RTOL``, against the plain version the
 CPU runs (``wkv_chunked_grads`` / ``ssd_chunked_grads``, in float64) at
 1e-9 of the leaf's largest element (both exact but for f64 rounding), and
 against autograd through the f64 step recurrence at 1e-9 as above, at a
-ragged length and where the reference overflows.
+ragged length and where the reference overflows.  Their segment form
+(``ref.rwkv6_wkv_bwd_segments`` / ``mamba2_ssd_bwd_segments``: the backward
+kernels' segments, summaries, carry and offsets, with the segment length
+as an argument), in float64, against the f64 recurrence at 1e-9 and the
+reference's VJP at ``GRAD_RTOL``.
 """
 import numpy as np
 import pytest
@@ -42,10 +46,11 @@ from repro.models.rwkv6 import _wkv_chunked as jax_wkv_chunked  # noqa: E402
 
 from repro_torch import kernels as K  # noqa: E402
 from repro_torch.kernels import ref as R  # noqa: E402
-from repro_torch.kernels.mamba2_ssd import Mamba2SSD, mamba2_ssd_bwd_cuda, \
+from repro_torch.kernels.mamba2_ssd import BWD_SEGMENT, Mamba2SSD, mamba2_ssd_bwd_cuda, \
     ssd_chunked_grads  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import RWKV6WKV, rwkv6_wkv_bwd_cuda, \
     wkv_chunked_grads  # noqa: E402
+from repro_torch.kernels.rwkv6_scan import BWD_SEGMENT as WKV_BWD_SEGMENT  # noqa: E402
 from repro_torch.models import mamba2 as tmamba2  # noqa: E402
 from repro_torch.models import rwkv6 as trwkv6  # noqa: E402
 
@@ -385,6 +390,63 @@ def test_ssd_bwd_formulas_match_the_f64_recurrence(case):
     for name, g, w in zip(SSD_LEAVES, got, oracle):
         assert torch.isfinite(g).all(), name
         _close(g, w, 1e-9, name, floor=1.0)
+
+
+# -------------------------------- the backward kernels' segment form ----
+# (case, S, segment length L, chunk of the reference's VJP or None where
+# its gradient is NaN): L dividing S, L not dividing S, S below L, the
+# kernels' own L with S one row past a multiple of it, and logw = -25 /
+# zamba2-2.7b's initial decay over 256 rows
+WKV_SEG_CASES = [("divides", 64, 16, 16), ("ragged", 37, 16, 37), ("short", 10, 16, 10),
+                 ("kernel_seg", 129, WKV_BWD_SEGMENT, 43), ("logw25", 64, 16, None)]
+SSD_SEG_CASES = [("divides", 64, 16, 16), ("ragged", 37, 16, 37), ("short", 10, 16, 10),
+                 ("kernel_seg", 129, BWD_SEGMENT, 43), ("zamba2_init", 256, BWD_SEGMENT, 64)]
+
+
+@pytest.mark.parametrize("case,s,seg,chunk", WKV_SEG_CASES)
+def test_wkv_bwd_segments_match_the_recurrence(case, s, seg, chunk):
+    """ref.rwkv6_wkv_bwd_segments (the backward kernel's segments,
+    summaries, carry and dlogw offsets) in float64 against autograd through
+    the f64 step recurrence at 1e-9 (absolute below 1), and where the
+    reference's gradient is finite against its VJP of _wkv_chunked at
+    GRAD_RTOL."""
+    ins, s0 = _rwkv_inputs(32, -25.0 if case == "logw25" else "model", b=1, s=s, h=2, dk=8)
+    dy = _cotangent(33, ins[0].shape)
+    got = R.rwkv6_wkv_bwd_segments(*_t(ins, dtype=F64), torch.tensor(dy, dtype=F64), seg)
+    rec = _t(ins, grad=True, dtype=F64)
+    y, _ = R.rwkv6_recurrent(*rec, torch.zeros(s0.shape, dtype=F64))
+    for name, g, w in zip(WKV_LEAVES, got, torch.autograd.grad(y, rec, torch.tensor(dy, dtype=F64))):
+        assert torch.isfinite(g).all(), name
+        _close(g, w, 1e-9, name, floor=1.0)
+    if chunk is not None:
+        zero = jnp.zeros(s0.shape, jnp.float32)
+        want = _jit_vjp(lambda *a: jax_wkv_chunked(*a, chunk, zero)[0],
+                        list(map(jnp.asarray, ins)), jnp.asarray(dy))
+        for name, g, w in zip(WKV_LEAVES, got, want):
+            _grad_close(g, w, name)
+
+
+@pytest.mark.parametrize("case,s,seg,chunk", SSD_SEG_CASES)
+def test_ssd_bwd_segments_match_the_recurrence(case, s, seg, chunk):
+    """ref.mamba2_ssd_bwd_segments in float64 against autograd through the
+    f64 step recurrence at 1e-9 (absolute below 1), and against the
+    reference's VJP of _ssd_chunked at GRAD_RTOL (at zamba2-2.7b's initial
+    decay over 256 rows, at a chunk of 64, where it is finite)."""
+    ins, _ = _ssd_inputs(34, b=1, s=s, h=3, p=4, n=4)
+    if case == "zamba2_init":
+        ins[1] = np.full_like(ins[1], np.log(2.0))
+        ins[2] = -np.ones_like(ins[2])
+    dy = _cotangent(35, ins[0].shape)
+    got = R.mamba2_ssd_bwd_segments(*_t(ins, dtype=F64), torch.tensor(dy, dtype=F64), seg)
+    rec = _t(ins, grad=True, dtype=F64)
+    oracle = torch.autograd.grad(_ssd_recurrent64(*rec), rec, torch.tensor(dy, dtype=F64))
+    for name, g, w in zip(SSD_LEAVES, got, oracle):
+        assert torch.isfinite(g).all(), name
+        _close(g, w, 1e-9, name, floor=1.0)
+    want = _jit_vjp(lambda *a: jax_ssd_chunked(*a, chunk)[0], list(map(jnp.asarray, ins)),
+                    jnp.asarray(dy))
+    for name, g, w in zip(SSD_LEAVES, got, want):
+        _grad_close(g, w, name)
 
 
 def test_backward_kernels_refuse_cpu_tensors():

@@ -2,7 +2,7 @@
 """The scans' backward kernels inside the full-width training step, leaf by
 leaf, on the card.
 
-    python3 tools/scan_grad_leaves.py [--arch rwkv6-3b zamba2-2.7b] [--steps 6] [--at 0 4]
+    python3 tools/scan_grad_leaves.py [--arch rwkv6-3b zamba2-2.7b] [--steps 6] [--at 0 4] [--calls]
     python3 tools/scan_grad_leaves.py --smoke --device cpu   # the script itself, small
 
 For each arch, chip_smoke's training path (full width and depth in bf16,
@@ -19,13 +19,19 @@ variants replace the backward wrapper in this process only:
   gradient rounded other ways in f32: controls for what rounding alone
   does downstream.
 
-At each step of ``--at`` (the weights ``plain`` reaches after that many
-steps from the init, and that step's batch): every gradient leaf under
+At each step of ``--at`` (the weights ``plain``, or the variant
+``--weights`` names, reaches after that many steps from the init, and
+that step's batch): every gradient leaf under
 ``kernel`` and the controls against ``plain``: ||g - g_plain|| /
 ||g_plain|| and max |g - g_plain| / max |g_plain|, one line a leaf (a leaf
-stacks its layers).  Then each variant trains ``--steps`` steps from the
-same init through ``Trainer.fit`` and prints its losses, each against
-``plain``'s.
+stacks its layers).  With ``--calls``, the ``kernel`` variant's gradients
+at those steps also check each backward call on its own inputs: the kernel
+again (equal bits?) and the plain version and the controls, each output's
+||diff|| / ||plain|| (one line per scan and output: the kernel's largest,
+the largest kernel / nearer control over the calls, and that call's
+number, the backward running the last layer first).  Then each variant trains ``--steps`` steps from the same init
+through ``Trainer.fit`` and prints its losses, each against ``plain``'s,
+and its gradient norms.
 The card's name and power limit head the output.
 """
 from __future__ import annotations
@@ -68,6 +74,64 @@ def use(variant: str) -> None:
         (x, dt, a, bm, cm), chunk // f, dy)
 
 
+def use_checked(calls: list) -> None:
+    """The ``kernel`` variant, each call also run again and beside the plain
+    version at the chunk and its controls at a half and a quarter of it,
+    on the same inputs; appends (scan, bits equal, {output: (kernel,
+    plain/2, plain/4) ||diff|| / ||plain||}) to ``calls``."""
+    wkv, ssd = COMMITTED
+
+    def record(scan, got, again, plains, names):
+        ratio = {}
+        for i, n in enumerate(names):
+            want = plains[0][i].double()
+            ratio[n] = tuple(((x.double() - want).norm() / want.norm()).item()
+                             for x in [got[i]] + [p[i] for p in plains[1:]])
+        calls.append((scan, all(torch.equal(g, a) for g, a in zip(got, again)), ratio))
+
+    def wkv_checked(r, k, v, logw, u, dy, grad_chunk):
+        got, again = (wkv(r, k, v, logw, u, dy, grad_chunk) for _ in range(2))
+        plains = [W.wkv_chunked_grads((r, k, v, logw, u), grad_chunk // f, dy) for f in (1, 2, 4)]
+        record("rwkv6_wkv_bwd", got, again, plains, ("dr", "dk", "dv", "dlogw", "du"))
+        return got
+
+    def ssd_checked(x, dt, a, bm, cm, dy, chunk, hb):
+        got, again = (ssd(x, dt, a, bm, cm, dy, chunk, hb) for _ in range(2))
+        plains = [M.ssd_chunked_grads((x, dt, a, bm, cm), chunk // f, dy) for f in (1, 2, 4)]
+        record("mamba2_ssd_bwd", got, again, plains, ("dx", "ddt", "da", "dB", "dC"))
+        return got
+
+    # the wrappers count their launches on the module's name, now these
+    wkv_checked.launches = ssd_checked.launches = 0
+    W.rwkv6_wkv_bwd_cuda, M.mamba2_ssd_bwd_cuda = wkv_checked, ssd_checked
+
+
+def report_calls(arch: str, at: int, calls: list) -> None:
+    """One line per scan and output of ``use_checked``'s records, the calls
+    numbered in the order the backward ran them (the last layer first)."""
+    for scan in dict.fromkeys(c[0] for c in calls):
+        mine = [c for c in calls if c[0] == scan]
+        for out in mine[0][2]:
+            # calls where a control equals the plain version's bits have no ratio
+            ratios = {i: c[2][out][0] / min(c[2][out][1:]) for i, c in enumerate(mine)
+                      if min(c[2][out][1:]) > 0}
+            head = (f"[{arch}] step {at} calls {scan} {out}: kernel largest "
+                    f"{max(c[2][out][0] for c in mine):.3e}")
+            if not ratios:
+                print(f"{head}; every call's controls equal the plain version", flush=True)
+                continue
+            worst = max(ratios, key=ratios.get)
+            k, c2, c4 = mine[worst][2][out]
+            big = max(range(len(mine)), key=lambda i: mine[i][2][out][0])
+            print(f"{head} (call {big}: controls "
+                  + ", ".join(f"{x:.3e}" for x in mine[big][2][out][1:])
+                  + f"); largest kernel / nearer control {ratios[worst]:.3f} (call {worst} of "
+                  f"{len(mine)}: kernel {k:.3e}, plain/2 {c2:.3e}, plain/4 {c4:.3e}; "
+                  f"{len(mine) - len(ratios)} calls without a ratio)", flush=True)
+        print(f"[{arch}] step {at} calls {scan}: {len(mine)} calls, the kernel's bits equal on "
+              f"a second run in {sum(c[1] for c in mine)}", flush=True)
+
+
 def setup(arch: str, dev, smoke: bool):
     cfg = get_config(arch)
     cfg = reduced_for_smoke(cfg) if smoke else cfg
@@ -90,13 +154,15 @@ def grads_at(model, params, data, step: int, dev) -> tuple[float, list, list]:
     return loss.item(), [".".join(map(str, k)) for k, _ in walked], list(grads)
 
 
-def train(trainer, model, data, steps: int) -> tuple[dict, list[float]]:
-    """The weights after ``steps`` steps from the init, and the losses."""
+def train(trainer, model, data, steps: int) -> tuple[dict, list[tuple[float, float]]]:
+    """The weights after ``steps`` steps from the init, and each step's
+    loss and gradient norm."""
     params, opt_state = trainer.init(0)
     out = []
     if steps:
         params, _ = trainer.fit(params, opt_state, PrefetchIterator(
-            synthetic_batches(model.cfg, data)), steps, log=lambda i, m: out.append(m["loss"]))
+            synthetic_batches(model.cfg, data)), steps,
+            log=lambda i, m: out.append((m["loss"], m["grad_norm"])))
     return params, out
 
 
@@ -107,6 +173,10 @@ def main() -> int:
     ap.add_argument("--at", type=int, nargs="+", default=[0, 4])
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--smoke", action="store_true", help="reduced_for_smoke width, 2 x 64 tokens")
+    ap.add_argument("--weights", default="plain", choices=VARIANTS,
+                    help="the variant whose training reaches the weights of each --at step")
+    ap.add_argument("--calls", action="store_true",
+                    help="check each backward call of the kernel variant's gradients")
     args = ap.parse_args()
     dev = torch.device(args.device)
     if dev.type == "cuda":
@@ -119,15 +189,22 @@ def main() -> int:
         model, trainer, data = setup(arch, dev, args.smoke)
         rows = {}
         for at in args.at:
-            use("plain")
+            use(args.weights)
             params, _ = train(trainer, model, data, at)
+            use("plain")
             ref_loss, names, ref = grads_at(model, params, data, at, dev)
+            norm = lambda gs: sum(g.float().norm() ** 2 for g in gs).sqrt().item()  # noqa: E731
+            ref_norm = norm(ref)
             rows[at] = {n: {} for n in names}
             for variant in VARIANTS[1:]:
+                calls = []
                 use(variant)
+                if variant == "kernel" and args.calls:
+                    use_checked(calls)
                 loss, _, grads = grads_at(model, params, data, at, dev)
-                print(f"[{arch}] step {at} {variant}: loss {loss:.6f} (plain {ref_loss:.6f})",
-                      flush=True)
+                report_calls(arch, at, calls)
+                print(f"[{arch}] step {at} {variant}: loss {loss:.6f} (plain {ref_loss:.6f}), "
+                      f"gradient norm {norm(grads):.4f} (plain {ref_norm:.4f})", flush=True)
                 for n, g, w in zip(names, grads, ref):
                     d, w = g.float() - w.float(), w.float()
                     rows[at][n][variant] = dict(norm=(d.norm() / w.norm()).item(),
@@ -152,10 +229,12 @@ def main() -> int:
             use(variant)
             traj[variant] = train(trainer, model, data, args.steps)[1]
         for variant in VARIANTS:
-            line = " ".join(f"{x:.6f}" for x in traj[variant])
-            rel = " ".join(f"{abs(x - p) / abs(p):.2e}" for x, p in zip(traj[variant],
-                                                                         traj["plain"]))
-            print(f"[{arch}] {variant:8s} losses {line}; |diff| / plain {rel}", flush=True)
+            losses = [x for x, _ in traj[variant]]
+            line = " ".join(f"{x:.6f}" for x in losses)
+            rel = " ".join(f"{abs(x - p) / abs(p):.2e}" for x, (p, _) in zip(losses,
+                                                                              traj["plain"]))
+            print(f"[{arch}] {variant:8s} losses {line}; |diff| / plain {rel}; gradient norms "
+                  + " ".join(f"{g:.4f}" for _, g in traj[variant]), flush=True)
         use("kernel")
         del model, trainer
         if dev.type == "cuda":
