@@ -1,0 +1,18 @@
+"""The WKV scan's backward kernel's share of its roofline over the traced
+stretch (train cells), in %: each call's least time from its shapes
+(work.wkv_bwd) over the device time of its launches. The profiler names of
+its functions are pinned here."""
+from portbench import rooflines, work
+
+FUNCTIONS = ('wkv_summary_kernel', 'wkv_carry_kernel', 'wkv_segment_kernel', 'wkv_finish_kernel')
+MAIN = 'wkv_finish_kernel'
+
+
+def _work(c: dict, s: dict):
+    h = c["num_heads"]
+    k = c["d_model"] // h
+    return work.wkv_bwd(s["batch"], s["length"], h, k)
+
+
+def read(trace, cell):
+    return rooflines.share(trace, FUNCTIONS, MAIN, lambda s: _work(cell.config, s))
